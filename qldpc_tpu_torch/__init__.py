@@ -1,11 +1,13 @@
 """qldpc_tpu_torch — the PyTorch/CUDA port of qldpc_tpu for one NVIDIA H100.
 
-The code-capacity Monte-Carlo slice: counter-mode RNG, noise channels,
-flooding BP and OSD-0 decoders, and the single-device engine. Plain torch
-runs everywhere; on CUDA tensors BP and the OSD elimination launch the
-hand-written kernels under ``ops/csrc/`` (built with nvcc at first use, see
-``_build.py``). The JAX package ``qldpc_tpu`` stays the reference; this
-package imports only its JAX-free host modules (codes, the Tanner graph).
+Two slices: the code-capacity Monte-Carlo loop (counter-mode RNG, noise
+channels, flooding BP and OSD-0, the single-device engine) and circuit-level
+decoding of detector error models (BP on irregular graphs, wide-system
+OSD-0, the DEM engine). Plain torch runs everywhere; on CUDA tensors BP and
+the OSD eliminations launch the hand-written kernels under ``ops/csrc/``
+(built with nvcc at first use, see ``_build.py``). The JAX package
+``qldpc_tpu`` stays the reference; this package imports only its JAX-free
+host modules (codes, the Tanner graph, the numpy DEM builders).
 """
 
 from qldpc_tpu import codes

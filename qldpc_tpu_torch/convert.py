@@ -16,12 +16,14 @@ import torch
 
 from qldpc_tpu_torch.decoders.bp import BPConfig
 from qldpc_tpu_torch.decoders.osd import OSDConfig
+from qldpc_tpu_torch.mc.dem_engine import DEMEngineConfig
 from qldpc_tpu_torch.mc.engine import EngineConfig
 
 __all__ = [
     "bp_config_from_reference",
     "osd_config_from_reference",
     "engine_config_from_reference",
+    "dem_engine_config_from_reference",
     "key_from_reference",
 ]
 
@@ -72,7 +74,7 @@ def osd_config_from_reference(cfg) -> OSDConfig:
     return OSDConfig(**_take(f, OSDConfig))
 
 
-def engine_config_from_reference(cfg) -> EngineConfig:
+def _engine_fields(cfg) -> dict:
     f = _fields(cfg)
     if f.pop("rescue_iters", 0):
         raise NotImplementedError(
@@ -84,7 +86,17 @@ def engine_config_from_reference(cfg) -> EngineConfig:
         f["bp"] = bp_config_from_reference(f["bp"])
     if f.get("osd") is not None:
         f["osd"] = osd_config_from_reference(f["osd"])
-    return EngineConfig(**_take(f, EngineConfig))
+    return f
+
+
+def engine_config_from_reference(cfg) -> EngineConfig:
+    return EngineConfig(**_take(_engine_fields(cfg), EngineConfig))
+
+
+def dem_engine_config_from_reference(cfg) -> DEMEngineConfig:
+    """The port's ``DEMEngineConfig`` from the JAX package's (the
+    ``complete-bposd`` preset's streams must be set to float32 first)."""
+    return DEMEngineConfig(**_take(_engine_fields(cfg), DEMEngineConfig))
 
 
 def key_from_reference(key_data) -> torch.Tensor:

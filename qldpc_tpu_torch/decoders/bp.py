@@ -1,13 +1,14 @@
 """Batched belief-propagation decoding in torch (flooding schedule).
 
-Port of qldpc_tpu/decoders/bp.py for check-regular Tanner graphs (the BB
-codes and Steane). The decoder is an ``nn.Module`` whose gather tables are
-registered buffers built from the shared ``TannerGraph``, so ``.to(device)``
-moves them with it. Decoding runs ``ops.bp_cuda.bp_flooding``: the plain
-torch version on CPU tensors, the fused kernel K1 on CUDA tensors.
+Port of qldpc_tpu/decoders/bp.py. The decoder is an ``nn.Module`` whose
+gather tables are registered buffers built from the shared ``TannerGraph``,
+so ``.to(device)`` moves them with it. Check-regular graphs (the BB codes
+and Steane) run ``ops.bp_cuda.bp_flooding``: the plain torch version on CPU
+tensors, the fused kernel K1 on CUDA tensors. Irregular graphs (detector
+error models) take the padded check-slot layout of the XLA path and run
+``ops.dem_bp_cuda.dem_bp``: plain torch on CPU tensors, K3 on CUDA tensors.
 
-Not in this slice (see ROADMAP.md): the layered schedule and irregular graphs
-(DEM and materialized space-time matrices).
+Not in this slice (see ROADMAP.md): the layered schedule.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from torch import nn
 
 from qldpc_tpu.ops.tanner import TannerGraph
 from qldpc_tpu_torch.ops.bp_cuda import BPTables, bp_flooding
+from qldpc_tpu_torch.ops.dem_bp_cuda import DEMTables, dem_bp, dem_tables
 
 __all__ = ["BPConfig", "BPResult", "BPDecoder"]
 
@@ -81,30 +83,35 @@ class BPDecoder(nn.Module):
         super().__init__()
         self.config = config
         self.graph = g = TannerGraph.from_H(H)
-        if not g.check_regular:
-            raise NotImplementedError(
-                "irregular Tanner graphs (DEM, space-time) are not ported yet "
-                "(ROADMAP.md, queue 1 item 9)"
-            )
         self.dtype = _DTYPES[config.dtype]
-        self.register_buffer(
-            "check_var",
-            torch.from_numpy(g.var_of_edge.reshape(g.m, g.dc_max).astype(np.int32)),
-        )
-        self.register_buffer(
-            "var_edge", torch.from_numpy(g.var_edge.astype(np.int32))
-        )
+        # irregular graphs use the padded check-slot layout
+        self.slot_layout = not g.check_regular
+        if self.slot_layout:
+            self._table_names = tuple(f.name for f in dataclasses.fields(DEMTables))
+            for name, arr in dem_tables(g).items():
+                self.register_buffer(name, torch.from_numpy(arr))
+        else:
+            self._table_names = ("check_var", "var_edge")
+            self.register_buffer(
+                "check_var",
+                torch.from_numpy(g.var_of_edge.reshape(g.m, g.dc_max).astype(np.int32)),
+            )
+            self.register_buffer(
+                "var_edge", torch.from_numpy(g.var_edge.astype(np.int32))
+            )
 
-    def tables(self) -> BPTables:
-        return BPTables(check_var=self.check_var, var_edge=self.var_edge)
+    def tables(self) -> BPTables | DEMTables:
+        kind = DEMTables if self.slot_layout else BPTables
+        return kind(**{name: getattr(self, name) for name in self._table_names})
 
     def forward(self, syndromes: torch.Tensor, priors: torch.Tensor,
                 alpha: float | None = None) -> BPResult:
         """Decode a batch. ``alpha`` overrides ``config.alpha`` for this call."""
-        dev = self.check_var.device
+        dev = getattr(self, self._table_names[0]).device
         syndromes = torch.as_tensor(syndromes, device=dev)
         priors = torch.as_tensor(priors, device=dev).to(self.dtype)
-        values, conv, iters, hard = bp_flooding(
+        run = dem_bp if self.slot_layout else bp_flooding
+        values, conv, iters, hard = run(
             syndromes, priors, self.tables(), self.config, alpha
         )
         return BPResult(hard=hard, converged=conv, llrs=values, iterations=iters)

@@ -3,13 +3,21 @@
 Port of the OSD-0 lanes pipeline of qldpc_tpu/decoders/osd.py
 (``_lanes_core``): the residual syndrome of the BP hard decision, columns
 ordered by ascending |LLR| (stable: ties are common and the order decides
-them), each sample's permuted H bit-packed, a full GF(2) elimination
-(``ops.osd_cuda.eliminate_rows``: plain torch on CPU, the kernel K2 on
-CUDA), then ``e_perm[piv_col[r]] = b[r]``, ``corr[order] = e_perm`` and
+them), a GF(2) elimination of each sample's permuted system, then
+``e_perm[piv_col[r]] = b[r]``, ``corr[order] = e_perm`` and
 ``solution = hard XOR corr``.
 
-Not in this slice (see ROADMAP.md): OSD-e (``order > 0``) and wide systems
-(circuit-level DEMs, which take the transform elimination).
+Two eliminations, chosen by the shape of H as the JAX decoder chooses them:
+
+  * narrow systems: each sample's permuted H bit-packed by rows and fully
+    row-reduced (``ops.osd_cuda.eliminate_rows``: plain torch on CPU, K2 on
+    CUDA);
+  * wide systems (``n_words > 4 * m_words``: circuit-level DEMs): the
+    transform elimination with the b-exit on (``ops.osd_transform_cuda``:
+    plain torch on CPU, K4 on CUDA), whose residual is a gather-parity over
+    each check's variables instead of a dense matmul.
+
+Not in this slice (see ROADMAP.md): OSD-e (``order > 0``).
 """
 
 from __future__ import annotations
@@ -21,7 +29,9 @@ import torch
 from torch import nn
 
 from qldpc_tpu.codes import gf2
+from qldpc_tpu.ops.tanner import parity_tables
 from qldpc_tpu_torch.ops.osd_cuda import WORD, eliminate_rows, pack_rows
+from qldpc_tpu_torch.ops.osd_transform_cuda import eliminate_transform, pack_columns
 
 __all__ = ["OSDConfig", "OSDDecoder"]
 
@@ -55,34 +65,45 @@ class OSDDecoder(nn.Module):
         H = (np.asarray(H) % 2).astype(np.uint8)
         self.m, self.n = H.shape
         self.n_words = -(-self.n // WORD)
-        m_words = -(-self.m // WORD)
-        if self.n_words > 4 * m_words:
-            raise NotImplementedError(
-                "wide systems (n_words > 4 * m_words) take the transform "
-                "elimination, which is not ported yet (ROADMAP.md, queue 1 "
-                "item 10)"
-            )
+        self.m_words = -(-self.m // WORD)
+        self.wide = self.n_words > 4 * self.m_words
         # every column step after a sample reaches rank(H) is a no-op
         self.h_rank = int(gf2.rank(H))
-        self.register_buffer("H", torch.from_numpy(H))
-        self.register_buffer("Hf", torch.from_numpy(H.astype(np.float32)))
+        if self.wide:
+            vos, self.dc_parity = parity_tables(H)
+            self.register_buffer("vos_parity", torch.from_numpy(vos.astype(np.int64)))
+            self.register_buffer("Hc", torch.from_numpy(pack_columns(H)))
+        else:
+            self.register_buffer("H", torch.from_numpy(H))
+            self.register_buffer("Hf", torch.from_numpy(H.astype(np.float32)))
+
+    def _residual(self, syndromes, hard):
+        B = hard.shape[0]
+        if self.wide:
+            hp = torch.nn.functional.pad(hard, (0, 1))  # phantom slots read n
+            hs = hp[:, self.vos_parity].view(B, self.m, self.dc_parity)
+            s_hat = hs.sum(dim=-1, dtype=torch.int32) % 2
+        else:
+            s_hat = torch.remainder(hard.to(torch.float32) @ self.Hf.T, 2.0).to(torch.int32)
+        return (syndromes.to(torch.int32) + s_hat) % 2
 
     def forward(self, syndromes: torch.Tensor, llrs: torch.Tensor,
                 hard: torch.Tensor) -> torch.Tensor:
         """OSD-0 solutions (B, n) int8."""
-        dev = self.H.device
+        dev = (self.Hc if self.wide else self.H).device
         syndromes = torch.as_tensor(syndromes, device=dev)
         llrs = torch.as_tensor(llrs, device=dev)
         hard = torch.as_tensor(hard, device=dev).to(torch.int32)
         B, n = hard.shape
-        resid = (
-            syndromes.to(torch.int32)
-            + torch.remainder(hard.to(torch.float32) @ self.Hf.T, 2.0).to(torch.int32)
-        ) % 2
+        resid = self._residual(syndromes, hard)
         order = torch.argsort(llrs.abs(), dim=1, stable=True)  # (B, n)
-        Hp = self.H[:, order].permute(1, 0, 2)  # (B, m, n) per-sample permuted
-        A = pack_rows(Hp)
-        _, b, piv = eliminate_rows(A, resid, n, self.h_rank)
+        if self.wide:
+            # OSD-0 reads only (b, piv_col), which the b-exit leaves exact
+            _, b, _, piv = eliminate_transform(order, resid, self.Hc, self.h_rank,
+                                               b_exit=True)
+        else:
+            Hp = self.H[:, order].permute(1, 0, 2)  # (B, m, n) per-sample permuted
+            _, b, piv = eliminate_rows(pack_rows(Hp), resid, n, self.h_rank)
         bidx = torch.arange(B, device=dev)[:, None]
         tgt = torch.where(piv >= 0, piv, n).long()
         e_perm = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)

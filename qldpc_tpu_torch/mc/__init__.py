@@ -1,3 +1,4 @@
+from .dem_engine import DEMEngine, DEMEngineConfig
 from .engine import EngineConfig, MonteCarloEngine, SweepResult
 from .metrics import HIST_BINS, Counters, counters_to_dict, zeros_counters
 
@@ -5,6 +6,8 @@ __all__ = [
     "EngineConfig",
     "MonteCarloEngine",
     "SweepResult",
+    "DEMEngine",
+    "DEMEngineConfig",
     "Counters",
     "HIST_BINS",
     "counters_to_dict",

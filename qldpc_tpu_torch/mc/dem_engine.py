@@ -1,0 +1,123 @@
+"""Circuit-level decoding engine over a detector error model, on one device.
+
+Port of qldpc_tpu/mc/dem_engine.py onto the port's ``MonteCarloEngine``:
+every mechanism of the DEM fires as an independent Bernoulli of its prior,
+drawn as ``u < prior`` from the counter-mode RNG with the JAX engine's keys
+and sample ids; the detector syndrome is a gather-parity over each
+detector's mechanisms; BP (+ OSD-0 on its failures) decodes it; a logical
+error is a predicted observable flip ``L @ e_hat`` that differs from the
+actual ``L @ e``. The weight-versus-distance split has no meaning in
+mechanism space, so the distance is 0 and every logical error counts as
+``incorrectable``, as in the JAX engine.
+
+For a ``ParametricDEM`` the priors are its closed form at the physical rate
+p, ``q = (1 - exp(counts @ log1p(-2 r p))) / 2`` clipped to [1e-15,
+1 - 1e-15] and ``llr = log((1 - q) / q)``, in float32 like the JAX engine.
+They are computed on the CPU and then moved, so every device decodes with
+the same prior bits. A plain ``DEMData`` carries its own priors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import ClassVar
+
+import numpy as np
+import torch
+
+from qldpc_tpu.ops.tanner import parity_tables
+from qldpc_tpu_torch.decoders.bp import BPDecoder
+from qldpc_tpu_torch.decoders.osd import OSDDecoder
+from qldpc_tpu_torch.mc.engine import EngineConfig, MonteCarloEngine
+from qldpc_tpu_torch.mc.metrics import counters_to_dict
+from qldpc_tpu_torch.noise.dem import DEMData, ParametricDEM
+from qldpc_tpu_torch.utils import rng
+
+__all__ = ["DEMEngine", "DEMEngineConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DEMEngineConfig(EngineConfig):
+    channel: str = "dem"
+
+    _channels: ClassVar[tuple[str, ...]] = ("dem",)
+
+
+@dataclasses.dataclass(frozen=True)
+class _DEMCodeShim:
+    """The ``code`` of a DEM engine: a name for sweep results."""
+
+    name: str
+
+
+class DEMEngine(MonteCarloEngine):
+    """Batched logical-error estimation for one detector error model on one
+    explicitly named device."""
+
+    def __init__(self, dem: DEMData | ParametricDEM,
+                 config: DEMEngineConfig = DEMEngineConfig(),
+                 device="cpu", name: str = "dem"):
+        if isinstance(device, (list, tuple)):
+            raise NotImplementedError(
+                "multi-device execution is not ported yet (ROADMAP.md, queue "
+                "1 item 13)"
+            )
+        if not isinstance(config, DEMEngineConfig):
+            fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
+            config = DEMEngineConfig(**{**fields, "channel": "dem"})
+        self.dem = dem
+        self.code = _DEMCodeShim(name=name)
+        self.config = config
+        self.device = dev = torch.device(device)
+        self.m_checks, self.n_vars = dem.H.shape
+        self.distance = 0  # every logical error is "incorrectable"
+        self.bp = BPDecoder(dem.H, config.bp).to(dev)
+        self.osd = OSDDecoder(dem.H, config.osd).to(dev) if config.osd is not None else None
+        vos, self._dc_parity = parity_tables(dem.H)
+        self._vos_parity = torch.from_numpy(vos.astype(np.int64)).to(dev)
+        self._Lf = torch.tensor(np.asarray(dem.L) % 2, dtype=torch.float32, device=dev)
+        self.k_osd = max(1, int(round(config.batch_size * config.osd_fraction)))
+        # one uniform per mechanism: the largest stride of any engine
+        self._check_counter_space(self.n_vars)
+        self._parametric = isinstance(dem, ParametricDEM)
+        if self._parametric:
+            self._ratios = torch.tensor(dem.ratios, dtype=torch.float32)
+            self._counts = torch.tensor(dem.counts, dtype=torch.float32)
+        else:
+            self._fixed = (
+                torch.tensor(dem.priors, dtype=torch.float32).to(dev),
+                torch.tensor(dem.llrs, dtype=torch.float32).to(dev),
+            )
+
+    def _syndrome(self, errors):
+        """Gather-parity detector syndrome, (B, n) -> (B, m) int8."""
+        ep = torch.nn.functional.pad(errors.to(torch.int32), (0, 1))
+        es = ep[:, self._vos_parity].view(errors.shape[0], self.m_checks, self._dc_parity)
+        return (es.sum(dim=-1, dtype=torch.int32) % 2).to(torch.int8)
+
+    def priors(self, p: float):
+        """Mechanism priors and their LLRs, (n,) float32 each, on the device."""
+        if not self._parametric:
+            return self._fixed
+        p32 = torch.tensor(p, dtype=torch.float32)
+        acc = self._counts @ torch.log1p(-2.0 * self._ratios * p32)
+        q = 0.5 * (1.0 - torch.exp(acc))
+        qc = torch.clamp(q, 1e-15, 1.0 - 1e-15)
+        llr = torch.log((1.0 - qc) / qc)
+        return q.to(self.device), llr.to(self.device)
+
+    def _sample(self, key, p: float):
+        """Per-mechanism Bernoulli firings; returns (errors, syndromes,
+        priors). ``p`` is ignored for a plain DEMData."""
+        prob, llr = self.priors(p)
+        u = rng.counter_uniform(key, 0, self.config.batch_size, self.n_vars,
+                                device=self.device)
+        errors = (u < prob[None, :]).to(torch.int8)
+        return errors, self._syndrome(errors), llr
+
+    def run(self, shots: int, seed: int = 0, p: float = 0.0) -> dict:
+        """Estimate the logical error rate over ``shots`` sampled shots.
+        ``p`` is the physical rate of a ParametricDEM (ignored otherwise)."""
+        if self._parametric and p <= 0.0:
+            raise ValueError("a ParametricDEM needs a physical rate: run(..., p=...)")
+        return counters_to_dict(self.run_rate(p, shots, seed=seed))

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -54,13 +55,15 @@ class EngineConfig:
     osd_fraction: float = 1.0  # OSD capacity as a fraction of the batch;
     # failures beyond it keep the BP output and count as osd_overflow
 
+    _channels: ClassVar[tuple[str, ...]] = _CHANNELS
+
     def __post_init__(self):
         if self.channel == "space-time":
             raise NotImplementedError(
                 "the space-time channel is not ported yet (ROADMAP.md, queue "
                 "1 item 11)"
             )
-        if self.channel not in _CHANNELS:
+        if self.channel not in self._channels:
             raise ValueError(f"unknown channel {self.channel!r}")
         if self.basis not in ("x", "z"):
             raise ValueError(f"unknown basis {self.basis!r}")
@@ -104,12 +107,15 @@ class MonteCarloEngine:
         )
         self._Hf = torch.tensor(np.asarray(H) % 2, dtype=torch.float32, device=self.device)
         self._Lf = torch.tensor(np.asarray(L) % 2, dtype=torch.float32, device=self.device)
-        B = config.batch_size
-        self.k_osd = max(1, int(round(B * config.osd_fraction)))
-        stride = self.n_vars + (
+        self.k_osd = max(1, int(round(config.batch_size * config.osd_fraction)))
+        self._check_counter_space(self.n_vars + (
             self.m_checks if config.channel == "phenomenological" else 0
-        )
-        if B * ((stride + 1) // 2) >= 2**32:
+        ))
+
+    def _check_counter_space(self, stride: int) -> None:
+        """One batch draws ``batch_size * ceil(stride / 2)`` counter pairs;
+        past 2^32 the streams would wrap and repeat across samples."""
+        if self.config.batch_size * ((stride + 1) // 2) >= 2**32:
             raise ValueError(
                 f"batch_size x {(stride + 1) // 2} counter pairs per sample "
                 "exceeds the 2^32 counter space of one batch; use a smaller "
@@ -137,6 +143,10 @@ class MonteCarloEngine:
         priors = ch.uniform_prior_llr(n, p, device=dev)
         return errors, syn, priors
 
+    def _syndrome(self, errors):
+        """(B, n) -> (B, m) int8 syndromes, for the classification."""
+        return ch.syndrome_of(self._Hf, errors)
+
     def _post_process(self, syn, bp_res: BPResult):
         """OSD-0 on the first ``k_osd`` BP failures; returns (final, overflow)."""
         failed = ~bp_res.converged
@@ -161,7 +171,7 @@ class MonteCarloEngine:
         vec_logical = (logical_vec != 0).any(-1)
         logical = vec_logical if self.osd is not None else vec_logical | ~conv
         mismatch = (final_i != errors_i).any(-1)
-        sol_valid = (ch.syndrome_of(self._Hf, final) == syn.to(torch.int8)).all(-1)
+        sol_valid = (self._syndrome(final) == syn.to(torch.int8)).all(-1)
         # strict weight < d/2 in integers (2w < d), as the reference
         low_weight = (2 * err_weight) < self.distance
         degenerate = ~logical & mismatch

@@ -2,7 +2,11 @@
 
     python3 scripts/profile_torch_engine.py [--code "[[144, 12, 12]]"] \
         [--batch 65536] [--p 0.01 0.050119] [--out DIR]
+    python3 scripts/profile_torch_engine.py --dem --code "[[72, 12, 6]]" \
+        --batch 1024 --p 0.001 0.002
 
+Code capacity by default; with ``--dem`` the circuit-level DEM engine on the
+code's Z-basis memory-experiment DEM (``--rounds``, default the distance).
 For each error rate: the wall time of each stage of one batch (sampling,
 BP, OSD-0 post-processing, classification), each ending in a device
 synchronize, and a torch.profiler trace of one whole ``run_rate`` with the
@@ -26,7 +30,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from qldpc_tpu.codes import get_code  # noqa: E402
 from qldpc_tpu_torch.decoders import BPConfig, OSDConfig  # noqa: E402
-from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine  # noqa: E402
+from qldpc_tpu_torch.mc import (  # noqa: E402
+    DEMEngine,
+    DEMEngineConfig,
+    EngineConfig,
+    MonteCarloEngine,
+)
+from qldpc_tpu_torch.noise.dem import parametric_memory_dem  # noqa: E402
 from qldpc_tpu_torch.utils import rng  # noqa: E402
 
 
@@ -61,16 +71,19 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--p", type=float, nargs="+", default=[0.01, 0.050119])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--dem", action="store_true")
+    ap.add_argument("--rounds", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
         return 1
-    eng = MonteCarloEngine(
-        get_code(args.code),
-        EngineConfig(bp=BPConfig(max_iter=50), osd=OSDConfig(order=0),
-                     batch_size=args.batch),
-        device="cuda",
-    )
+    code = get_code(args.code)
+    kw = dict(bp=BPConfig(max_iter=50), osd=OSDConfig(order=0), batch_size=args.batch)
+    if args.dem:
+        dem = parametric_memory_dem(code, basis="z", rounds=args.rounds or code.distance)
+        eng = DEMEngine(dem, DEMEngineConfig(**kw), device="cuda", name=args.code)
+    else:
+        eng = MonteCarloEngine(code, EngineConfig(**kw), device="cuda")
     eng.run_rate(args.p[0], args.batch)  # build the kernels, warm the allocator
     report = []
     for p in args.p:

@@ -142,6 +142,9 @@ def test_config_conversion():
 def test_out_of_slice_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BPConfig(schedule="layered")
-    H = np.array([[1, 1, 0], [0, 1, 1], [1, 1, 1]], np.uint8)  # irregular checks
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BPDecoder(H)
+    # irregular checks are ported now: they take the check-slot layout
+    H = np.array([[1, 1, 0], [0, 1, 1], [1, 1, 1]], np.uint8)
+    dec = BPDecoder(H)
+    assert dec.slot_layout
+    r = dec(torch.tensor([[1, 0, 1]], dtype=torch.int8), torch.full((3,), 2.0))
+    assert r.converged.all() and r.hard.tolist() == [[1, 0, 0]]

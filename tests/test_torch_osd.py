@@ -114,7 +114,13 @@ def test_osd0_solutions_match_jax(rng, code_name):
 def test_osd_out_of_slice_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OSDConfig(order=2)
+    # wide systems are ported now: they take the transform elimination
     wide = np.zeros((8, 32 * 5 + 1), np.uint8)  # 6 words against 1: transform path
     wide[:, 0] = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OSDDecoder(wide)
+    wide[np.arange(8), 1 + np.arange(8)] = 1
+    osd = OSDDecoder(wide)
+    assert osd.wide and osd.h_rank == 8
+    syn = torch.tensor([[1, 0, 1, 0, 0, 0, 0, 1]], dtype=torch.int8)
+    llrs = torch.full((1, wide.shape[1]), 3.0)
+    sol = osd(syn, llrs, torch.zeros((1, wide.shape[1]), dtype=torch.int8))
+    assert np.array_equal((sol.numpy().astype(np.int64) @ wide.T) % 2, syn.numpy())

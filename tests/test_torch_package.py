@@ -10,7 +10,7 @@ import torch
 
 from qldpc_tpu_torch.convert import osd_config_from_reference
 from qldpc_tpu_torch.decoders import OSDConfig
-from qldpc_tpu_torch.ops import bp_cuda, osd_cuda
+from qldpc_tpu_torch.ops import bp_cuda, dem_bp_cuda, osd_cuda, osd_transform_cuda
 
 torch.set_num_threads(2)
 
@@ -57,6 +57,53 @@ def test_kernel_sources_ship_beside_the_wrappers():
     assert (csrc / "bp_flooding.cu").is_file()
     assert (csrc / "gf2_elim.cu").is_file()
     assert bp_cuda._LIB.source.parent == osd_cuda._LIB.source.parent == csrc
+
+
+def test_dem_kernel_sources_ship_beside_the_wrappers():
+    csrc = REPO / "qldpc_tpu_torch" / "ops" / "csrc"
+    for module, source in ((dem_bp_cuda, "dem_bp.cu"),
+                           (osd_transform_cuda, "gf2_transform_elim.cu")):
+        assert (csrc / source).is_file()
+        assert module._LIB.source == csrc / source
+
+
+_DEM_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises
+from qldpc_tpu.codes import get_code
+from qldpc_tpu_torch.noise.dem import parametric_memory_dem
+from qldpc_tpu_torch.mc import DEMEngine, DEMEngineConfig
+dem = parametric_memory_dem(get_code("steane"), basis="z", rounds=2)
+eng = DEMEngine(dem, DEMEngineConfig(batch_size=16), device="cpu")
+d = eng.run(16, seed=0, p=0.01)
+print(dem.H.shape, d["trials"], "qldpc_tpu.noise" in sys.modules)
+"""
+
+
+def test_dem_path_runs_with_jax_blocked():
+    shape, trials, parent_loaded = _run(_DEM_WITHOUT_JAX).rsplit(" ", 2)
+    assert shape.startswith("(") and int(trials) == 16
+    # the numpy builders were loaded without the JAX noise package
+    assert parent_loaded == "False"
+
+
+_LOADER_THEN_PACKAGE = """
+import qldpc_tpu_torch.noise.dem as port_dem
+from qldpc_tpu.noise import code_capacity, DEMData
+import qldpc_tpu.noise.circuit as circuit
+print(callable(code_capacity), DEMData is port_dem.DEMData,
+      circuit.parametric_memory_dem is port_dem.parametric_memory_dem)
+"""
+
+
+def test_jax_noise_package_still_imports_after_the_loader():
+    # the loader leaves no stand-in for qldpc_tpu.noise behind: a later
+    # import of the JAX package runs its __init__ and shares the modules
+    assert _run(_LOADER_THEN_PACKAGE) == "True True True"
+    import qldpc_tpu_torch.noise.dem  # noqa: F401  (in this process too)
+    from qldpc_tpu.noise import code_capacity
+
+    assert callable(code_capacity)
 
 
 def test_wrappers_refuse_unknown_devices():
