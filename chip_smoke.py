@@ -1,12 +1,13 @@
-"""Drive the PyTorch/CUDA port's two paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's three paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. toolchain: torch, CUDA, the card, its power limit, nvcc, triton;
-  2. build the kernels K1 (fused BP), K2 (GF(2) elimination), K3 (DEM BP)
-     and K4 (transform GF(2) elimination) with nvcc from
-     qldpc_tpu_torch/ops/csrc/, one nvcc per source, all at once;
+  2. build the kernels K1 (fused BP), K2 (GF(2) elimination), K3 (DEM BP),
+     K4 (transform GF(2) elimination) and K5a-d (factored GF(2)
+     elimination) with nvcc from qldpc_tpu_torch/ops/csrc/, one nvcc per
+     source, all at once;
   code capacity, [[144,12,12]]:
   3. K1 against its plain torch version;
   4. K2 against its plain torch version on the BP failures of phase 3;
@@ -20,12 +21,27 @@ Phases (any failure raises and the script exits non-zero):
   9. the DEM engine's sweep at p = 0.001 and 0.002, with the kernel launch
      counts of that sweep, its observable error and OSD invocation rates
      held against docs/circuit_ler.md, and its counters held against the
-     CPU DEM engine on a small input;
+     CPU DEM engine on a small input, with the transform and with the
+     factored elimination;
   10. steady-state trials/s of the DEM engine, with the kernels and with
-      their plain versions.
-The second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result.
+      their plain versions;
+  circuit level, the [[144,12,12]] memory-experiment DEM (1728 x 66981):
+  11. K3 against its plain torch version, B = 1024, sum-product, p = 0.002;
+  12. K5a-d against their plain versions on the BP failures of phase 11:
+      the whole elimination on 128 of them, and each kernel at every block
+      of one OSD call on all of them; the factored OSD-0 solutions against
+      the plain transform elimination's on 32;
+  13. the DEM engine's sweep at p = 0.001 and 0.002 (launches K3 and K5a-d,
+      never K4), held against docs/circuit_ler.md, and its counters held
+      against the CPU DEM engine on 32 trials;
+  14. steady-state trials/s of the DEM engine.
+Before the last it prints the card's name and power limit and the kernels'
+JSON record (each kernel's launches on its path, its time and its plain
+version's, and its bound: the larger of the bytes it must move over 3.35
+TB/s and the operations it must do over 67 T/s, the card's non-tensor
+32-bit peak, which also bounds its integer issue rate); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -51,13 +68,23 @@ ENGINE_BATCH, ENGINE_TRIALS = 65536, 262144  # per error rate
 THROUGHPUT_BATCH = 262144
 
 DEM_CODE, DEM_ROUNDS = "[[72, 12, 6]]", 6
-# BP(50)+OSD-0 on the [[72,12,6]] Z-memory DEM, rounds = 6, float32 streams,
-# 10,000 trials per rate (docs/circuit_ler.md:39-48): p -> (observable
-# error rate, OSD invocation rate, mean BP iterations)
+# BP(50)+OSD-0 on the Z-memory DEMs with float32 streams, 10,000 trials per
+# rate (docs/circuit_ler.md:39-48 and :72-81): p -> (observable error rate,
+# OSD invocation rate, mean BP iterations)
 DEM_REF = {0.001: (0.0102, 0.424, 26.5), 0.002: (0.0689, 0.700, 38.8)}
+DEM144_CODE, DEM144_ROUNDS = "[[144, 12, 12]]", 12
+DEM144_REF = {0.001: (0.0009, 0.894, 46.5), 0.002: (0.0264, 0.993, 48.9)}
 DEM_REF_TRIALS = 10_000
 DEM_BATCH, DEM_TRIALS = 1024, 10_240  # per error rate
 K3_DECISION_TOL = 1  # lanes in 1024 allowed to differ in decision (K3)
+K5_CHECK_LANES, SOLUTION_LANES = 128, 32
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# float32 operations per real edge and BP iteration: the check rule (tanh,
+# the leave-one-out products or log/exp sums, clamp, atanh, scaling) and the
+# variable side (one add into the posterior, one subtraction per message)
+BP_OPS_PER_EDGE = 10
 
 
 def log(msg: str) -> None:
@@ -84,6 +111,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def popcount(words: torch.Tensor) -> int:
+    """Set bits of int32 words holding uint32 patterns."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return int((((v * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+
+
+def bound(moved: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def bp_bound(syn, priors, tables, iters, edges: int) -> dict:
+    """A BP call reads the syndromes, priors and tables once and writes the
+    posteriors, convergence flags and iterations; it runs each sample's
+    iterations over every real edge."""
+    B, n = syn.shape[0], priors.shape[-1]
+    moved = nbytes(syn, priors, *[getattr(tables, f) for f in tables.__dataclass_fields__])
+    moved += B * n * 4 + B + B * 4
+    return bound(moved, float((iters.to(torch.int64) + 1).sum()) * edges * BP_OPS_PER_EDGE)
+
+
 def phase_toolchain(card_line: str) -> None:
     from qldpc_tpu_torch._build import nvcc_path
 
@@ -102,9 +160,16 @@ def phase_toolchain(card_line: str) -> None:
 
 
 def phase_build() -> None:
-    from qldpc_tpu_torch.ops import bp_cuda, dem_bp_cuda, osd_cuda, osd_transform_cuda
+    from qldpc_tpu_torch.ops import (
+        bp_cuda,
+        dem_bp_cuda,
+        osd_cuda,
+        osd_factored_cuda,
+        osd_transform_cuda,
+    )
 
-    libs = [m._LIB for m in (bp_cuda, osd_cuda, dem_bp_cuda, osd_transform_cuda)]
+    libs = [m._LIB for m in (bp_cuda, osd_cuda, dem_bp_cuda, osd_transform_cuda,
+                             osd_factored_cuda)]
 
     def build(lib):
         t0 = time.perf_counter()
@@ -177,9 +242,9 @@ def phase_k1(H: np.ndarray, dev) -> tuple[float, dict]:
     return worst, failures
 
 
-def phase_k2(H: np.ndarray, dev, failures: dict) -> tuple[float, float]:
+def phase_k2(H: np.ndarray, dev, failures: dict) -> dict:
     """K2 against the plain version on the BP failures; bit-identical.
-    Returns the (kernel, plain) milliseconds per call."""
+    Returns its kernel record: (kernel, plain) ms per call and the bound."""
     from qldpc_tpu_torch.decoders import OSDDecoder
     from qldpc_tpu_torch.ops.osd_cuda import (
         eliminate_rows_cuda,
@@ -206,11 +271,15 @@ def phase_k2(H: np.ndarray, dev, failures: dict) -> tuple[float, float]:
     ms = cuda_ms(lambda: eliminate_rows_cuda(A, resid, n, osd.h_rank), reps=5)
     plain_ms = cuda_ms(lambda: eliminate_rows_plain(A, resid, n, osd.h_rank), reps=1)
     log(f"K2 time {ms:.4f} ms, plain {plain_ms:.4f} ms ({lanes} lanes)")
-    return ms, plain_ms
+    # reads A and b, writes A, b and piv; each pivot touches every word of
+    # every row once
+    pivots = int((kp >= 0).sum())
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+                **bound(2 * nbytes(A, resid) + nbytes(kp), pivots * A.shape[1] * A.shape[2]))
 
 
 def phase_engine(dev, card_line: str) -> dict:
-    from qldpc_tpu.codes import get_code
+    from qldpc_tpu_torch.codes import get_code
     from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
     from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine
     from qldpc_tpu_torch.ops import bp_cuda, osd_cuda
@@ -260,7 +329,7 @@ def phase_engine_vs_cpu(dev) -> None:
     """Small input: the card's engine (K1, K2) against the CPU engine (plain
     versions). Min-sum without alpha is exact arithmetic in both, so the
     counters must be identical."""
-    from qldpc_tpu.codes import get_code
+    from qldpc_tpu_torch.codes import get_code
     from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
     from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine, counters_to_dict
 
@@ -276,7 +345,7 @@ def phase_engine_vs_cpu(dev) -> None:
         raise AssertionError("the card's engine disagrees with the CPU engine")
 
 
-def phase_throughput(H: np.ndarray, dev, card_line: str) -> tuple[float, float]:
+def phase_throughput(H: np.ndarray, dev, card_line: str) -> dict:
     from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
     from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
 
@@ -292,7 +361,9 @@ def phase_throughput(H: np.ndarray, dev, card_line: str) -> tuple[float, float]:
     log(f"BP(50) {CODE} p={p} B={B}: K1 {ms:.3f} ms = {B / ms * 1e3:.0f} syndromes/s; "
         f"plain torch {plain_ms:.3f} ms = {B / plain_ms * 1e3:.0f} syndromes/s "
         f"on {card_line}")
-    return ms, plain_ms
+    iters = bp_flooding_cuda(*args)[2]
+    return dict(ms=ms, plain_ms=plain_ms,
+                **bp_bound(syn, prior, dec.tables(), iters, int(H.sum())))
 
 
 def binomial_limit(x: float, n: int, ref: float, n_ref: int) -> float:
@@ -300,32 +371,34 @@ def binomial_limit(x: float, n: int, ref: float, n_ref: int) -> float:
     return 4 * math.sqrt(x * (1 - x) / n + ref * (1 - ref) / n_ref)
 
 
-def dem_engine(dev, cfg_bp=None, batch: int = DEM_BATCH):
-    from qldpc_tpu.codes import get_code
+def dem_engine(dev, cfg_bp=None, batch: int = DEM_BATCH, code: str = DEM_CODE,
+               rounds: int = DEM_ROUNDS, osd=None):
+    from qldpc_tpu_torch.codes import get_code
     from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
     from qldpc_tpu_torch.mc import DEMEngine, DEMEngineConfig
-    from qldpc_tpu_torch.noise.dem import parametric_memory_dem
+    from qldpc_tpu_torch.noise.circuit import parametric_memory_dem
 
-    dem = parametric_memory_dem(get_code(DEM_CODE), basis="z", rounds=DEM_ROUNDS)
-    cfg = DEMEngineConfig(bp=cfg_bp or BPConfig(max_iter=50), osd=OSDConfig(order=0),
+    dem = parametric_memory_dem(get_code(code), basis="z", rounds=rounds)
+    cfg = DEMEngineConfig(bp=cfg_bp or BPConfig(max_iter=50), osd=osd or OSDConfig(order=0),
                           batch_size=batch)
-    return DEMEngine(dem, cfg, device=dev, name=f"{DEM_CODE} DEM, rounds {DEM_ROUNDS}")
+    return DEMEngine(dem, cfg, device=dev, name=f"{code} DEM, rounds {rounds}")
 
 
-def phase_k3(eng, dev) -> tuple[float, float, float, dict]:
-    """K3 against the plain version on the [[72]] DEM at both rates.
-    Returns (max_abs_err, K3 ms, plain ms, BP failures at p = 0.002)."""
+def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum")):
+    """K3 against the plain version on one DEM. Returns its record at the
+    first rate, sum-product (max_abs_err over every case, ms, plain ms, the
+    bound) and the BP failures at p = 0.002, sum-product."""
     from qldpc_tpu_torch.decoders import BPConfig
     from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain
 
     B, tables = DEM_BATCH, eng.bp.tables()
-    worst, failures, times = 0.0, None, None
-    for p in DEM_REF:
+    worst, failures, rec = 0.0, None, None
+    for p in rates:
         prob, llr = eng.priors(p)
         rng = np.random.default_rng(3)
         mech = rng.random((B, eng.n_vars)) < prob.cpu().numpy()
         syn = eng._syndrome(torch.from_numpy(mech.astype(np.int8)).to(dev))
-        for method in ("sum-product", "min-sum"):
+        for method in methods:
             cfg = BPConfig(max_iter=50, method=method)
             kv, kc, ki, kh = dem_bp_cuda(syn, llr, tables, cfg)
             torch.cuda.synchronize()
@@ -335,9 +408,9 @@ def phase_k3(eng, dev) -> tuple[float, float, float, dict]:
             n_diff, agree = int(differ.sum()), ~differ
             err = float((kv[agree] - rv[agree]).abs().max()) if bool(agree.any()) else 0.0
             exact = all(torch.equal(a, b) for a, b in ((kv, rv), (kc, rc), (ki, ri), (kh, rh)))
-            log(f"K3 {method} p={p}: B={B} converged {int(kc.sum())} mean iterations "
-                f"{ki.float().mean().item():.3f} lanes differing in decision {n_diff} "
-                f"max |dvalues| {err:.3g} bit-identical {exact}")
+            log(f"K3 {eng.code.name} {method} p={p}: B={B} converged {int(kc.sum())} mean "
+                f"iterations {ki.float().mean().item():.3f} lanes differing in decision "
+                f"{n_diff} max |dvalues| {err:.3g} bit-identical {exact}")
             if method == "min-sum" and not exact:
                 raise AssertionError(f"K3 min-sum p={p} is not bit-identical to the plain version")
             if n_diff > K3_DECISION_TOL * B / 1024:
@@ -351,19 +424,21 @@ def phase_k3(eng, dev) -> tuple[float, float, float, dict]:
             if method == "sum-product" and p == 0.002:
                 fail = ~kc
                 failures = dict(syn=syn[fail], llrs=kv[fail], hard=kh[fail])
-            if method == "sum-product" and p == 0.001:
+            if method == "sum-product" and rec is None:
                 args = (syn, llr, tables, cfg)
-                times = (cuda_ms(lambda: dem_bp_cuda(*args), reps=3),
-                         cuda_ms(lambda: dem_bp_plain(*args), reps=1))
-    log(f"K3 BP(50) sum-product p=0.001 B={B}: {times[0]:.3f} ms per call, "
-        f"plain {times[1]:.3f} ms")
-    return worst, times[0], times[1], failures
+                rec = dict(ms=cuda_ms(lambda: dem_bp_cuda(*args), reps=3),
+                           plain_ms=cuda_ms(lambda: dem_bp_plain(*args), reps=1),
+                           **bp_bound(syn, llr, tables, ki, int(tables.check_deg.sum())))
+                log(f"K3 {eng.code.name} BP(50) sum-product p={p} B={B}: {rec['ms']:.3f} ms "
+                    f"per call, plain {rec['plain_ms']:.3f} ms")
+    rec["max_abs_err"] = worst
+    return rec, failures
 
 
-def phase_k4(eng, failures: dict) -> tuple[float, float]:
+def phase_k4(eng, failures: dict) -> dict:
     """K4 against the plain version on the BP failures, with and without
-    the b-exit; bit-identical. Returns the (kernel, plain) ms per call
-    with the b-exit, as OSD-0 runs it."""
+    the b-exit; bit-identical. Returns its record with the b-exit, as OSD-0
+    runs it."""
     from qldpc_tpu_torch.ops.osd_transform_cuda import (
         eliminate_transform_cuda,
         eliminate_transform_plain,
@@ -392,31 +467,38 @@ def phase_k4(eng, failures: dict) -> tuple[float, float]:
     ms = cuda_ms(lambda: eliminate_transform_cuda(*args), reps=5)
     plain_ms = cuda_ms(lambda: eliminate_transform_plain(*args), reps=1)
     log(f"K4 time {ms:.4f} ms, plain {plain_ms:.4f} ms ({lanes} lanes, b-exit on)")
-    return ms, plain_ms
+    T, b, rank, piv = eliminate_transform_cuda(*args)
+    # reads order, resid and the packed columns, writes T, b, rank, piv; for
+    # each column up to a sample's last pivot, one AND and one XOR per word
+    # of every row of T
+    cols = float((piv.max(dim=1).values.to(torch.int64) + 1).sum())
+    moved = nbytes(order.to(torch.int32), resid, osd.Hc, T, b, rank, piv)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+                **bound(moved, cols * osd.m * osd.m_words * 2))
 
 
-def phase_dem_engine(eng, card_line: str) -> dict:
-    from qldpc_tpu_torch.ops import dem_bp_cuda, osd_transform_cuda
-
-    rates = list(DEM_REF)
+def phase_dem_engine(eng, card_line: str, refs: dict, kernels: dict, absent: dict) -> dict:
+    """The DEM engine's sweep on ``refs``' rates; every kernel of
+    ``kernels`` (name -> wrapper) must launch and none of ``absent``."""
+    rates = list(refs)
     torch.cuda.synchronize()
-    dem_bp_cuda.dem_bp_cuda.launches = 0
-    osd_transform_cuda.eliminate_transform_cuda.launches = 0
+    for fn in (*kernels.values(), *absent.values()):
+        fn.launches = 0
     res = eng.sweep(rates, trials=DEM_TRIALS)
     torch.cuda.synchronize()
-    launches = {
-        "dem_bp": dem_bp_cuda.dem_bp_cuda.launches,
-        "gf2_transform_elim": osd_transform_cuda.eliminate_transform_cuda.launches,
-    }
+    launches = {name: fn.launches for name, fn in {**kernels, **absent}.items()}
     log(f"DEM engine sweep {eng.code.name} BP(50)+OSD-0, {DEM_TRIALS} trials per rate, "
         f"batch {DEM_BATCH}: wall {res.wall_time_s:.3f} s, {res.throughput:.1f} trials/s "
         f"(first use included) on {card_line}")
     log(f"DEM engine kernel launches in the sweep: {json.dumps(launches)}")
-    for name, count in launches.items():
-        if count < 1:
+    for name in kernels:
+        if launches[name] < 1:
             raise AssertionError(f"the DEM engine's sweep never launched {name}")
+    for name in absent:
+        if launches[name]:
+            raise AssertionError(f"the DEM engine's sweep launched {name}")
     for p, d in zip(rates, res.per_rate):
-        ref_err, ref_osd, ref_iters = DEM_REF[p]
+        ref_err, ref_osd, ref_iters = refs[p]
         scalars = {k: v for k, v in d.items() if not isinstance(v, np.ndarray)}
         log(f"DEM engine p={p}: {json.dumps(scalars)}")
         for name, got, ref in (("obs-err", d["ler"], ref_err), ("OSD rate", d["osd"], ref_osd)):
@@ -430,56 +512,217 @@ def phase_dem_engine(eng, card_line: str) -> dict:
     return launches
 
 
-def phase_dem_engine_vs_cpu(dev) -> None:
-    """Small input: the card's DEM engine (K3, K4) against the CPU DEM
-    engine (plain versions). Min-sum without alpha is exact arithmetic, and
-    the priors are computed on the CPU for both, so the counters must be
-    identical."""
-    from qldpc_tpu_torch.decoders import BPConfig
+def phase_dem_engine_vs_cpu(dev, trials: int, code: str = DEM_CODE, rounds: int = DEM_ROUNDS,
+                            backend: str = "auto") -> None:
+    """Small input: the card's DEM engine (K3 and K4 or K5) against the CPU
+    DEM engine (plain versions). Min-sum without alpha is exact arithmetic,
+    the priors are computed on the CPU for both and both pick the
+    elimination from H's shape, so the counters must be identical."""
+    from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
     from qldpc_tpu_torch.mc import counters_to_dict
 
-    ms = BPConfig(max_iter=50, method="min-sum")
-    trials, p = 256, 0.001
-    got = counters_to_dict(dem_engine(dev, ms, batch=trials).run_rate(p, trials, seed=1))
-    ref = counters_to_dict(dem_engine("cpu", ms, batch=trials).run_rate(p, trials, seed=1))
+    ms, osd = BPConfig(max_iter=50, method="min-sum"), OSDConfig(backend=backend)
+    p = 0.001
+    card_eng = dem_engine(dev, ms, batch=trials, code=code, rounds=rounds, osd=osd)
+    cpu_eng = dem_engine("cpu", ms, batch=trials, code=code, rounds=rounds, osd=osd)
+    if card_eng.osd.elimination != cpu_eng.osd.elimination:
+        raise AssertionError("the card and the CPU picked different eliminations")
+    got = counters_to_dict(card_eng.run_rate(p, trials, seed=1))
+    ref = counters_to_dict(cpu_eng.run_rate(p, trials, seed=1))
     same = all(np.array_equal(got[k], ref[k]) for k in ref)
-    log(f"DEM engine on the card vs the CPU DEM engine, min-sum p={p}, {trials} trials: "
+    log(f"DEM engine on the card vs the CPU DEM engine, {code} rounds {rounds}, "
+        f"{card_eng.osd.elimination} elimination, min-sum p={p}, {trials} trials: "
         f"identical {same} (obs-err {got['ler']:.5f}, BP faults {got['BPs_fault']})")
     if not same:
         raise AssertionError("the card's DEM engine disagrees with the CPU DEM engine")
+
+
+def steady_rate(eng, p: float, trials: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_rate(p, trials, seed=7)
+    torch.cuda.synchronize()
+    return trials / (time.perf_counter() - t0)
 
 
 def phase_dem_throughput(eng, card_line: str) -> None:
     """Steady-state trials/s of the warm DEM engine, four batches per rate,
     and of the same engine on the card with the plain torch versions in
     place of K3 and K4, one batch per rate."""
-    from unittest import mock
-
     from qldpc_tpu_torch.decoders import bp, osd
     from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_plain
     from qldpc_tpu_torch.ops.osd_transform_cuda import eliminate_transform_plain
 
-    def rate(p, trials):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run_rate(p, trials, seed=7)
-        torch.cuda.synchronize()
-        return trials / (time.perf_counter() - t0)
-
     for p in DEM_REF:
-        kernels = rate(p, 4 * DEM_BATCH)
+        kernels = steady_rate(eng, p, 4 * DEM_BATCH)
         with mock.patch.object(bp, "dem_bp", dem_bp_plain), \
                 mock.patch.object(osd, "eliminate_transform", eliminate_transform_plain):
-            plain = rate(p, DEM_BATCH)
-        log(f"DEM engine steady state p={p}: {kernels:.1f} trials/s with K3 and K4, "
-            f"{plain:.1f} trials/s with their plain versions, on {card_line}")
+            plain = steady_rate(eng, p, DEM_BATCH)
+        log(f"DEM engine steady state {eng.code.name} p={p}: {kernels:.1f} trials/s with K3 "
+            f"and K4, {plain:.1f} trials/s with their plain versions, on {card_line}")
+
+
+K5_NAMES = ("factored_y", "factored_w", "factored_panel_elim", "factored_resolve")
+
+
+def _k5_cost(name: str, args) -> tuple[int, float]:
+    """(bytes moved, operations) of one K5 launch, from its arguments after
+    the launch: every input read once, every output written once; the
+    GF(2) products counted as the word operations these inputs need."""
+    from qldpc_tpu_torch.ops.osd_factored_cuda import BLOCK_COLS as K
+
+    kw = K // 32
+    if name == "factored_y":
+        P, lanes, ids, Hc, scur = args
+        A, mw = lanes.shape[0], P.shape[2]
+        # P rows, the block's packed columns, Y; one AND and one XOR per word
+        return 4 * A * (scur * mw + K * mw + K + scur * kw), 2.0 * A * scur * K * mw
+    if name == "factored_w":
+        C, lanes, ids, Hc, Y, scur = args
+        A, m_pad = lanes.shape[0], C.shape[2]
+        coeff = popcount(C[lanes.long(), : scur // 32])
+        # C's coefficient words, the block's columns, Y, W; one XOR of Y's
+        # words per set coefficient bit
+        return 4 * A * (m_pad * scur // 32 + K * Hc.shape[1] + scur * kw + m_pad * kw), coeff * kw
+    if name == "factored_panel_elim":
+        W, b, piv, C, lanes, ids, n, blk = args
+        A, m_pad = W.shape[0], W.shape[1]
+        cnew = popcount(C[lanes.long(), blk * kw: (blk + 1) * kw])
+        # W, b and piv in and out, C's block words and prow out; one
+        # candidate test per row and column, kw + 1 XORs per eliminated row
+        moved = 4 * A * (m_pad * kw + 4 * m_pad // 32 + m_pad * kw + 2 * K)
+        return moved, float(A * K * m_pad + cnew * (kw + 1))
+    P, C, lanes, prow, blk = args
+    A, mw, m_pad = lanes.shape[0], P.shape[2], C.shape[2]
+    scur = blk * K
+    pcl = prow.long().clamp(max=m_pad - 1)
+    rows = torch.gather(C[lanes.long()], 2, pcl[:, None, :].expand(-1, C.shape[1], -1))
+    rows = rows * (prow < m_pad)[:, None, :]
+    coeff = popcount(rows[:, : scur // 32 + kw])
+    # P rows, the pivots' C rows, the new P rows; one XOR per word of P per
+    # set coefficient bit
+    return 4 * A * (scur * mw + K * (scur // 32 + kw) + K * mw), float(coeff * mw)
+
+
+def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
+    """K5a-d against their plain versions on the BP failures: the whole
+    elimination on the first 128, each kernel at every block of one OSD call
+    on all of them (bit-identical outputs and in-place state), the OSD-0
+    solutions on 32 against the plain transform elimination's. Returns the
+    records of the four kernels, their times summed over one OSD call."""
+    from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
+    from qldpc_tpu_torch.ops.osd_transform_cuda import eliminate_transform_plain
+
+    osd = eng.osd
+    resid = osd._residual(failures["syn"], failures["hard"].to(torch.int32))
+    order = torch.argsort(failures["llrs"].abs(), dim=1, stable=True)
+    lanes = order.shape[0]
+    keep = min(K5_CHECK_LANES, lanes)
+    args = (order, resid, osd.Hc, osd.h_rank, osd.max_cols)
+    got = ofc.eliminate_factored_cuda(order[:keep], resid[:keep], *args[2:])
+    torch.cuda.synchronize()
+    ref = ofc.eliminate_factored_plain(order[:keep], resid[:keep], *args[2:])
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    log(f"K5 whole elimination on {keep} BP failures (m={osd.m}, n={osd.n}, rank "
+        f"{osd.h_rank}, budget {osd.max_cols} columns): mean rank reached "
+        f"{got[1].sum(1).float().mean().item():.1f}, overflow {int(got[3].sum())}, "
+        f"bit-identical {same}")
+    if not same:
+        raise AssertionError("K5 disagrees with its plain version")
+
+    stats = {name: dict(ms=0.0, plain_ms=0.0, moved=0, ops=0.0, calls=0) for name in K5_NAMES}
+
+    def checked(name, kernel, plain):
+        def run(*a):
+            fresh = lambda: [x.clone() if torch.is_tensor(x) else x for x in a]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ms = 0.0
+            for _ in range(reps):
+                kargs = fresh()
+                torch.cuda.synchronize()
+                ev[0].record()
+                kout = kernel(*kargs)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms += ev[0].elapsed_time(ev[1]) / reps
+            pargs = fresh()
+            ev[0].record()
+            pout = plain(*pargs)
+            ev[1].record()
+            torch.cuda.synchronize()
+            outs = [(kout, pout)] if kout is not None else []
+            outs += [(x, y) for x, y in zip(kargs, pargs) if torch.is_tensor(x)]
+            if not all(torch.equal(x, y) for x, y in outs):
+                raise AssertionError(f"{name} disagrees with its plain version")
+            moved, ops = _k5_cost(name, kargs)
+            st = stats[name]
+            st["ms"] += ms
+            st["plain_ms"] += ev[0].elapsed_time(ev[1])
+            st["moved"] += moved
+            st["ops"] += ops
+            st["calls"] += 1
+            return kernel(*a)
+
+        run.launches = 0  # the wrapper counts under its module name: here
+        return run
+
+    patches = [mock.patch.object(ofc, f"{name}_cuda", checked(
+        name, getattr(ofc, f"{name}_cuda"), getattr(ofc, f"{name}_plain"))) for name in K5_NAMES]
+    for patch in patches:
+        patch.start()
+    try:
+        full = ofc.eliminate_factored_cuda(*args)
+    finally:
+        for patch in patches:
+            patch.stop()
+    torch.cuda.synchronize()
+    records = {}
+    for name in K5_NAMES:
+        st = stats[name]
+        records[name] = dict(ms=st["ms"], plain_ms=st["plain_ms"], max_abs_err=0.0,
+                             **bound(st["moved"], st["ops"]))
+        log(f"{name} over the {st['calls']} blocks of one OSD call on {lanes} BP failures: "
+            f"{st['ms']:.4f} ms, plain {st['plain_ms']:.3f} ms, bit-identical at every block, "
+            f"bound {records[name]['bound_ms']:.4f} ms ({records[name]['bound_by']})")
+    total = cuda_ms(lambda: ofc.eliminate_factored_cuda(*args), reps=3)
+    log(f"K5 per OSD call on {lanes} BP failures: {total:.3f} ms with its host syncs "
+        f"(kernels {sum(s['ms'] for s in stats.values()):.3f} ms)")
+
+    # OSD-0 solutions: factored (original column ids) against the plain
+    # transform elimination (permuted column ids), which the RREF of
+    # [H_perm | b] makes equal
+    k, n = SOLUTION_LANES, osd.n
+    bidx = torch.arange(k, device=order.device)[:, None]
+    b, _, piv, overflow = (x[:k] for x in full)
+    corr_f = torch.zeros((k, n + 1), dtype=torch.int32, device=order.device)
+    corr_f[bidx, torch.where(piv >= 0, piv, n).long()] = b
+    _, bt, _, pt = eliminate_transform_plain(order[:k], resid[:k], osd.Hc[:-1].contiguous(),
+                                             osd.h_rank, True)
+    e_perm = torch.zeros((k, n + 1), dtype=torch.int32, device=order.device)
+    e_perm[bidx, torch.where(pt >= 0, pt, n).long()] = bt
+    corr_t = torch.zeros((k, n), dtype=torch.int32, device=order.device)
+    corr_t[bidx, order[:k]] = e_perm[:, :n]
+    same = torch.equal(corr_f[:, :n], corr_t) and not bool(overflow.any())
+    log(f"factored OSD-0 solutions on {k} BP failures against the plain transform "
+        f"elimination's: identical {same}")
+    if not same:
+        raise AssertionError("the factored OSD-0 solutions differ from the transform's")
+    return records
+
+
+def phase_dem144_throughput(eng, card_line: str) -> None:
+    for p in DEM144_REF:
+        log(f"DEM engine steady state {eng.code.name} p={p}: "
+            f"{steady_rate(eng, p, 4 * DEM_BATCH):.1f} trials/s with K3 and K5a-d, "
+            f"on {card_line}")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from qldpc_tpu.codes import get_code  # the repo must be beside the script
+    from qldpc_tpu_torch.codes import get_code  # the repo must be beside the script
+    from qldpc_tpu_torch.ops import dem_bp_cuda, osd_factored_cuda, osd_transform_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -487,48 +730,72 @@ def main() -> int:
     card_line = card()
     H = get_code(CODE).Hx
 
-    def timed(fn, *args):
+    def timed(fn, *args, **kw):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         log(f"[{fn.__name__} took {time.perf_counter() - t0:.1f} s]")
         return out
 
     timed(phase_toolchain, card_line)
     timed(phase_build)
     k1_err, failures = timed(phase_k1, H, dev)
-    k2_ms, k2_plain_ms = timed(phase_k2, H, dev, failures)
+    k2 = timed(phase_k2, H, dev, failures)
     launches = timed(phase_engine, dev, card_line)
     timed(phase_engine_vs_cpu, dev)
-    k1_ms, k1_plain_ms = timed(phase_throughput, H, dev, card_line)
+    k1 = timed(phase_throughput, H, dev, card_line)
 
     eng = timed(dem_engine, dev)
-    k3_err, k3_ms, k3_plain_ms, dem_failures = timed(phase_k3, eng, dev)
-    k4_ms, k4_plain_ms = timed(phase_k4, eng, dem_failures)
-    dem_launches = timed(phase_dem_engine, eng, card_line)
-    timed(phase_dem_engine_vs_cpu, dev)
+    k3_72, dem_failures = timed(phase_k3, eng, dev)
+    k4 = timed(phase_k4, eng, dem_failures)
+    k3_wrapper = dem_bp_cuda.dem_bp_cuda
+    k4_wrapper = osd_transform_cuda.eliminate_transform_cuda
+    dem_launches = timed(phase_dem_engine, eng, card_line, DEM_REF,
+                         {"dem_bp": k3_wrapper, "gf2_transform_elim": k4_wrapper}, {})
+    for backend in ("auto", "factored"):
+        timed(phase_dem_engine_vs_cpu, dev, 256, backend=backend)
     timed(phase_dem_throughput, eng, card_line)
+    del eng
+    torch.cuda.empty_cache()
 
+    eng144 = timed(dem_engine, dev, code=DEM144_CODE, rounds=DEM144_ROUNDS)
+    log(f"{eng144.code.name}: {eng144.m_checks} x {eng144.n_vars}, rank {eng144.osd.h_rank}, "
+        f"elimination {eng144.osd.elimination}, column budget {eng144.osd.max_cols}")
+    k3, failures144 = timed(phase_k3, eng144, dev, rates=(0.002,), methods=("sum-product",))
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_72["max_abs_err"])
+    k5 = timed(phase_k5, eng144, failures144)
+    k5_wrappers = {name: getattr(osd_factored_cuda, f"{name}_cuda") for name in K5_NAMES}
+    dem144_launches = timed(phase_dem_engine, eng144, card_line, DEM144_REF,
+                            {"dem_bp": k3_wrapper, **k5_wrappers},
+                            {"gf2_transform_elim": k4_wrapper})
+    timed(phase_dem_engine_vs_cpu, dev, 32, code=DEM144_CODE, rounds=DEM144_ROUNDS)
+    timed(phase_dem144_throughput, eng144, card_line)
+
+    k1.update(max_abs_err=k1_err)
+    rows = [
+        ("bp_flooding", "bp_flooding.cu", "qldpc_tpu/ops/bp_pallas.py:256",
+         launches["bp_flooding"], k1),
+        ("gf2_elim", "gf2_elim.cu", "qldpc_tpu/ops/osd_pallas.py:36",
+         launches["gf2_elim"], k2),
+        ("dem_bp", "dem_bp.cu", "qldpc_tpu/ops/dem_bp_pallas.py:78",
+         dem144_launches["dem_bp"], k3),
+        ("gf2_transform_elim", "gf2_transform_elim.cu",
+         "qldpc_tpu/ops/osd_transform_pallas.py:37",
+         dem_launches["gf2_transform_elim"], k4),
+        ("factored_y", "gf2_factored.cu", "qldpc_tpu/ops/osd_factored.py:84",
+         dem144_launches["factored_y"], k5["factored_y"]),
+        ("factored_w", "gf2_factored.cu", "qldpc_tpu/ops/osd_factored.py:111",
+         dem144_launches["factored_w"], k5["factored_w"]),
+        ("factored_panel_elim", "gf2_factored.cu", "qldpc_tpu/ops/osd_factored.py:183",
+         dem144_launches["factored_panel_elim"], k5["factored_panel_elim"]),
+        ("factored_resolve", "gf2_factored.cu", "qldpc_tpu/ops/osd_factored.py:308",
+         dem144_launches["factored_resolve"], k5["factored_resolve"]),
+    ]
     kernels = [
-        dict(name="bp_flooding", route="cuda",
-             source="qldpc_tpu_torch/ops/csrc/bp_flooding.cu",
-             replaces="qldpc_tpu/ops/bp_pallas.py:256",
-             launches=launches["bp_flooding"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain_ms),
-        dict(name="gf2_elim", route="cuda",
-             source="qldpc_tpu_torch/ops/csrc/gf2_elim.cu",
-             replaces="qldpc_tpu/ops/osd_pallas.py:36",
-             launches=launches["gf2_elim"], max_abs_err=0.0,
-             ms=k2_ms, plain_ms=k2_plain_ms),
-        dict(name="dem_bp", route="cuda",
-             source="qldpc_tpu_torch/ops/csrc/dem_bp.cu",
-             replaces="qldpc_tpu/ops/dem_bp_pallas.py:78",
-             launches=dem_launches["dem_bp"], max_abs_err=k3_err,
-             ms=k3_ms, plain_ms=k3_plain_ms),
-        dict(name="gf2_transform_elim", route="cuda",
-             source="qldpc_tpu_torch/ops/csrc/gf2_transform_elim.cu",
-             replaces="qldpc_tpu/ops/osd_transform_pallas.py:37",
-             launches=dem_launches["gf2_transform_elim"], max_abs_err=0.0,
-             ms=k4_ms, plain_ms=k4_plain_ms),
+        dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
+             replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],
+             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+             bound_by=rec["bound_by"], library_ms=None)
+        for name, src, replaces, count, rec in rows
     ]
     log(card_line)
     log(json.dumps({"kernels": kernels}))

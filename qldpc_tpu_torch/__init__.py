@@ -6,11 +6,12 @@ decoding of detector error models (BP on irregular graphs, wide-system
 OSD-0, the DEM engine). Plain torch runs everywhere; on CUDA tensors BP and
 the OSD eliminations launch the hand-written kernels under ``ops/csrc/``
 (built with nvcc at first use, see ``_build.py``). The JAX package
-``qldpc_tpu`` stays the reference; this package imports only its JAX-free
-host modules (codes, the Tanner graph, the numpy DEM builders).
+``qldpc_tpu`` stays the reference, and this package imports nothing of it:
+the host modules it needs (codes, the Tanner graph, the numpy DEM builders)
+are copies kept here, and ``convert`` carries JAX-built objects across.
 """
 
-from qldpc_tpu import codes
+from . import codes
 
 __version__ = "0.1.0"
 

@@ -1,10 +1,12 @@
-"""Carry configurations and RNG state across from the JAX package.
+"""Carry configurations, codes, DEMs and RNG state across from the JAX package.
 
-Each function takes a config dataclass instance of ``qldpc_tpu`` or a dict
-of its fields, read by name so that ``jax`` is never imported, and returns
-the port's config. Selectors that only choose a TPU code path are dropped:
-on the port the tensor's device decides the path. Fields that would change
-the numerics, or that need a feature outside this slice, raise.
+Each function takes an object of ``qldpc_tpu`` (a config dataclass, a
+``CSSCode``, a ``DEMData`` or ``ParametricDEM``) or a dict of its fields,
+reads the fields by name as numpy arrays or plain values, so that neither
+``jax`` nor ``qldpc_tpu`` is ever imported, and returns the port's object.
+Config selectors that only choose a TPU code path are dropped: on the port
+the tensor's device decides the path. Fields that would change the
+numerics, or that need a feature outside the port, raise.
 """
 
 from __future__ import annotations
@@ -14,10 +16,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from qldpc_tpu_torch.codes import CSSCode
 from qldpc_tpu_torch.decoders.bp import BPConfig
 from qldpc_tpu_torch.decoders.osd import OSDConfig
 from qldpc_tpu_torch.mc.dem_engine import DEMEngineConfig
 from qldpc_tpu_torch.mc.engine import EngineConfig
+from qldpc_tpu_torch.noise.circuit import ParametricDEM
+from qldpc_tpu_torch.noise.dem import DEMData
 
 __all__ = [
     "bp_config_from_reference",
@@ -25,12 +30,14 @@ __all__ = [
     "engine_config_from_reference",
     "dem_engine_config_from_reference",
     "key_from_reference",
+    "code_from_reference",
+    "dem_from_reference",
 ]
 
 # chunk_size only spaces the XLA path's whole-batch exit checks: the
 # results do not depend on it
 _BP_DROPPED = {"backend", "batch_tile", "n_layers", "chunk_size"}
-_OSD_DROPPED = {"backend", "batch_tile", "chunk", "max_elim_cols"}
+_OSD_DROPPED = {"batch_tile", "chunk"}
 _OSD_ORDER_E_ONLY = {"max_combinations", "extra_positions", "dtype"}
 _ENGINE_DROPPED = {"osd_tiers", "osd_chunk", "fused_dispatch", "rescue_tiers",
                    "n_rounds"}
@@ -71,6 +78,11 @@ def osd_config_from_reference(cfg) -> OSDConfig:
     # raises for order > 0
     for name in _OSD_DROPPED | _OSD_ORDER_E_ONLY:
         f.pop(name, None)
+    # the JAX backends other than the factored elimination ("lanes",
+    # "pallas", "vmap") pick the same arithmetic by platform: the port picks
+    # its elimination from the shape of H
+    if "backend" in f:
+        f["backend"] = "factored" if f["backend"] == "factored" else "auto"
     return OSDConfig(**_take(f, OSDConfig))
 
 
@@ -105,3 +117,24 @@ def key_from_reference(key_data) -> torch.Tensor:
     if kd.shape != (2,):
         raise ValueError(f"expected key data of shape (2,), got {kd.shape}")
     return torch.tensor([int(v) & 0xFFFFFFFF for v in kd], dtype=torch.int64)
+
+
+def code_from_reference(code) -> CSSCode:
+    """The port's ``CSSCode`` from a ``qldpc_tpu.codes.CSSCode`` (or a dict
+    of its fields)."""
+    f = _fields(code)
+    return CSSCode(
+        name=f["name"], Hx=np.asarray(f["Hx"]), Hz=np.asarray(f["Hz"]),
+        Lx=np.asarray(f["Lx"]), Lz=np.asarray(f["Lz"]), distance=int(f["distance"]),
+    )
+
+
+def dem_from_reference(dem) -> DEMData | ParametricDEM:
+    """The port's ``ParametricDEM`` (fields ``H, L, ratios, counts``) or
+    ``DEMData`` (fields ``H, L, priors``) from the JAX package's."""
+    f = _fields(dem)
+    H, L = np.asarray(f["H"]), np.asarray(f["L"])
+    if "ratios" in f:
+        return ParametricDEM(H=H, L=L, ratios=np.asarray(f["ratios"]),
+                             counts=np.asarray(f["counts"]))
+    return DEMData(H=H, L=L, priors=np.asarray(f["priors"]))

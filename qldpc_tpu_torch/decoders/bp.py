@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from qldpc_tpu.ops.tanner import TannerGraph
+from qldpc_tpu_torch.ops.tanner import TannerGraph
 from qldpc_tpu_torch.ops.bp_cuda import BPTables, bp_flooding
 from qldpc_tpu_torch.ops.dem_bp_cuda import DEMTables, dem_bp, dem_tables
 

@@ -7,15 +7,25 @@ them), a GF(2) elimination of each sample's permuted system, then
 ``e_perm[piv_col[r]] = b[r]``, ``corr[order] = e_perm`` and
 ``solution = hard XOR corr``.
 
-Two eliminations, chosen by the shape of H as the JAX decoder chooses them:
+Three eliminations, chosen from the shape of H alone, so that the card and
+the CPU choose alike and their counters can be compared:
 
   * narrow systems: each sample's permuted H bit-packed by rows and fully
     row-reduced (``ops.osd_cuda.eliminate_rows``: plain torch on CPU, K2 on
     CUDA);
-  * wide systems (``n_words > 4 * m_words``: circuit-level DEMs): the
-    transform elimination with the b-exit on (``ops.osd_transform_cuda``:
-    plain torch on CPU, K4 on CUDA), whose residual is a gather-parity over
-    each check's variables instead of a dense matmul.
+  * wide systems (``n_words > 4 * m_words``: circuit-level DEMs) whose
+    transform fits one block's shared memory: the transform elimination with
+    the b-exit on (``ops.osd_transform_cuda``: plain torch on CPU, K4 on
+    CUDA), whose residual is a gather-parity over each check's variables
+    instead of a dense matmul;
+  * wider ones (the [[144,12,12]] DEM, m = 1,728): the factored elimination
+    (``ops.osd_factored_cuda``: plain torch on CPU, K5a-d on CUDA), with the
+    JAX decoder's column budget ``max(max_elim_cols, min(n, rank + 512))``.
+    A sample that exhausts it unresolved returns ``hard`` unchanged, so the
+    engine counts it as a failure rather than accept a partial solve.
+
+``OSDConfig.backend`` forces the transform or the factored elimination on a
+wide system; no path falls back to another.
 
 Not in this slice (see ROADMAP.md): OSD-e (``order > 0``).
 """
@@ -28,17 +38,31 @@ import numpy as np
 import torch
 from torch import nn
 
-from qldpc_tpu.codes import gf2
-from qldpc_tpu.ops.tanner import parity_tables
+from qldpc_tpu_torch.codes import gf2
+from qldpc_tpu_torch.ops.tanner import parity_tables
 from qldpc_tpu_torch.ops.osd_cuda import WORD, eliminate_rows, pack_rows
-from qldpc_tpu_torch.ops.osd_transform_cuda import eliminate_transform, pack_columns
+from qldpc_tpu_torch.ops.osd_factored_cuda import eliminate_factored, factored_columns
+from qldpc_tpu_torch.ops.osd_transform_cuda import (
+    SMEM_LIMIT,
+    eliminate_transform,
+    pack_columns,
+    smem_bytes,
+)
 
 __all__ = ["OSDConfig", "OSDDecoder"]
+
+
+_BACKENDS = ("auto", "transform", "factored")
 
 
 @dataclasses.dataclass(frozen=True)
 class OSDConfig:
     order: int = 0
+    backend: str = "auto"  # wide systems: "auto" picks the transform
+    # elimination when a sample's transform fits one block's shared memory
+    # and the factored one otherwise; "transform" and "factored" force one
+    max_elim_cols: int = 2048  # factored elimination: column budget floor,
+    # raised to min(n, rank(H) + 512) (decoders/osd.py of the JAX package)
 
     def __post_init__(self):
         if self.order > 0:
@@ -48,6 +72,10 @@ class OSDConfig:
             )
         if self.order < 0:
             raise ValueError("order must be >= 0")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"unknown OSD backend {self.backend!r}; one of {_BACKENDS}")
+        if self.max_elim_cols < 1:
+            raise ValueError("max_elim_cols must be positive")
 
 
 class OSDDecoder(nn.Module):
@@ -69,11 +97,25 @@ class OSDDecoder(nn.Module):
         self.wide = self.n_words > 4 * self.m_words
         # every column step after a sample reaches rank(H) is a no-op
         self.h_rank = int(gf2.rank(H))
+        if config.backend != "auto" and not self.wide:
+            raise ValueError(
+                f"backend={config.backend!r} targets wide systems (n_words > "
+                "4 * m_words); this one takes the row elimination"
+            )
         if self.wide:
+            self.elimination = config.backend
+            if self.elimination == "auto":
+                fits = smem_bytes(self.m) <= SMEM_LIMIT
+                self.elimination = "transform" if fits else "factored"
             vos, self.dc_parity = parity_tables(H)
             self.register_buffer("vos_parity", torch.from_numpy(vos.astype(np.int64)))
-            self.register_buffer("Hc", torch.from_numpy(pack_columns(H)))
+            if self.elimination == "transform":
+                self.register_buffer("Hc", torch.from_numpy(pack_columns(H)))
+            else:
+                self.register_buffer("Hc", torch.from_numpy(factored_columns(H)))
+                self.max_cols = max(config.max_elim_cols, min(self.n, self.h_rank + 512))
         else:
+            self.elimination = "rows"
             self.register_buffer("H", torch.from_numpy(H))
             self.register_buffer("Hf", torch.from_numpy(H.astype(np.float32)))
 
@@ -97,6 +139,15 @@ class OSDDecoder(nn.Module):
         B, n = hard.shape
         resid = self._residual(syndromes, hard)
         order = torch.argsort(llrs.abs(), dim=1, stable=True)  # (B, n)
+        bidx = torch.arange(B, device=dev)[:, None]
+        if self.elimination == "factored":
+            # piv_col comes back in original column ids: no un-permuting
+            b, _, piv, overflow = eliminate_factored(order, resid, self.Hc, self.h_rank,
+                                                     self.max_cols)
+            corr = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
+            corr[bidx, torch.where(piv >= 0, piv, n).long()] = b
+            sol = hard ^ corr[:, :n]
+            return torch.where(overflow[:, None], hard, sol).to(torch.int8)
         if self.wide:
             # OSD-0 reads only (b, piv_col), which the b-exit leaves exact
             _, b, _, piv = eliminate_transform(order, resid, self.Hc, self.h_rank,
@@ -104,7 +155,6 @@ class OSDDecoder(nn.Module):
         else:
             Hp = self.H[:, order].permute(1, 0, 2)  # (B, m, n) per-sample permuted
             _, b, piv = eliminate_rows(pack_rows(Hp), resid, n, self.h_rank)
-        bidx = torch.arange(B, device=dev)[:, None]
         tgt = torch.where(piv >= 0, piv, n).long()
         e_perm = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
         e_perm[bidx, tgt] = b

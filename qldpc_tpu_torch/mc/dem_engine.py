@@ -25,12 +25,13 @@ from typing import ClassVar
 import numpy as np
 import torch
 
-from qldpc_tpu.ops.tanner import parity_tables
+from qldpc_tpu_torch.ops.tanner import parity_tables
 from qldpc_tpu_torch.decoders.bp import BPDecoder
 from qldpc_tpu_torch.decoders.osd import OSDDecoder
-from qldpc_tpu_torch.mc.engine import EngineConfig, MonteCarloEngine
+from qldpc_tpu_torch.mc.engine import EngineConfig, MonteCarloEngine, engine_device
 from qldpc_tpu_torch.mc.metrics import counters_to_dict
-from qldpc_tpu_torch.noise.dem import DEMData, ParametricDEM
+from qldpc_tpu_torch.noise.circuit import ParametricDEM
+from qldpc_tpu_torch.noise.dem import DEMData
 from qldpc_tpu_torch.utils import rng
 
 __all__ = ["DEMEngine", "DEMEngineConfig"]
@@ -52,15 +53,18 @@ class _DEMCodeShim:
 
 class DEMEngine(MonteCarloEngine):
     """Batched logical-error estimation for one detector error model on one
-    explicitly named device."""
+    device: the card by default, the CPU when asked for. ``dem`` is the
+    port's ``DEMData`` or ``ParametricDEM``; carry a JAX-built one across
+    with ``convert.dem_from_reference``."""
 
     def __init__(self, dem: DEMData | ParametricDEM,
                  config: DEMEngineConfig = DEMEngineConfig(),
-                 device="cpu", name: str = "dem"):
-        if isinstance(device, (list, tuple)):
-            raise NotImplementedError(
-                "multi-device execution is not ported yet (ROADMAP.md, queue "
-                "1 item 13)"
+                 device="cuda", name: str = "dem"):
+        dev = engine_device(device)
+        if not isinstance(dem, (DEMData, ParametricDEM)):
+            raise TypeError(
+                f"expected the port's DEMData or ParametricDEM, got {type(dem)!r}; "
+                "convert a JAX-built DEM with qldpc_tpu_torch.convert.dem_from_reference"
             )
         if not isinstance(config, DEMEngineConfig):
             fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
@@ -68,7 +72,7 @@ class DEMEngine(MonteCarloEngine):
         self.dem = dem
         self.code = _DEMCodeShim(name=name)
         self.config = config
-        self.device = dev = torch.device(device)
+        self.device = dev
         self.m_checks, self.n_vars = dem.H.shape
         self.distance = 0  # every logical error is "incorrectable"
         self.bp = BPDecoder(dem.H, config.bp).to(dev)

@@ -83,19 +83,32 @@ class SweepResult:
         return np.array([r[key] for r in self.per_rate])
 
 
+def engine_device(device) -> torch.device:
+    """The one device an engine runs on. A CUDA device needs a card: without
+    one this raises rather than carrying on on the CPU."""
+    if isinstance(device, (list, tuple)):
+        raise NotImplementedError(
+            "multi-device execution is not ported yet (ROADMAP.md, queue "
+            "1 item 13)"
+        )
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the engine runs on {device} by default, but torch finds no CUDA "
+            "device; pass device='cpu' to run the plain torch versions on the CPU"
+        )
+    return device
+
+
 class MonteCarloEngine:
     """Batched LER estimation for one code and decoder configuration on one
-    explicitly named device (``"cuda"``, ``"cuda:1"``, ``"cpu"``)."""
+    device: the card (``"cuda"``, the default, or ``"cuda:1"``), or
+    ``"cpu"`` when asked for."""
 
-    def __init__(self, code, config: EngineConfig, device):
-        if isinstance(device, (list, tuple)):
-            raise NotImplementedError(
-                "multi-device execution is not ported yet (ROADMAP.md, queue "
-                "1 item 13)"
-            )
+    def __init__(self, code, config: EngineConfig, device="cuda"):
+        self.device = engine_device(device)
         self.code = code
         self.config = config
-        self.device = torch.device(device)
         H = code.Hx if config.basis == "x" else code.Hz
         L = code.Lx if config.basis == "x" else code.Lz
         self.m_checks, self.n_vars = H.shape

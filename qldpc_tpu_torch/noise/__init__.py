@@ -5,6 +5,8 @@ from .channels import (
     syndrome_of,
     uniform_prior_llr,
 )
+from .circuit import ParametricDEM, memory_experiment_dem, parametric_memory_dem
+from .dem import DEMData, priors_to_llrs
 
 __all__ = [
     "code_capacity",
@@ -12,4 +14,9 @@ __all__ = [
     "phenomenological",
     "syndrome_of",
     "uniform_prior_llr",
+    "DEMData",
+    "ParametricDEM",
+    "memory_experiment_dem",
+    "parametric_memory_dem",
+    "priors_to_llrs",
 ]

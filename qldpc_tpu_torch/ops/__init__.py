@@ -1,3 +1,3 @@
-from qldpc_tpu.ops.tanner import TannerGraph
+from .tanner import TannerGraph
 
 __all__ = ["TannerGraph"]

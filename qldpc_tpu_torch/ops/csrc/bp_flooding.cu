@@ -34,6 +34,20 @@
 #define MAX_S 64
 #define TANH_CLIP 0.9999999f
 
+// torch.clamp and torch.min propagate NaN, fminf and fmaxf drop it: these
+// helpers and the explicit test in the min-sum rule keep the kernel equal to
+// the plain version when an infinite prior or a check of degree 1 turns a
+// message into NaN (inf - inf on the variable side).
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi)
+{
+    return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float max_nan(float x, float lo)
+{
+    return isnan(x) ? x : fmaxf(x, lo);
+}
+
 __global__ void bp_flooding_kernel(
     const uint8_t* __restrict__ syn,      // (B, m) 0/1
     const float* __restrict__ priors,     // (B, n) or (n,) with prior_stride 0
@@ -110,7 +124,7 @@ __global__ void bp_flooding_kernel(
                 for (int j = 0; j < dc; ++j) {
                     const float right = j + 1 < dc ? suf[j + 1] : 1.0f;
                     float x = (left * right) * ss;
-                    x = fminf(fmaxf(x, -TANH_CLIP), TANH_CLIP);
+                    x = clamp_nan(x, -TANH_CLIP, TANH_CLIP);
                     float rr = 2.0f * atanhf(x);
                     if (use_alpha) rr = rr * alpha;
                     r[j] = rr;
@@ -118,15 +132,19 @@ __global__ void bp_flooding_kernel(
                 }
             } else {
                 // min-sum: leave-one-out sign, two minima with the first
-                // argmin, optional offset, then alpha (bp.py:261-290)
+                // argmin, optional offset, then alpha (bp.py:261-290). A
+                // NaN |Q| makes min1 NaN, so every magnitude is NaN.
                 int neg = 0;
                 float min1 = fabsf(q[0]);
                 int amin = 0;
+                bool has_nan = false;
                 for (int j = 0; j < dc; ++j) {
                     neg += q[j] >= 0.0f ? 0 : 1;
                     const float a = fabsf(q[j]);
+                    has_nan |= isnan(a);
                     if (a < min1) { min1 = a; amin = j; }
                 }
+                if (has_nan) min1 = __int_as_float(0x7fffffff);
                 float min2 = __int_as_float(0x7f800000);  // +inf
                 for (int j = 0; j < dc; ++j)
                     if (j != amin) min2 = fminf(min2, fabsf(q[j]));
@@ -134,7 +152,7 @@ __global__ void bp_flooding_kernel(
                     const int own = q[j] >= 0.0f ? 0 : 1;
                     const float sign = ((neg - own) & 1) ? -1.0f : 1.0f;
                     float mag = fabsf(q[j]) == min1 ? min2 : min1;
-                    if (use_offset) mag = fmaxf(mag - offset, 0.0f);
+                    if (use_offset) mag = max_nan(mag - offset, 0.0f);
                     float rr = (ss * sign) * mag;
                     if (use_alpha) rr = rr * alpha;
                     r[j] = rr;
@@ -161,7 +179,7 @@ __global__ void bp_flooding_kernel(
                 if (e >= E) continue;
                 float qn = val - rs[e];
                 if (use_damping) qn = damp_new * qn + damp_old * qs[e];
-                if (use_clip) qn = fminf(fmaxf(qn, -clip), clip);
+                if (use_clip) qn = clamp_nan(qn, -clip, clip);
                 qs[e] = qn;
             }
         }

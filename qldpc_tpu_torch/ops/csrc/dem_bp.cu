@@ -38,6 +38,21 @@
 #define LARGE_DC 16
 #define TANH_CLIP 0.9999999f
 
+// torch.clamp and torch.min propagate NaN, fminf and fmaxf drop it. A NaN
+// arises under min-sum when a check of degree 1 sends an infinite magnitude
+// and the variable side computes inf - inf; the plain version (like the JAX
+// XLA path) then sends NaN on every slot of the checks that read it. These
+// helpers and the explicit test in the min-sum rule keep the kernel equal.
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi)
+{
+    return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float max_nan(float x, float lo)
+{
+    return isnan(x) ? x : fmaxf(x, lo);
+}
+
 __global__ void dem_init_kernel(
     const float* __restrict__ prior, int ps_v, int ps_b,
     float* __restrict__ values, uint8_t* __restrict__ hard,
@@ -94,15 +109,15 @@ __global__ void dem_check_kernel(
         for (int j = 0; j < d; ++j) {
             const float t = tanhf(q[j * sB] * 0.5f);
             neg += t < 0.0f;
-            total = total + logf(fmaxf(fabsf(t), 1e-15f));
+            total = total + logf(max_nan(fabsf(t), 1e-15f));
         }
         const float tsign = (neg & 1) ? -1.0f : 1.0f;
         for (int j = 0; j < d; ++j) {
             const float t = tanhf(q[j * sB] * 0.5f);
-            const float lt = logf(fmaxf(fabsf(t), 1e-15f));
+            const float lt = logf(max_nan(fabsf(t), 1e-15f));
             const float s = t >= 0.0f ? 1.0f : -1.0f;
             const float others = expf(total - lt) * tsign * s;
-            const float x = fminf(fmaxf(others * ss, -TANH_CLIP), TANH_CLIP);
+            const float x = clamp_nan(others * ss, -TANH_CLIP, TANH_CLIP);
             float rr = 2.0f * atanhf(x);
             if (use_alpha) rr = rr * alpha;
             r[j * sB] = rr;
@@ -117,7 +132,7 @@ __global__ void dem_check_kernel(
         for (int j = 0; j < d; ++j) {
             const float right = j + 1 < d ? suf[j + 1] : 1.0f;
             float x = (left * right) * ss;
-            x = fminf(fmaxf(x, -TANH_CLIP), TANH_CLIP);
+            x = clamp_nan(x, -TANH_CLIP, TANH_CLIP);
             float rr = 2.0f * atanhf(x);
             if (use_alpha) rr = rr * alpha;
             r[j * sB] = rr;
@@ -125,15 +140,19 @@ __global__ void dem_check_kernel(
         }
     } else {
         // min-sum: leave-one-out sign (exact in either form), two minima
-        // with the first argmin, optional offset, then alpha
+        // with the first argmin, optional offset, then alpha. A NaN |Q|
+        // makes min1 NaN, so every magnitude of the check is NaN.
         int neg = 0, amin = 0;
+        bool has_nan = false;
         float min1 = __int_as_float(0x7f800000);  // +inf, the phantom |Q|
         for (int j = 0; j < d; ++j) {
             const float qj = q[j * sB];
             neg += qj < 0.0f;
             const float a = fabsf(qj);
+            has_nan |= isnan(a);
             if (a < min1) { min1 = a; amin = j; }
         }
+        if (has_nan) min1 = __int_as_float(0x7fffffff);
         float min2 = __int_as_float(0x7f800000);
         for (int j = 0; j < d; ++j)
             if (j != amin) min2 = fminf(min2, fabsf(q[j * sB]));
@@ -142,7 +161,7 @@ __global__ void dem_check_kernel(
             const int own = qj < 0.0f;
             const float sign = ((neg - own) & 1) ? -1.0f : 1.0f;
             float mag = fabsf(qj) == min1 ? min2 : min1;
-            if (use_offset) mag = fmaxf(mag - offset, 0.0f);
+            if (use_offset) mag = max_nan(mag - offset, 0.0f);
             float rr = (ss * sign) * mag;
             if (use_alpha) rr = rr * alpha;
             r[j * sB] = rr;
@@ -175,7 +194,7 @@ __global__ void dem_var_kernel(
         const size_t e = (size_t)vs[k] * B + b;
         float qn = val - R[e];
         if (use_damping) qn = damp_new * qn + damp_old * Q[e];
-        if (use_clip) qn = fminf(fmaxf(qn, -clip), clip);
+        if (use_clip) qn = clamp_nan(qn, -clip, clip);
         Q[e] = qn;
     }
 }

@@ -36,7 +36,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from qldpc_tpu.ops.tanner import TannerGraph
+from qldpc_tpu_torch.ops.tanner import TannerGraph
 from qldpc_tpu_torch._build import KernelLibrary
 from qldpc_tpu_torch.ops.bp_cuda import TANH_CLIP, _leave_one_out_product
 
@@ -245,12 +245,10 @@ def dem_bp_cuda(
     cfg: BPConfig,
     alpha: float | None = None,
 ):
-    """Launch K3. Same contract as ``dem_bp_plain``; float32 only.
-
-    One exception: under min-sum a check of degree 1 sends an infinite
-    magnitude, the variable side's ``inf - inf`` gives NaN, and the kernel's
-    comparisons drop a NaN where torch's ``min`` and ``clamp`` propagate it.
-    Detectors of a DEM have degree 2 or more."""
+    """Launch K3. Same contract as ``dem_bp_plain``; float32 only. A NaN
+    message (min-sum on a check of degree 1 sends an infinite magnitude, and
+    the variable side's ``inf - inf`` gives NaN) propagates as through
+    torch's ``min`` and ``clamp``."""
     dev = syndromes.device
     if dev.type != "cuda":
         raise ValueError("dem_bp_cuda needs CUDA tensors")

@@ -28,7 +28,7 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from qldpc_tpu.codes import get_code  # noqa: E402
+from qldpc_tpu_torch.codes import get_code  # noqa: E402
 from qldpc_tpu_torch.decoders import BPConfig, OSDConfig  # noqa: E402
 from qldpc_tpu_torch.mc import (  # noqa: E402
     DEMEngine,
@@ -36,7 +36,7 @@ from qldpc_tpu_torch.mc import (  # noqa: E402
     EngineConfig,
     MonteCarloEngine,
 )
-from qldpc_tpu_torch.noise.dem import parametric_memory_dem  # noqa: E402
+from qldpc_tpu_torch.noise.circuit import parametric_memory_dem  # noqa: E402
 from qldpc_tpu_torch.utils import rng  # noqa: E402
 
 

@@ -5,7 +5,8 @@ them with ``python -m pytest tests/test_torch_cuda.py -q --noconftest``. The
 tolerances are those of chip_smoke.py: K1 may differ in decision
 (converged, iterations, hard) on at most 1 lane in 10^4 and K3 on at most 1
 lane in 1024, with posteriors within rtol = atol = 1e-5 on the other lanes;
-K3 under min-sum, K2 and K4 are bit-identical.
+K3 under min-sum, K2, K4 and K5a-d are bit-identical, and K1 and K3
+propagate a NaN message as the plain versions do.
 """
 
 import math
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from qldpc_tpu.codes import get_code
+from qldpc_tpu_torch.codes import get_code
 from qldpc_tpu_torch.decoders import BPConfig, BPDecoder, OSDConfig, OSDDecoder
 from qldpc_tpu_torch.mc import (
     DEMEngine,
@@ -23,7 +24,7 @@ from qldpc_tpu_torch.mc import (
     MonteCarloEngine,
     counters_to_dict,
 )
-from qldpc_tpu_torch.noise.dem import memory_experiment_dem, parametric_memory_dem
+from qldpc_tpu_torch.noise.circuit import memory_experiment_dem, parametric_memory_dem
 from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
 from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain
 from qldpc_tpu_torch.ops.osd_cuda import (
@@ -31,6 +32,7 @@ from qldpc_tpu_torch.ops.osd_cuda import (
     eliminate_rows_plain,
     pack_rows,
 )
+from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
 from qldpc_tpu_torch.ops.osd_transform_cuda import (
     eliminate_transform_cuda,
     eliminate_transform_plain,
@@ -231,6 +233,125 @@ def test_k4_matches_plain(cuda, graph, b_exit):
 def test_dem_engine_on_card_matches_cpu_engine(cuda):
     dem = parametric_memory_dem(get_code("steane"), basis="z", rounds=3)
     cfg = DEMEngineConfig(bp=MIN_SUM, osd=OSDConfig(), batch_size=512)
+    got = DEMEngine(dem, cfg, device=cuda).run(1000, seed=2, p=0.01)
+    ref = DEMEngine(dem, cfg, device="cpu").run(1000, seed=2, p=0.01)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def _assert_same(got, ref):
+    """Bit for bit, a NaN equal to a NaN."""
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("method", ["min-sum", "min-sum-offset-clip"])
+def test_k3_propagates_nan_from_a_degree_one_check(cuda, method):
+    """Min-sum on a check of degree 1 sends an infinite magnitude; the
+    variable side's inf - inf is NaN, which every later check that reads it
+    spreads, through min, the offset clamp and the clip."""
+    H, syn_np, prior_np = _small_irregular(512, seed=8)
+    H = np.vstack([H, np.eye(1, H.shape[1], k=int(np.flatnonzero(H.sum(0))[0]), dtype=np.uint8)])
+    syn_np = np.hstack([syn_np, np.ones((512, 1), np.uint8)])
+    cfg = (BPConfig(max_iter=20, method="min-sum") if method == "min-sum"
+           else BPConfig(max_iter=20, method="min-sum", offset=0.1, clip_llr=8.0))
+    dec = BPDecoder(H, cfg).to(cuda)
+    syn, prior = torch.from_numpy(syn_np).to(cuda), torch.from_numpy(prior_np).to(cuda)
+    got = dem_bp_cuda(syn, prior, dec.tables(), cfg)
+    ref = dem_bp_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0]).any())
+    _assert_same(got, ref)
+
+
+def test_k1_propagates_nan_from_degree_one_checks(cuda):
+    """A check-regular graph of degree 1 (every check reads one variable)."""
+    H = np.zeros((6, 12), np.uint8)
+    H[np.arange(6), 2 * np.arange(6)] = 1
+    cfg = BPConfig(max_iter=10, method="min-sum", offset=0.1, clip_llr=8.0)
+    dec = BPDecoder(H, cfg).to(cuda)
+    rng = np.random.default_rng(9)
+    syn = torch.from_numpy((rng.random((256, 6)) < 0.5).astype(np.uint8)).to(cuda)
+    prior = torch.full((12,), 2.0, device=cuda)
+    got = bp_flooding_cuda(syn, prior, dec.tables(), cfg)
+    ref = bp_flooding_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _assert_same(got, ref)
+
+
+def _factored_inputs(cuda, graph, B, seed):
+    """(OSD decoder, order, resid) on the BP(10) failures of a DEM."""
+    dem, syn_np, prior_np = _dem_inputs(graph, B, seed)
+    bp = BPDecoder(dem.H, BPConfig(max_iter=10)).to(cuda)
+    osd = OSDDecoder(dem.H, OSDConfig(backend="factored")).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    r = bp(syn, torch.from_numpy(prior_np).to(cuda))
+    fail = ~r.converged
+    assert int(fail.sum()) > 8
+    resid = osd._residual(syn[fail], r.hard[fail].to(torch.int32))
+    order = torch.argsort(r.llrs[fail].abs(), dim=1, stable=True)
+    return osd, order, resid
+
+
+@pytest.mark.parametrize("graph", ["steane", "[[72, 12, 6]]"])
+@pytest.mark.parametrize("budget", ["decoder", "one-block"])
+def test_k5_matches_plain(cuda, graph, budget):
+    osd, order, resid = _factored_inputs(cuda, graph, 512, seed=10)
+    max_cols = osd.max_cols if budget == "decoder" else ofc.BLOCK_COLS
+    got = ofc.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank, max_cols)
+    ref = ofc.eliminate_factored_plain(order, resid, osd.Hc, osd.h_rank, max_cols)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+K5 = ("factored_y", "factored_w", "factored_panel_elim", "factored_resolve")
+
+
+def test_each_k5_kernel_matches_plain_at_every_block(cuda, monkeypatch):
+    """Each kernel against its plain version on the state the elimination
+    hands it, outputs and in-place state both."""
+    osd, order, resid = _factored_inputs(cuda, "[[72, 12, 6]]", 256, seed=11)
+    calls = dict.fromkeys(K5, 0)
+
+    def checked(name, kernel, plain):
+        def run(*a):
+            kargs = [x.clone() if torch.is_tensor(x) else x for x in a]
+            pargs = [x.clone() if torch.is_tensor(x) else x for x in a]
+            kout, pout = kernel(*kargs), plain(*pargs)
+            torch.cuda.synchronize()
+            if kout is not None:
+                assert torch.equal(kout, pout), name
+            for x, y in zip(kargs, pargs):
+                if torch.is_tensor(x):
+                    assert torch.equal(x, y), name
+            calls[name] += 1
+            return kernel(*a)
+        run.launches = 0  # the wrapper counts under its module name: here
+        return run
+
+    for name in K5:
+        monkeypatch.setattr(ofc, f"{name}_cuda", checked(
+            name, getattr(ofc, f"{name}_cuda"), getattr(ofc, f"{name}_plain")))
+    ofc.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank, osd.max_cols)
+    assert all(c >= 1 for c in calls.values())
+
+
+def test_factored_osd_solutions_match_transform(cuda):
+    dem, syn_np, prior_np = _dem_inputs("[[72, 12, 6]]", 512, seed=12)
+    bp = BPDecoder(dem.H, BPConfig(max_iter=10)).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    r = bp(syn, torch.from_numpy(prior_np).to(cuda))
+    fail = ~r.converged
+    args = (syn[fail], r.llrs[fail], r.hard[fail])
+    got = OSDDecoder(dem.H, OSDConfig(backend="factored")).to(cuda)(*args)
+    ref = OSDDecoder(dem.H, OSDConfig(backend="transform")).to(cuda)(*args)
+    assert torch.equal(got, ref)
+
+
+def test_dem_engine_factored_on_card_matches_cpu_engine(cuda):
+    dem = parametric_memory_dem(get_code("steane"), basis="z", rounds=3)
+    cfg = DEMEngineConfig(bp=MIN_SUM, osd=OSDConfig(backend="factored"), batch_size=512)
     got = DEMEngine(dem, cfg, device=cuda).run(1000, seed=2, p=0.01)
     ref = DEMEngine(dem, cfg, device="cpu").run(1000, seed=2, p=0.01)
     for k in ref:

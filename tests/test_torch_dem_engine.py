@@ -25,7 +25,7 @@ from qldpc_tpu.mc import DEMEngine as JaxDEMEngine
 from qldpc_tpu.mc import DEMEngineConfig as JaxDEMEngineConfig
 from qldpc_tpu.noise.circuit import memory_experiment_dem, parametric_memory_dem
 from qldpc_tpu.parallel import make_mesh
-from qldpc_tpu_torch.convert import dem_engine_config_from_reference
+from qldpc_tpu_torch.convert import dem_engine_config_from_reference, dem_from_reference
 from qldpc_tpu_torch.mc import DEMEngine, DEMEngineConfig, EngineConfig
 from qldpc_tpu_torch.noise.dem import DEMData
 
@@ -43,7 +43,7 @@ def steane_parametric():
 def _engines(dem, **kw):
     cfg = JaxDEMEngineConfig(**{"bp": MS, "osd": OSDConfig(order=0), "batch_size": 256, **kw})
     jax_eng = JaxDEMEngine(dem, cfg, mesh=make_mesh(1))
-    port = DEMEngine(dem, dem_engine_config_from_reference(cfg), device="cpu")
+    port = DEMEngine(dem_from_reference(dem), dem_engine_config_from_reference(cfg), device="cpu")
     return jax_eng, port
 
 
@@ -88,7 +88,7 @@ def test_bp_only_and_sweep(steane_parametric):
 
 
 def test_sampling_and_syndrome(steane_parametric):
-    dem = steane_parametric
+    dem = dem_from_reference(steane_parametric)
     port = DEMEngine(dem, DEMEngineConfig(bp=MS, batch_size=64), device="cpu")
     from qldpc_tpu_torch.utils import rng
 
@@ -104,14 +104,14 @@ def test_config_and_guards(steane_parametric):
         EngineConfig(channel="dem")  # only the DEM engine takes it
     with pytest.raises(ValueError, match="unknown channel"):
         DEMEngineConfig(channel="code-capacity")
-    port = DEMEngine(steane_parametric, EngineConfig(bp=MS, batch_size=32), device="cpu")
+    dem = dem_from_reference(steane_parametric)
+    port = DEMEngine(dem, EngineConfig(bp=MS, batch_size=32), device="cpu")
     assert isinstance(port.config, DEMEngineConfig) and port.config.bp == MS
     with pytest.raises(ValueError, match="physical rate"):
         port.run(shots=32)
     with pytest.raises(ValueError, match="counter space"):
-        DEMEngine(steane_parametric, DEMEngineConfig(batch_size=2**25), device="cpu")
-    fixed = DEMData(H=steane_parametric.H, L=steane_parametric.L,
-                    priors=steane_parametric.priors_at(0.01))
+        DEMEngine(dem, DEMEngineConfig(batch_size=2**25), device="cpu")
+    fixed = DEMData(H=dem.H, L=dem.L, priors=dem.priors_at(0.01))
     q, _ = DEMEngine(fixed, DEMEngineConfig(batch_size=8), device="cpu").priors(0.5)
     assert torch.equal(q, torch.tensor(fixed.priors, dtype=torch.float32))
 

@@ -26,7 +26,8 @@ from qldpc_tpu.mc import MonteCarloEngine as JaxEngine
 from qldpc_tpu.mc import counters_to_dict as jax_counters_to_dict
 from qldpc_tpu.noise.channels import uniform_prior_llr as jax_prior
 from qldpc_tpu.parallel import make_mesh
-from qldpc_tpu_torch.convert import engine_config_from_reference
+from qldpc_tpu_torch.codes import get_code as port_code
+from qldpc_tpu_torch.convert import code_from_reference, engine_config_from_reference
 from qldpc_tpu_torch.decoders import BPConfig as PortBPConfig
 from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine, counters_to_dict
 from qldpc_tpu_torch.noise.channels import uniform_prior_llr
@@ -70,7 +71,8 @@ def test_counters_identical_to_jax_engine(case):
     ref = jax_counters_to_dict(
         JaxEngine(code, ref_cfg, mesh=make_mesh(1)).run_rate(p, trials=300, seed=3)
     )
-    port = MonteCarloEngine(code, engine_config_from_reference(ref_cfg), device="cpu")
+    port = MonteCarloEngine(code_from_reference(code), engine_config_from_reference(ref_cfg),
+                            device="cpu")
     got = counters_to_dict(port.run_rate(p, trials=300, seed=3))
     assert got["trials"] == 300
     assert set(got) == set(ref)
@@ -81,7 +83,7 @@ def test_counters_identical_to_jax_engine(case):
 
 
 def test_sweep_matches_per_rate_runs():
-    code = get_code("steane")
+    code = port_code("steane")
     cfg = EngineConfig(bp=PortBPConfig(max_iter=20), batch_size=64)
     eng = MonteCarloEngine(code, cfg, device="cpu")
     res = eng.sweep([0.03, 0.06], trials=100, seed=4)
@@ -107,8 +109,8 @@ def test_config_conversion_and_out_of_slice_features():
         engine_config_from_reference(JaxEngineConfig(osd=OSDConfig(order=3)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine_config_from_reference(JaxEngineConfig(channel="space-time"))
-    eng = MonteCarloEngine(get_code("steane"), EngineConfig(), device="cpu")
+    eng = MonteCarloEngine(port_code("steane"), EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.sweep([0.01], trials=8, checkpoint=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MonteCarloEngine(get_code("steane"), EngineConfig(), device=["cpu", "cpu"])
+        MonteCarloEngine(port_code("steane"), EngineConfig(), device=["cpu", "cpu"])

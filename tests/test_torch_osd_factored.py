@@ -1,0 +1,308 @@
+"""The port's factored elimination (plain torch) against the JAX package's
+``FactoredEliminator`` run in interpret mode, as tests/test_osd_factored.py
+runs it on the CPU.
+
+Inputs come from numpy seeds: the random wide system of that file (40 x 640
+with redundant rows) and the Steane memory-experiment DEM (18 x 267), with
+consistent and inconsistent syndromes and nonzero BP hard decisions. Every
+comparison is bit for bit:
+
+  * each plain kernel function (K5a-d) against the JAX Pallas program it
+    replaces, on the same state over a 128-lane slab;
+  * ``(b, pivoted, piv_col, overflow)`` against the JAX eliminator run one
+    sample at a time, so that its slab's loop ends on that sample's own exit
+    as the port's per-sample exit does;
+  * the OSD-0 solutions against the JAX ``OSDDecoder`` with
+    ``backend="factored"`` and with ``backend="lanes"``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qldpc_tpu.codes import get_code
+from qldpc_tpu.decoders.osd import OSDConfig as JaxOSDConfig
+from qldpc_tpu.decoders.osd import OSDDecoder as JaxOSDDecoder
+from qldpc_tpu.noise.circuit import memory_experiment_dem
+from qldpc_tpu.ops.osd_factored import FactoredEliminator
+from qldpc_tpu_torch.decoders import OSDConfig, OSDDecoder
+from qldpc_tpu_torch.decoders import osd as port_osd
+from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
+
+torch.set_num_threads(2)
+
+WORD, K = 32, ofc.BLOCK_COLS
+
+
+def _wide_case(rng, m=40, n=640, batch=8, density=0.05, err=0.02, redundant=3):
+    """tests/test_osd_factored.py's wide case, with nonzero hard decisions."""
+    H = (rng.random((m - redundant, n)) < density).astype(np.uint8)
+    H[:, : m - redundant] |= np.eye(m - redundant, dtype=np.uint8)
+    H = np.vstack([H, H[:redundant]])  # rank < m
+    errors = (rng.random((batch, n)) < err).astype(np.int8)
+    syndromes = ((errors.astype(np.int64) @ H.T) % 2).astype(np.int8)
+    llrs = (rng.normal(size=(batch, n)) * 3.0).astype(np.float32)
+    hard = (rng.random((batch, n)) < 0.03).astype(np.int8)
+    return H, syndromes, llrs, hard
+
+
+def _steane_case(rng, batch=8):
+    dem = memory_experiment_dem(get_code("steane"), p=0.01, rounds=3)
+    H = dem.H
+    mech = (rng.random((batch, H.shape[1])) < dem.priors).astype(np.int64)
+    syndromes = ((mech @ H.T) % 2).astype(np.int8)
+    llrs = (dem.llrs[None, :] + rng.normal(size=(batch, H.shape[1])) * 2.0).astype(np.float32)
+    hard = (llrs < 0).astype(np.int8)
+    return H, syndromes, llrs, hard
+
+
+CASES = {"random-wide": _wide_case, "steane-dem": _steane_case}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def case(request):
+    rng = np.random.default_rng(20260820)
+    H, syn, llrs, hard = CASES[request.param](rng)
+    jdec = JaxOSDDecoder(H, JaxOSDConfig(order=0, backend="factored"))
+    return dict(H=H, syn=syn, llrs=llrs, hard=hard, h_rank=jdec._H_rank,
+                max_cols=max(2048, min(H.shape[1], jdec._H_rank + 512)), jdec=jdec)
+
+
+def _system(case, inconsistent):
+    """(order, resid) as both decoders build them, the residual flipped on
+    one row per sample to make an inconsistent system."""
+    H, syn, llrs, hard = case["H"], case["syn"], case["llrs"], case["hard"]
+    resid = (syn.astype(np.int64) + hard.astype(np.int64) @ H.T) % 2
+    if inconsistent:
+        resid[np.arange(len(resid)), np.arange(len(resid)) % H.shape[0]] ^= 1
+    order = np.argsort(np.abs(llrs), axis=1, kind="stable").astype(np.int32)
+    return order, resid.astype(np.int32)
+
+
+def _port(case, order, resid, max_cols):
+    out = ofc.eliminate_factored(
+        torch.from_numpy(order), torch.from_numpy(resid),
+        torch.from_numpy(ofc.factored_columns(case["H"])), case["h_rank"], max_cols)
+    return tuple(t.numpy() for t in out)
+
+
+def _jax_per_sample(case, order, resid, max_cols):
+    elim = FactoredEliminator(case["H"], h_rank=case["h_rank"], max_cols=max_cols,
+                              interpret=True)
+    one = jax.jit(elim.__call__)
+    outs = [one(jnp.asarray(order[i: i + 1]), jnp.asarray(resid[i][:, None], jnp.uint32))
+            for i in range(len(order))]
+    b, piv, piv_col = (np.concatenate([np.asarray(o[k]).T for o in outs]) for k in range(3))
+    overflow = np.concatenate([np.asarray(o[3]) for o in outs])
+    return b, piv, piv_col, overflow
+
+
+@pytest.mark.parametrize("inconsistent", [False, True])
+def test_elimination_matches_jax_per_sample(case, inconsistent):
+    order, resid = _system(case, inconsistent)
+    got = _port(case, order, resid, case["max_cols"])
+    ref = _jax_per_sample(case, order, resid, case["max_cols"])
+    for name, g, r in zip(("b", "pivoted", "piv_col", "overflow"), got, ref):
+        assert np.array_equal(g.astype(np.int64), r.astype(np.int64)), name
+    assert not got[3].any()
+    # each pivot column is an original column id on a pivoted row
+    assert ((got[2] >= 0) == (got[1] == 1)).all()
+
+
+@pytest.mark.parametrize("inconsistent", [False, True])
+def test_osd0_solutions_match_jax_backends(case, inconsistent):
+    H, llrs, hard = case["H"], case["llrs"], case["hard"]
+    _, resid = _system(case, inconsistent)
+    syn = ((resid + hard.astype(np.int64) @ H.T) % 2).astype(np.int8)
+    dec = OSDDecoder(H, OSDConfig(backend="factored"))
+    assert dec.elimination == "factored"
+    got = dec(torch.from_numpy(syn), torch.from_numpy(llrs), torch.from_numpy(hard)).numpy()
+    ref = case["jdec"](syn, llrs, hard)  # the JAX factored backend
+    assert np.array_equal(got, np.asarray(ref))
+    lanes = JaxOSDDecoder(H, JaxOSDConfig(order=0, backend="lanes"))(syn, llrs, hard)
+    assert np.array_equal(got, np.asarray(lanes))
+
+
+@pytest.fixture(scope="module")
+def low_rank_first():
+    """A wide system whose 200 least reliable columns touch rows 0-9 only:
+    a budget of one block reaches rank 10 at most, below rank(H), and every
+    syndrome with a bit outside rows 0-9 is left unresolved."""
+    rng = np.random.default_rng(11)
+    H, syn, llrs, hard = _wide_case(rng)
+    H[10:, :200] = 0
+    llrs[:, :200] = 0.01 * np.sign(llrs[:, :200])
+    syn = ((rng.random(syn.shape) < 0.3) | (np.arange(H.shape[0]) == 20)).astype(np.int8)
+    jdec = JaxOSDDecoder(H, JaxOSDConfig(order=0, backend="factored"))
+    return dict(H=H, syn=syn, llrs=llrs, hard=hard, h_rank=jdec._H_rank)
+
+
+def test_small_budget_overflows_like_jax(low_rank_first):
+    case = low_rank_first
+    order, resid = _system(case, inconsistent=False)
+    got = _port(case, order, resid, max_cols=K)
+    ref = _jax_per_sample(case, order, resid, max_cols=K)
+    for name, g, r in zip(("b", "pivoted", "piv_col", "overflow"), got, ref):
+        assert np.array_equal(g.astype(np.int64), r.astype(np.int64)), name
+    assert got[3].all()
+
+
+def test_overflow_lanes_return_hard(low_rank_first):
+    case = low_rank_first
+    H, syn, llrs, hard = case["H"], case["syn"], case["llrs"], case["hard"]
+    dec = OSDDecoder(H, OSDConfig(backend="factored"))
+    assert dec.max_cols == max(2048, min(H.shape[1], dec.h_rank + 512))
+    dec.max_cols = K  # below the decoder's own floor of rank + 512
+    got = dec(torch.from_numpy(syn), torch.from_numpy(llrs), torch.from_numpy(hard)).numpy()
+    assert np.array_equal(got, hard)
+    jdec = JaxOSDDecoder(H, JaxOSDConfig(order=0, backend="factored"))
+    jdec._factored = FactoredEliminator(H, h_rank=jdec._H_rank, max_cols=K, interpret=True)
+    assert np.array_equal(got, np.asarray(jdec(syn, llrs, hard)))
+
+
+# ------------------------------------------------- each kernel's plain version
+@pytest.fixture(scope="module")
+def slab():
+    """A random mid-elimination state of 128 lanes of the random wide system
+    in both layouts: the JAX one (lanes minor, rows padded to 256) and the
+    port's (sample-major, rows padded to 32)."""
+    rng = np.random.default_rng(7)
+    H = _wide_case(rng)[0]
+    m, n = H.shape
+    B, blk = 128, 2
+    scur = blk * K
+    elim = FactoredEliminator(H, h_rank=37, max_cols=n, interpret=True)
+    progs = elim._progs(B)
+    hc_p = ofc.factored_columns(H)  # (n + 1, mw)
+    mw = hc_p.shape[1]
+    m_pad = mw * WORD
+    s_max, cw = elim.s_max, elim.cw
+    u32 = lambda *shape: rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+    row_mask = np.uint32((1 << (m - WORD)) - 1)  # rows >= m stay zero
+    P = u32(B, s_max, mw)
+    P[:, :, -1] &= row_mask
+    P[:, scur:] = 0
+    C = u32(B, cw, m_pad) & (rng.random((B, cw, m_pad)) < 0.5)
+    C[:, :, m:] = 0
+    C[:, (scur + K) // WORD:] = 0
+    ids = rng.integers(0, n + 1, size=(B, K)).astype(np.int32)  # n: the sentinel
+    return dict(H=H, m=m, n=n, B=B, blk=blk, scur=scur, progs=progs, elim=elim,
+                Hc=hc_p, mw=mw, m_pad=m_pad, P=P, C=C, ids=ids, rng=rng)
+
+
+def _jax_rows(x, rows):
+    """Port words (..., mw) -> JAX words (..., mw_jax): rows padded to 256."""
+    pad = rows // WORD - x.shape[-1]
+    return np.concatenate([x, np.zeros(x.shape[:-1] + (pad,), x.dtype)], axis=-1)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+def _lanes(s):
+    return torch.from_numpy(np.sort(s["rng"].choice(s["B"], 48, replace=False)).astype(np.int32))
+
+
+def test_y_plain_matches_pallas(slab):
+    s = slab
+    y_prog = s["progs"][0]
+    hblk = np.asarray(s["elim"]._Hc)[s["ids"]].transpose(1, 2, 0)  # (K, mw_jax, B)
+    P_j = _jax_rows(s["P"], s["elim"].m_pad).transpose(1, 2, 0)
+    Y_j = np.asarray(y_prog(jnp.array([s["scur"]], jnp.int32), P_j, hblk))
+    lanes = _lanes(s)
+    got = ofc.factored_y_plain(_t(s["P"]), lanes, _t(s["ids"][lanes.numpy()]), _t(s["Hc"]), s["scur"])
+    ref = Y_j[: s["scur"]].transpose(2, 0, 1)[lanes.numpy()]
+    assert np.array_equal(got.numpy().view(np.uint32), ref)
+
+
+def test_w_plain_matches_pallas(slab):
+    s = slab
+    scur, B = s["scur"], s["B"]
+    y_prog, w_prog = s["progs"][:2]
+    Y_p = s["rng"].integers(0, 2**32, size=(B, scur, K // WORD), dtype=np.uint64).astype(np.uint32)
+    Y_j = np.zeros((s["elim"].s_max, K // WORD, B), np.uint32)
+    Y_j[:scur] = Y_p.transpose(1, 2, 0)
+    C_j = np.zeros((s["elim"].m_pad, s["elim"].cw, B), np.uint32)
+    C_j[: s["m_pad"]] = s["C"].transpose(2, 1, 0)
+    hblk_t = np.asarray(s["elim"]._Hc)[s["ids"]].transpose(2, 1, 0)  # (mw_jax, K, B)
+    W_j = np.asarray(w_prog(jnp.array([scur], jnp.int32), C_j, Y_j, hblk_t))
+    lanes = _lanes(s)
+    got = ofc.factored_w_plain(_t(s["C"]), lanes, _t(s["ids"][lanes.numpy()]), _t(s["Hc"]),
+                         _t(Y_p[lanes.numpy()]), scur)
+    ref = W_j[: s["m_pad"]].transpose(2, 0, 1)[lanes.numpy()]
+    assert np.array_equal(got.numpy().view(np.uint32), ref)
+
+
+def test_panel_elim_and_resolve_plain_match_pallas(slab):
+    s = slab
+    rng, B, m, m_pad, mw, blk, scur = (s[k] for k in ("rng", "B", "m", "m_pad", "mw", "blk", "scur"))
+    elim_prog, res_prog = s["progs"][2:]
+    W = rng.integers(0, 2**32, size=(B, m_pad, K // WORD), dtype=np.uint64).astype(np.uint32)
+    W[:, m:] = 0
+    bits = lambda p: (rng.random((B, m_pad)) < p) & (np.arange(m_pad) < m)
+    pack = lambda x: np.packbits(x.reshape(B, mw, WORD), axis=-1, bitorder="little").view(np.uint32)[..., 0]
+    b0, piv0 = pack(bits(0.5)), pack(bits(0.3))
+    mj = s["elim"].m_pad
+    W_j = np.zeros((mj, K // WORD, B), np.uint32)
+    W_j[:m_pad] = W.transpose(1, 2, 0)
+    b_j, piv_j, cnew_j, prow_j = map(np.asarray, elim_prog(
+        jnp.asarray(s["ids"].T), W_j, _jax_rows(b0, mj).T, _jax_rows(piv0, mj).T))
+
+    lanes = _lanes(s)
+    ln = lanes.numpy()
+    b_t, piv_t, C_t = _t(b0.copy()), _t(piv0.copy()), _t(s["C"].copy())
+    prow = ofc.factored_panel_elim_plain(_t(W[ln]), b_t, piv_t, C_t, lanes, _t(s["ids"][ln]), s["n"], blk)
+    # JAX marks "no pivot" with its own m_pad
+    assert np.array_equal(np.where(prow.numpy() == m_pad, mj, prow.numpy()), prow_j.T[ln])
+    assert np.array_equal(b_t.numpy().view(np.uint32)[ln], b_j.T[ln, :mw])
+    assert np.array_equal(piv_t.numpy().view(np.uint32)[ln], piv_j.T[ln, :mw])
+    cnew = C_t.numpy().view(np.uint32)[ln, blk * 4: blk * 4 + 4]  # (A, kw, m_pad)
+    assert np.array_equal(cnew, cnew_j[:m_pad].transpose(2, 1, 0)[ln])
+    others = np.ones(B, bool)
+    others[ln] = False
+    assert np.array_equal(C_t.numpy().view(np.uint32)[others], s["C"][others])
+
+    # K5d on that state: G and D are the pivots' rows of C, masked where
+    # a column has no pivot, as the JAX slab loop gathers them
+    C_full = C_t.numpy().view(np.uint32)
+    C_j = np.zeros((mj, s["elim"].cw, B), np.uint32)
+    C_j[:m_pad] = C_full.transpose(2, 1, 0)
+    prow_all = np.full((K, B), mj, np.int32)
+    prow_all[:, ln] = np.where(prow.numpy() == m_pad, mj, prow.numpy()).T
+    valid = prow_all < mj
+    pcl = np.minimum(prow_all, mj - 1)[:, None, :]
+    G = np.where(valid[:, None, :], np.take_along_axis(C_j, pcl, axis=0), 0)
+    D = np.where(valid[:, None, :], np.take_along_axis(C_j[:, blk * 4: blk * 4 + 4], pcl, axis=0), 0)
+    P_j = _jax_rows(s["P"], mj).transpose(1, 2, 0)
+    Pnew_j = np.asarray(res_prog(jnp.array([scur], jnp.int32), P_j, G, D, prow_all))
+    P_t = _t(s["P"].copy())
+    ofc.factored_resolve_plain(P_t, C_t, lanes, prow, blk)
+    P_out = P_t.numpy().view(np.uint32)
+    assert np.array_equal(P_out[ln, scur: scur + K], Pnew_j[:, :mw].transpose(2, 0, 1)[ln])
+    assert np.array_equal(P_out[ln, :scur], s["P"][ln, :scur])
+    assert np.array_equal(P_out[others], s["P"][others])
+
+
+def test_elimination_choice_follows_the_shape(case, monkeypatch):
+    H = case["H"]
+    assert OSDDecoder(H).elimination == "transform"  # its transform fits K4
+    monkeypatch.setattr(port_osd, "SMEM_LIMIT", 0)
+    assert OSDDecoder(H).elimination == "factored"
+    narrow = get_code("steane").Hx
+    assert OSDDecoder(narrow).elimination == "rows"
+    with pytest.raises(ValueError, match="wide systems"):
+        OSDDecoder(narrow, OSDConfig(backend="factored"))
+    with pytest.raises(ValueError, match="unknown OSD backend"):
+        OSDConfig(backend="lanes")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    cpu = torch.zeros((1, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ofc.factored_y_cuda(cpu, cpu[0, 0], cpu[0], cpu[0], 0)
+    meta = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ofc.eliminate_factored(meta, meta, meta, 1, 128)

@@ -10,7 +10,13 @@ import torch
 
 from qldpc_tpu_torch.convert import osd_config_from_reference
 from qldpc_tpu_torch.decoders import OSDConfig
-from qldpc_tpu_torch.ops import bp_cuda, dem_bp_cuda, osd_cuda, osd_transform_cuda
+from qldpc_tpu_torch.ops import (
+    bp_cuda,
+    dem_bp_cuda,
+    osd_cuda,
+    osd_factored_cuda,
+    osd_transform_cuda,
+)
 
 torch.set_num_threads(2)
 
@@ -62,7 +68,8 @@ def test_kernel_sources_ship_beside_the_wrappers():
 def test_dem_kernel_sources_ship_beside_the_wrappers():
     csrc = REPO / "qldpc_tpu_torch" / "ops" / "csrc"
     for module, source in ((dem_bp_cuda, "dem_bp.cu"),
-                           (osd_transform_cuda, "gf2_transform_elim.cu")):
+                           (osd_transform_cuda, "gf2_transform_elim.cu"),
+                           (osd_factored_cuda, "gf2_factored.cu")):
         assert (csrc / source).is_file()
         assert module._LIB.source == csrc / source
 
@@ -70,40 +77,44 @@ def test_dem_kernel_sources_ship_beside_the_wrappers():
 _DEM_WITHOUT_JAX = """
 import sys
 sys.modules["jax"] = None  # any import of jax now raises
-from qldpc_tpu.codes import get_code
-from qldpc_tpu_torch.noise.dem import parametric_memory_dem
+sys.modules["qldpc_tpu"] = None  # and so does any import of the JAX package
+from qldpc_tpu_torch.codes import get_code
+from qldpc_tpu_torch.noise.circuit import parametric_memory_dem
 from qldpc_tpu_torch.mc import DEMEngine, DEMEngineConfig
 dem = parametric_memory_dem(get_code("steane"), basis="z", rounds=2)
 eng = DEMEngine(dem, DEMEngineConfig(batch_size=16), device="cpu")
 d = eng.run(16, seed=0, p=0.01)
-print(dem.H.shape, d["trials"], "qldpc_tpu.noise" in sys.modules)
+print(dem.H.shape, d["trials"], sorted(m for m in sys.modules if m.startswith("qldpc_tpu.")))
 """
 
 
 def test_dem_path_runs_with_jax_blocked():
-    shape, trials, parent_loaded = _run(_DEM_WITHOUT_JAX).rsplit(" ", 2)
+    shape, trials, loaded = _run(_DEM_WITHOUT_JAX).rsplit(" ", 2)
     assert shape.startswith("(") and int(trials) == 16
-    # the numpy builders were loaded without the JAX noise package
-    assert parent_loaded == "False"
+    # nothing of the JAX package was loaded
+    assert loaded == "[]"
 
 
-_LOADER_THEN_PACKAGE = """
-import qldpc_tpu_torch.noise.dem as port_dem
-from qldpc_tpu.noise import code_capacity, DEMData
-import qldpc_tpu.noise.circuit as circuit
-print(callable(code_capacity), DEMData is port_dem.DEMData,
-      circuit.parametric_memory_dem is port_dem.parametric_memory_dem)
+_IMPORT_ALL_BLOCKED = """
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["qldpc_tpu"] = None
+import qldpc_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(qldpc_tpu_torch.__path__, "qldpc_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+for script in ("profile_torch_engine", "probe_factored_k5"):
+    spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(len(names))
 """
 
 
-def test_jax_noise_package_still_imports_after_the_loader():
-    # the loader leaves no stand-in for qldpc_tpu.noise behind: a later
-    # import of the JAX package runs its __init__ and shares the modules
-    assert _run(_LOADER_THEN_PACKAGE) == "True True True"
-    import qldpc_tpu_torch.noise.dem  # noqa: F401  (in this process too)
-    from qldpc_tpu.noise import code_capacity
-
-    assert callable(code_capacity)
+def test_port_imports_nothing_of_the_jax_package():
+    # every module of the port, chip_smoke.py and the scripts that drive the
+    # port on the card import with both jax and qldpc_tpu blocked
+    assert int(_run(_IMPORT_ALL_BLOCKED)) >= 20
 
 
 def test_wrappers_refuse_unknown_devices():
@@ -122,6 +133,9 @@ def test_osd_config_conversion():
            "dtype": "float32", "backend": "pallas", "max_elim_cols": 2048,
            "chunk": 64, "batch_tile": 256}
     assert osd_config_from_reference(ref) == OSDConfig(order=0)
+    # the factored elimination carries over; every other JAX backend is "auto"
+    got = osd_config_from_reference({**ref, "backend": "factored", "max_elim_cols": 4096})
+    assert got == OSDConfig(order=0, backend="factored", max_elim_cols=4096)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         osd_config_from_reference({**ref, "order": 1})
     with pytest.raises(ValueError, match="no fields"):
