@@ -1,13 +1,13 @@
-"""Drive the PyTorch/CUDA port's three paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's five paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. toolchain: torch, CUDA, the card, its power limit, nvcc, triton;
   2. build the kernels K1 (fused BP), K2 (GF(2) elimination), K3 (DEM BP),
-     K4 (transform GF(2) elimination) and K5a-d (factored GF(2)
-     elimination) with nvcc from qldpc_tpu_torch/ops/csrc/, one nvcc per
-     source, all at once;
+     K4 (transform GF(2) elimination), K5a-d (factored GF(2) elimination),
+     K6 (structured space-time BP) and K7 (layered BP) with nvcc from
+     qldpc_tpu_torch/ops/csrc/, one nvcc per source, all at once;
   code capacity, [[144,12,12]]:
   3. K1 against its plain torch version;
   4. K2 against its plain torch version on the BP failures of phase 3;
@@ -34,7 +34,22 @@ Phases (any failure raises and the script exits non-zero):
   13. the DEM engine's sweep at p = 0.001 and 0.002 (launches K3 and K5a-d,
       never K4), held against docs/circuit_ler.md, and its counters held
       against the CPU DEM engine on 32 trials;
-  14. steady-state trials/s of the DEM engine.
+  14. steady-state trials/s of the DEM engine;
+  space-time, [[144,12,12]] at T = 12 (H_st 864 x 2592), the space-time
+  preset's BP(100) + OSD-0 at batch 512:
+  15. K6 against its plain torch version, sum-product and min-sum, p = 0.008;
+  16. K4 against its plain version on the BP failures of phase 15, and the
+      OSD-0 solutions against the plain row elimination's;
+  17. the space-time engine's sweep at p = 0.004 and 0.008 (launches K6 and
+      K4, never K2), its counters held against the CPU engine on small
+      inputs and against the JAX engine's recorded ones (min-sum identical,
+      sum-product LER and OSD rate within 4 sigma);
+  18. steady-state trials/s of the space-time engine;
+  layered schedule, code capacity [[144,12,12]], BP(50) + OSD-0:
+  19. K7 against its plain torch version, B = 65,536, p = 0.050119;
+  20. the layered engine at p = 0.050119 (launches K7 and K2), its LER held
+      against the JAX layered engine's and its counters against the CPU
+      engine on a small input.
 Before the last it prints the card's name and power limit and the kernels'
 JSON record (each kernel's launches on its path, its time and its plain
 version's, and its bound: the larger of the bytes it must move over 3.35
@@ -78,6 +93,37 @@ DEM_REF_TRIALS = 10_000
 DEM_BATCH, DEM_TRIALS = 1024, 10_240  # per error rate
 K3_DECISION_TOL = 1  # lanes in 1024 allowed to differ in decision (K3)
 K5_CHECK_LANES, SOLUTION_LANES = 128, 32
+
+# the space-time preset (qldpc_tpu/experiments/configs.py:184-188) at its
+# central code, rounds = distance
+ST_CODE, ST_ROUNDS, ST_BATCH, ST_ITERS = "[[144, 12, 12]]", 12, 512, 100
+ST_RATES, ST_TRIALS, ST_SEED = (0.004, 0.008), 10_240, 0  # sweep: rate i, seed + i
+ST_CPU_CHECKS = (("[[144, 12, 12]]", 12, 32), ("[[72, 12, 6]]", 6, 512))  # code, T, trials
+# The JAX engine's counters at [[144,12,12]], T = 12, batch 512, p = 0.008,
+# 4,096 trials, seed 1 (the sweep's seed at p = 0.008), recorded on the CPU
+# (XLA) with `python3 scripts/jax_reference_counters.py --only st144-min-sum
+# st144-sum-product`: BP(100) min-sum + OSD-0 (every counter, histograms as
+# {weight: count}) and the preset's BP(100) sum-product + OSD-0.
+JAX_ST_P, JAX_ST_TRIALS, JAX_ST_SEED = 0.008, 4096, 1
+JAX_ST_MIN_SUM = {
+    "trials": 4096, "residual_logicals": 62, "BPs_fault": 445, "BPs_miscorrected": 2,
+    "incorrectable": 60, "degeneracy_count": 134, "bp_converged": 3651, "osd_overflow": 0,
+    "logical": 0.01513671875, "osd": 0.108642578125, "degeneracies": 0.03271484375,
+    "OSD_invocation_AND_logicalError": 0.014892578125, "average_iterations": 15.26611328125,
+    "ler": 0.01513671875, "ler_notebook": 0.123779296875,
+    "weights_found_BP": {0: 40, 6: 13},
+    "weights_found_OSD": {0: 15, 1: 59, 2: 3, 3: 2, 6: 2},
+    "weights_found_BP_error": {1: 1},
+    "weights_found_OSD_error": {1: 49, 2: 9, 3: 2, 8: 1},
+}
+JAX_ST_SUM_PRODUCT = {"ler": 0.013916015625, "osd": 0.04443359375,
+                      "average_iterations": 6.307373046875}
+# The JAX layered engine (BP(50) sum-product, L = 4, + OSD-0) at [[144,12,12]]
+# code capacity, batch 65,536, p = 0.050119, 65,536 trials, seed 0, recorded
+# with `python3 scripts/jax_reference_counters.py --only layered144`.
+LAYERED_BATCH, LAYERED_SEED = 65536, 0
+JAX_LAYERED = {"trials": 65536, "ler": 0.0420684814453125, "osd": 0.0476531982421875,
+               "average_iterations": 4.8182220458984375}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -162,14 +208,16 @@ def phase_toolchain(card_line: str) -> None:
 def phase_build() -> None:
     from qldpc_tpu_torch.ops import (
         bp_cuda,
+        bp_layered_cuda,
         dem_bp_cuda,
         osd_cuda,
         osd_factored_cuda,
         osd_transform_cuda,
+        spacetime_bp_cuda,
     )
 
     libs = [m._LIB for m in (bp_cuda, osd_cuda, dem_bp_cuda, osd_transform_cuda,
-                             osd_factored_cuda)]
+                             osd_factored_cuda, spacetime_bp_cuda, bp_layered_cuda)]
 
     def build(lib):
         t0 = time.perf_counter()
@@ -716,6 +764,302 @@ def phase_dem144_throughput(eng, card_line: str) -> None:
             f"{steady_rate(eng, p, 4 * DEM_BATCH):.1f} trials/s with K3 and K5a-d, "
             f"on {card_line}")
 
+def st_detectors(H: np.ndarray, T: int, p: float, B: int, seed: int) -> np.ndarray:
+    """Space-time detectors d_t = H e_t + u_t + u_{t-1} from a numpy seed."""
+    m, n = H.shape
+    rng = np.random.default_rng(seed)
+    e = (rng.random((B, T, n)) < p).astype(np.int64)
+    u = (rng.random((B, T, m)) < p).astype(np.int64)
+    s = np.einsum("btn,mn->btm", e, H) % 2
+    u_prev = np.concatenate([np.zeros_like(u[:, :1]), u[:, :-1]], axis=1)
+    return ((s + u + u_prev) % 2).reshape(B, T * m).astype(np.uint8)
+
+
+def hold_bp(name: str, got, ref, exact: bool, B: int) -> tuple[float, int]:
+    """K1's rule: at most 1 lane in 10^4 (at least 1) differing in decision
+    and the posteriors of the rest within 1e-5, or bit for bit. Returns
+    (max |dvalues| on agreeing lanes, lanes differing)."""
+    kv, kc, ki, kh = got
+    rv, rc, ri, rh = ref
+    differ = (kc != rc) | (ki != ri) | (kh != rh).any(1)
+    n_diff, agree = int(differ.sum()), ~differ
+    err = float((kv[agree] - rv[agree]).abs().max()) if bool(agree.any()) else 0.0
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    log(f"{name}: B={B} converged {int(kc.sum())} mean iterations "
+        f"{ki.float().mean().item():.3f} lanes differing in decision {n_diff} max "
+        f"|dvalues| {err:.3g} bit-identical {same}")
+    if exact and not same:
+        raise AssertionError(f"{name} is not bit-identical to its plain version")
+    if n_diff > max(1.0, DECISION_TOL * B):
+        raise AssertionError(f"{name}: {n_diff} lanes differ in decision")
+    if not torch.allclose(kv[agree], rv[agree], rtol=VALUE_TOL, atol=VALUE_TOL):
+        raise AssertionError(f"{name}: posteriors differ beyond {VALUE_TOL}")
+    return err, n_diff
+
+
+def phase_k6(dev) -> tuple[dict, dict]:
+    """K6 against the plain version at the space-time preset's shape, p =
+    0.008. Returns its record (sum-product) and the BP failures there."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import BPConfig
+    from qldpc_tpu_torch.decoders.spacetime_bp import SpaceTimeBPDecoder
+    from qldpc_tpu_torch.noise.spacetime import space_time_matrix, space_time_prior_llr
+    from qldpc_tpu_torch.ops.spacetime_bp_cuda import st_bp_cuda, st_bp_plain
+
+    H, T, B, p = get_code(ST_CODE).Hx, ST_ROUNDS, ST_BATCH, 0.008
+    det = torch.from_numpy(st_detectors(H, T, p, B, seed=4)).to(dev)
+    priors = space_time_prior_llr(H.shape[1], H.shape[0], T, p, device=dev)
+    Hst = torch.from_numpy(space_time_matrix(H, T).astype(np.float32)).to(dev)
+    worst, rec, failures = 0.0, None, None
+    for method in ("sum-product", "min-sum"):
+        cfg = BPConfig(max_iter=ST_ITERS, method=method)
+        tables = SpaceTimeBPDecoder(H, T, cfg).to(dev).tables()
+        got = st_bp_cuda(det, priors, tables, T, cfg)
+        torch.cuda.synchronize()
+        ref = st_bp_plain(det, priors, tables, T, cfg)
+        torch.cuda.synchronize()
+        err, _ = hold_bp(f"K6 {ST_CODE} T={T} BP({ST_ITERS}) {method} p={p}", got, ref,
+                         exact=method == "min-sum", B=B)
+        kv, kc, ki, kh = got
+        if not bool((((kh.float() @ Hst.T) % 2) == det.float())[kc].all()):
+            raise AssertionError(f"K6 {method}: a converged lane misses its detectors")
+        worst = max(worst, err)
+        if method == "sum-product":
+            failures = dict(syn=det[~kc], llrs=kv[~kc], hard=kh[~kc])
+            args = (det, priors, tables, T, cfg)
+            edges = int(H.sum()) * T + (2 * T - 1) * H.shape[0]
+            rec = dict(ms=cuda_ms(lambda: st_bp_cuda(*args), reps=10),
+                       plain_ms=cuda_ms(lambda: st_bp_plain(*args), reps=1),
+                       **bp_bound(det, priors, tables, ki, edges))
+            log(f"K6 BP({ST_ITERS}) sum-product B={B}: {rec['ms']:.4f} ms per call, plain "
+                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
+                f"{edges} real edges of H_st)")
+    rec["max_abs_err"] = worst
+    return rec, failures
+
+
+def phase_st_osd(dev, failures: dict) -> None:
+    """K4 on the space-time BP failures, against its plain version, and the
+    OSD-0 solutions against the plain row elimination's (run on the card)."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import OSDDecoder
+    from qldpc_tpu_torch.noise.spacetime import space_time_matrix
+    from qldpc_tpu_torch.ops.osd_cuda import eliminate_rows_plain, pack_rows
+    from qldpc_tpu_torch.ops.osd_transform_cuda import (
+        eliminate_transform_cuda,
+        eliminate_transform_plain,
+    )
+
+    Hst = space_time_matrix(get_code(ST_CODE).Hx, ST_ROUNDS)
+    osd = OSDDecoder(Hst).to(dev)
+    if osd.elimination != "transform":
+        raise AssertionError(f"OSD on H_st took {osd.elimination}, not the transform elimination")
+    hard = failures["hard"].to(torch.int32)
+    resid = osd._residual(failures["syn"], hard)
+    order = torch.argsort(failures["llrs"].abs(), dim=1, stable=True)
+    lanes = order.shape[0]
+    args = (order, resid, osd.Hc, osd.h_rank, True)
+    got = eliminate_transform_cuda(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, eliminate_transform_plain(*args)))
+    log(f"K4 on {lanes} space-time BP failures (H_st {osd.m} x {osd.n}, rank {osd.h_rank}, "
+        f"b-exit): mean rank reached {got[2].float().mean().item():.1f}, bit-identical {same}")
+    if not same:
+        raise AssertionError("K4 disagrees with its plain version on H_st")
+    k, n = min(SOLUTION_LANES, lanes), osd.n
+    sol = osd(failures["syn"][:k], failures["llrs"][:k], failures["hard"][:k]).to(torch.int32)
+    H = torch.from_numpy(Hst).to(dev)
+    _, b, piv = eliminate_rows_plain(pack_rows(H[:, order[:k]].permute(1, 0, 2)), resid[:k], n,
+                                     osd.h_rank)
+    bidx = torch.arange(k, device=dev)[:, None]
+    e_perm = torch.zeros((k, n + 1), dtype=torch.int32, device=dev)
+    e_perm[bidx, torch.where(piv >= 0, piv, n).long()] = b
+    corr = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    corr[bidx, order[:k]] = e_perm[:, :n]
+    same = torch.equal(sol, hard[:k] ^ corr)
+    log(f"OSD-0 solutions on {k} space-time BP failures against the plain row "
+        f"elimination's: identical {same}")
+    if not same:
+        raise AssertionError("the OSD-0 solutions on H_st differ from the row elimination's")
+
+
+def st_engine(dev, bp_cfg=None, code: str = ST_CODE, rounds: int = ST_ROUNDS,
+              batch: int = ST_BATCH):
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
+    from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine
+
+    cfg = EngineConfig(bp=bp_cfg or BPConfig(max_iter=ST_ITERS), osd=OSDConfig(order=0),
+                       channel="space-time", n_rounds=rounds, batch_size=batch)
+    return MonteCarloEngine(get_code(code), cfg, device=dev)
+
+
+def scalars(d: dict) -> dict:
+    return {k: v for k, v in d.items() if not isinstance(v, np.ndarray)}
+
+
+def hists(d: dict) -> dict:
+    return {k: {int(i): int(v[i]) for i in np.nonzero(v)[0]}
+            for k, v in d.items() if isinstance(v, np.ndarray)}
+
+
+def phase_st_engine(dev, card_line: str) -> dict:
+    """The space-time engine's sweep; K6 and K4 must launch, K2 never."""
+    from qldpc_tpu_torch.ops import osd_cuda, osd_transform_cuda, spacetime_bp_cuda
+
+    eng = st_engine(dev)
+    wrappers = {"st_bp": spacetime_bp_cuda.st_bp_cuda,
+                "gf2_transform_elim": osd_transform_cuda.eliminate_transform_cuda,
+                "gf2_elim": osd_cuda.eliminate_rows_cuda}
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = eng.sweep(list(ST_RATES), trials=ST_TRIALS, seed=ST_SEED)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"space-time engine sweep {ST_CODE} T={ST_ROUNDS} BP({ST_ITERS})+OSD-0, {ST_TRIALS} "
+        f"trials per rate, batch {ST_BATCH}: wall {res.wall_time_s:.3f} s, "
+        f"{res.throughput:.1f} trials/s (first use included) on {card_line}")
+    log(f"space-time engine kernel launches in the sweep: {json.dumps(launches)}")
+    if launches["st_bp"] < 1 or launches["gf2_transform_elim"] < 1:
+        raise AssertionError("the space-time sweep did not launch K6 and K4")
+    if launches["gf2_elim"]:
+        raise AssertionError("the space-time sweep launched K2")
+    for p, d in zip(ST_RATES, res.per_rate):
+        log(f"space-time engine p={p}: {json.dumps(scalars(d))}")
+        log(f"  LER {d['ler']:.5f}, OSD rate {d['osd']:.5f}, mean BP iterations "
+            f"{d['average_iterations']:.3f}")
+        if d["trials"] != ST_TRIALS or d["BPs_fault"] != round(d["osd"] * ST_TRIALS):
+            raise AssertionError("space-time engine counters are inconsistent")
+    d = res.per_rate[ST_RATES.index(JAX_ST_P)]
+    for key in ("ler", "osd"):
+        lim = binomial_limit(d[key], d["trials"], JAX_ST_SUM_PRODUCT[key], JAX_ST_TRIALS)
+        log(f"  sum-product {key} at p={JAX_ST_P}: {d[key]:.5f} against the JAX engine's "
+            f"{JAX_ST_SUM_PRODUCT[key]:.5f} (limit +-{lim:.5f})")
+        if abs(d[key] - JAX_ST_SUM_PRODUCT[key]) > lim:
+            raise AssertionError(f"space-time {key} is outside 4 sigma of the JAX engine's")
+    return launches
+
+
+def phase_st_engine_checks(dev) -> None:
+    """(a) the card's space-time engine against the CPU engine on small
+    inputs, min-sum; (b) against the JAX engine's recorded min-sum counters."""
+    from qldpc_tpu_torch.decoders import BPConfig
+    from qldpc_tpu_torch.mc import counters_to_dict
+
+    ms = BPConfig(max_iter=ST_ITERS, method="min-sum")
+    for code, T, trials in ST_CPU_CHECKS:
+        card_eng = st_engine(dev, ms, code=code, rounds=T, batch=trials)
+        cpu_eng = st_engine("cpu", ms, code=code, rounds=T, batch=trials)
+        if card_eng.osd.elimination != cpu_eng.osd.elimination:
+            raise AssertionError("the card and the CPU picked different eliminations")
+        got = counters_to_dict(card_eng.run_rate(JAX_ST_P, trials, seed=1))
+        ref = counters_to_dict(cpu_eng.run_rate(JAX_ST_P, trials, seed=1))
+        same = all(np.array_equal(got[k], ref[k]) for k in ref)
+        log(f"space-time engine on the card vs the CPU engine, {code} T={T}, "
+            f"{card_eng.osd.elimination} elimination, min-sum p={JAX_ST_P}, {trials} trials: "
+            f"identical {same} (ler {got['ler']:.5f}, BP faults {got['BPs_fault']})")
+        if not same:
+            raise AssertionError("the card's space-time engine disagrees with the CPU engine")
+    got = counters_to_dict(st_engine(dev, ms).run_rate(JAX_ST_P, JAX_ST_TRIALS, seed=JAX_ST_SEED))
+    got = {**scalars(got), **hists(got)}
+    differ = {k: (got[k], v) for k, v in JAX_ST_MIN_SUM.items() if got[k] != v}
+    log(f"space-time engine min-sum on the card vs the JAX engine, {ST_CODE} T={ST_ROUNDS}, "
+        f"p={JAX_ST_P}, {JAX_ST_TRIALS} trials: identical {not differ} (ler {got['ler']:.5f}, "
+        f"BP faults {got['BPs_fault']}, OSD histogram {got['weights_found_OSD']})")
+    if differ:
+        raise AssertionError(f"the space-time counters differ from the JAX engine's: {differ}")
+
+
+def phase_st_throughput(dev, card_line: str) -> None:
+    eng = st_engine(dev)
+    steady_rate(eng, ST_RATES[0], ST_BATCH)  # warm
+    for p in ST_RATES:
+        log(f"space-time engine steady state {ST_CODE} T={ST_ROUNDS} p={p}: "
+            f"{steady_rate(eng, p, 4 * ST_BATCH):.1f} trials/s with K6 and K4, on {card_line}")
+
+
+def phase_k7(H: np.ndarray, dev) -> dict:
+    """K7 against the plain version at [[144,12,12]] code capacity, B =
+    65,536, p = 0.050119, BP(50), L = 4. Returns its record (sum-product)."""
+    from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
+    from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered_cuda, bp_layered_plain, layer_count
+
+    B, p = LAYERED_BATCH, REF_P
+    _, syn_np = sample(H, p, B, seed=5)
+    syn = torch.from_numpy(syn_np).to(dev)
+    prior = torch.full((H.shape[1],), math.log((1 - p) / p), dtype=torch.float32, device=dev)
+    worst, rec = 0.0, None
+    for method in ("sum-product", "min-sum"):
+        cfg = BPConfig(max_iter=50, method=method, schedule="layered")
+        tables = BPDecoder(H, cfg).to(dev).tables()
+        got = bp_layered_cuda(syn, prior, tables, cfg)
+        torch.cuda.synchronize()
+        ref = bp_layered_plain(syn, prior, tables, cfg)
+        torch.cuda.synchronize()
+        err, _ = hold_bp(f"K7 {CODE} BP(50) layered L={layer_count(H.shape[0])} {method} p={p}",
+                         got, ref, exact=method == "min-sum", B=B)
+        worst = max(worst, err)
+        if method == "sum-product":
+            args = (syn, prior, tables, cfg)
+            rec = dict(ms=cuda_ms(lambda: bp_layered_cuda(*args), reps=5),
+                       plain_ms=cuda_ms(lambda: bp_layered_plain(*args), reps=1),
+                       **bp_bound(syn, prior, tables, got[2], int(H.sum())))
+            log(f"K7 BP(50) sum-product B={B}: {rec['ms']:.4f} ms per call, plain "
+                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def phase_layered_engine(dev, card_line: str) -> dict:
+    """The layered engine at p = 0.050119: K7 and K2 must launch; its LER
+    against the JAX layered engine's; its counters against the CPU engine's
+    on a small input (min-sum)."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
+    from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine, counters_to_dict
+    from qldpc_tpu_torch.ops import bp_cuda, bp_layered_cuda, osd_cuda
+
+    code = get_code(CODE)
+    eng = MonteCarloEngine(code, EngineConfig(
+        bp=BPConfig(max_iter=50, schedule="layered"), osd=OSDConfig(order=0),
+        batch_size=LAYERED_BATCH), device=dev)
+    wrappers = {"bp_layered": bp_layered_cuda.bp_layered_cuda,
+                "gf2_elim": osd_cuda.eliminate_rows_cuda,
+                "bp_flooding": bp_cuda.bp_flooding_cuda}
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    d = counters_to_dict(eng.run_rate(REF_P, JAX_LAYERED["trials"], seed=LAYERED_SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"layered engine {CODE} BP(50)+OSD-0 p={REF_P}, {d['trials']} trials: wall {wall:.3f} s "
+        f"(first use included) on {card_line}; launches {json.dumps(launches)}")
+    log(f"layered engine p={REF_P}: {json.dumps(scalars(d))}")
+    if launches["bp_layered"] < 1 or launches["gf2_elim"] < 1 or launches["bp_flooding"]:
+        raise AssertionError("the layered engine did not run K7 and K2 alone")
+    for key in ("ler", "osd"):
+        lim = binomial_limit(d[key], d["trials"], JAX_LAYERED[key], JAX_LAYERED["trials"])
+        log(f"  {key} {d[key]:.5f} against the JAX layered engine's {JAX_LAYERED[key]:.5f} "
+            f"(limit +-{lim:.5f}); mean iterations {d['average_iterations']:.4f} against "
+            f"{JAX_LAYERED['average_iterations']:.4f}")
+        if abs(d[key] - JAX_LAYERED[key]) > lim:
+            raise AssertionError(f"layered {key} is outside 4 sigma of the JAX engine's")
+    log(f"layered engine steady state: {steady_rate(eng, REF_P, LAYERED_BATCH):.1f} trials/s "
+        f"with K7 and K2, on {card_line}")
+    cfg = EngineConfig(bp=BPConfig(max_iter=50, method="min-sum", schedule="layered"),
+                       osd=OSDConfig(order=0), batch_size=2048)
+    got = counters_to_dict(MonteCarloEngine(code, cfg, device=dev).run_rate(0.04, 2048, seed=1))
+    ref = counters_to_dict(MonteCarloEngine(code, cfg, device="cpu").run_rate(0.04, 2048, seed=1))
+    same = all(np.array_equal(got[k], ref[k]) for k in ref)
+    log(f"layered engine on the card vs the CPU engine, {CODE} min-sum p=0.04, 2048 trials: "
+        f"identical {same} (ler {got['ler']:.5f}, BP faults {got['BPs_fault']})")
+    if not same:
+        raise AssertionError("the card's layered engine disagrees with the CPU engine")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -769,6 +1113,17 @@ def main() -> int:
                             {"gf2_transform_elim": k4_wrapper})
     timed(phase_dem_engine_vs_cpu, dev, 32, code=DEM144_CODE, rounds=DEM144_ROUNDS)
     timed(phase_dem144_throughput, eng144, card_line)
+    del eng144
+    torch.cuda.empty_cache()
+
+    k6, st_failures = timed(phase_k6, dev)
+    timed(phase_st_osd, dev, st_failures)
+    st_launches = timed(phase_st_engine, dev, card_line)
+    timed(phase_st_engine_checks, dev)
+    timed(phase_st_throughput, dev, card_line)
+
+    k7 = timed(phase_k7, H, dev)
+    layered_launches = timed(phase_layered_engine, dev, card_line)
 
     k1.update(max_abs_err=k1_err)
     rows = [
@@ -789,6 +1144,10 @@ def main() -> int:
          dem144_launches["factored_panel_elim"], k5["factored_panel_elim"]),
         ("factored_resolve", "gf2_factored.cu", "qldpc_tpu/ops/osd_factored.py:308",
          dem144_launches["factored_resolve"], k5["factored_resolve"]),
+        ("st_bp", "spacetime_bp.cu", "qldpc_tpu/ops/spacetime_bp_pallas.py:42",
+         st_launches["st_bp"], k6),
+        ("bp_layered", "bp_layered.cu", "qldpc_tpu/ops/bp_pallas.py:123",
+         layered_launches["bp_layered"], k7),
     ]
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",

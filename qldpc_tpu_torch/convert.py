@@ -34,13 +34,13 @@ __all__ = [
     "dem_from_reference",
 ]
 
-# chunk_size only spaces the XLA path's whole-batch exit checks: the
-# results do not depend on it
-_BP_DROPPED = {"backend", "batch_tile", "n_layers", "chunk_size"}
+# chunk_size only spaces the XLA path's whole-batch exit checks, and the
+# others only pick a TPU code path or tile or a dispatch ladder: the results
+# do not depend on them. schedule, n_layers and n_rounds do, and carry over.
+_BP_DROPPED = {"backend", "batch_tile", "chunk_size"}
 _OSD_DROPPED = {"batch_tile", "chunk"}
 _OSD_ORDER_E_ONLY = {"max_combinations", "extra_positions", "dtype"}
-_ENGINE_DROPPED = {"osd_tiers", "osd_chunk", "fused_dispatch", "rescue_tiers",
-                   "n_rounds"}
+_ENGINE_DROPPED = {"osd_tiers", "osd_chunk", "fused_dispatch", "rescue_tiers"}
 
 
 def _fields(cfg) -> dict:

@@ -1,14 +1,15 @@
-"""Batched belief-propagation decoding in torch (flooding schedule).
+"""Batched belief-propagation decoding in torch.
 
 Port of qldpc_tpu/decoders/bp.py. The decoder is an ``nn.Module`` whose
 gather tables are registered buffers built from the shared ``TannerGraph``,
 so ``.to(device)`` moves them with it. Check-regular graphs (the BB codes
 and Steane) run ``ops.bp_cuda.bp_flooding``: the plain torch version on CPU
-tensors, the fused kernel K1 on CUDA tensors. Irregular graphs (detector
-error models) take the padded check-slot layout of the XLA path and run
-``ops.dem_bp_cuda.dem_bp``: plain torch on CPU tensors, K3 on CUDA tensors.
-
-Not in this slice (see ROADMAP.md): the layered schedule.
+tensors, the fused kernel K1 on CUDA tensors; with ``schedule="layered"``
+they run ``ops.bp_layered_cuda.bp_layered``: plain torch on CPU tensors, K7
+on CUDA tensors. Irregular graphs (detector error models) take the padded
+check-slot layout of the XLA path and run ``ops.dem_bp_cuda.dem_bp``: plain
+torch on CPU tensors, K3 on CUDA tensors. The layered schedule needs a
+check-regular graph, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 
 from qldpc_tpu_torch.ops.tanner import TannerGraph
 from qldpc_tpu_torch.ops.bp_cuda import BPTables, bp_flooding
+from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered, layer_count
 from qldpc_tpu_torch.ops.dem_bp_cuda import DEMTables, dem_bp, dem_tables
 
 __all__ = ["BPConfig", "BPResult", "BPDecoder"]
@@ -49,7 +51,8 @@ class BPConfig:
     offset: float = 0.0  # offset min-sum: |R| -> max(|R| - offset, 0)
     damping: float = 1.0  # 1.0 = no damping; Q = d*Q_new + (1-d)*Q_old
     clip_llr: float | None = None  # symmetric clip of Q messages, None = off
-    schedule: str = "flooding"
+    schedule: str = "flooding"  # "flooding" | "layered" (check-serial)
+    n_layers: int = 0  # layered: check groups per iteration; 0 = auto
     dtype: str = "float32"  # "float64" runs on the plain (CPU) path only
 
     def __post_init__(self):
@@ -61,17 +64,17 @@ class BPConfig:
             raise ValueError("offset applies to the min-sum method only")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}")
-        if self.schedule == "layered":
-            raise NotImplementedError(
-                "the layered BP schedule is not ported yet (ROADMAP.md, "
-                "queue 2, K7)"
-            )
-        if self.schedule != "flooding":
+        if self.schedule not in ("flooding", "layered"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.schedule == "layered" and self.damping != 1.0:
+            raise ValueError("damping is not supported with the layered "
+                             "schedule (messages are recomputed per layer)")
+        if self.n_layers < 0:
+            raise ValueError("n_layers must be >= 0")
 
 
 class BPDecoder(nn.Module):
-    """Batched flooding BP decoder for a fixed parity-check matrix.
+    """Batched BP decoder (flooding or layered) for a fixed parity-check matrix.
 
     Usage::
 
@@ -86,6 +89,13 @@ class BPDecoder(nn.Module):
         self.dtype = _DTYPES[config.dtype]
         # irregular graphs use the padded check-slot layout
         self.slot_layout = not g.check_regular
+        if config.schedule == "layered":
+            if self.slot_layout:
+                raise ValueError(
+                    "the layered schedule requires a check-regular graph "
+                    "(every check with the same degree)"
+                )
+            layer_count(g.m, config.n_layers)  # raises when it does not divide m
         if self.slot_layout:
             self._table_names = tuple(f.name for f in dataclasses.fields(DEMTables))
             for name, arr in dem_tables(g).items():
@@ -110,7 +120,10 @@ class BPDecoder(nn.Module):
         dev = getattr(self, self._table_names[0]).device
         syndromes = torch.as_tensor(syndromes, device=dev)
         priors = torch.as_tensor(priors, device=dev).to(self.dtype)
-        run = dem_bp if self.slot_layout else bp_flooding
+        if self.slot_layout:
+            run = dem_bp
+        else:
+            run = bp_layered if self.config.schedule == "layered" else bp_flooding
         values, conv, iters, hard = run(
             syndromes, priors, self.tables(), self.config, alpha
         )

@@ -7,25 +7,30 @@ them), a GF(2) elimination of each sample's permuted system, then
 ``e_perm[piv_col[r]] = b[r]``, ``corr[order] = e_perm`` and
 ``solution = hard XOR corr``.
 
-Three eliminations, chosen from the shape of H alone, so that the card and
-the CPU choose alike and their counters can be compared:
+Three eliminations, chosen from the shape of H alone before any launch, so
+that the card and the CPU choose alike and their counters can be compared:
 
-  * narrow systems: each sample's permuted H bit-packed by rows and fully
-    row-reduced (``ops.osd_cuda.eliminate_rows``: plain torch on CPU, K2 on
-    CUDA);
-  * wide systems (``n_words > 4 * m_words``: circuit-level DEMs) whose
-    transform fits one block's shared memory: the transform elimination with
-    the b-exit on (``ops.osd_transform_cuda``: plain torch on CPU, K4 on
-    CUDA), whose residual is a gather-parity over each check's variables
-    instead of a dense matmul;
-  * wider ones (the [[144,12,12]] DEM, m = 1,728): the factored elimination
+  * narrow systems whose packed rows fit one warp's shared memory in K2:
+    each sample's permuted H bit-packed by rows and fully row-reduced
+    (``ops.osd_cuda.eliminate_rows``: plain torch on CPU, K2 on CUDA);
+  * wide systems (``n_words > 4 * m_words``: circuit-level DEMs), and narrow
+    ones too large for K2 (the space-time matrix of [[144,12,12]] at T = 12,
+    864 x 2,592), whose transform fits one block's shared memory: the
+    transform elimination with the b-exit on (``ops.osd_transform_cuda``:
+    plain torch on CPU, K4 on CUDA), whose residual is a gather-parity over
+    each check's variables instead of a dense matmul;
+  * larger ones (the [[144,12,12]] DEM, m = 1,728): the factored elimination
     (``ops.osd_factored_cuda``: plain torch on CPU, K5a-d on CUDA), with the
     JAX decoder's column budget ``max(max_elim_cols, min(n, rank + 512))``.
     A sample that exhausts it unresolved returns ``hard`` unchanged, so the
     engine counts it as a failure rather than accept a partial solve.
 
+All three give the OSD-0 solution of the JAX ``lanes`` path: the transform
+elimination's ``(b, piv_col)`` are the lanes path's, and the factored one's
+are for every sample that stays within its budget.
+
 ``OSDConfig.backend`` forces the transform or the factored elimination on a
-wide system; no path falls back to another.
+system the row elimination does not take; no path falls back to another.
 
 Not in this slice (see ROADMAP.md): OSD-e (``order > 0``).
 """
@@ -40,7 +45,13 @@ from torch import nn
 
 from qldpc_tpu_torch.codes import gf2
 from qldpc_tpu_torch.ops.tanner import parity_tables
-from qldpc_tpu_torch.ops.osd_cuda import WORD, eliminate_rows, pack_rows
+from qldpc_tpu_torch.ops.osd_cuda import (
+    ROWS_SMEM_LIMIT,
+    WORD,
+    eliminate_rows,
+    pack_rows,
+    rows_smem_bytes,
+)
 from qldpc_tpu_torch.ops.osd_factored_cuda import eliminate_factored, factored_columns
 from qldpc_tpu_torch.ops.osd_transform_cuda import (
     SMEM_LIMIT,
@@ -95,14 +106,18 @@ class OSDDecoder(nn.Module):
         self.n_words = -(-self.n // WORD)
         self.m_words = -(-self.m // WORD)
         self.wide = self.n_words > 4 * self.m_words
+        # a narrow system whose packed rows overflow K2's warp takes the
+        # column eliminations too
+        by_rows = not self.wide and rows_smem_bytes(self.m, self.n_words) <= ROWS_SMEM_LIMIT
         # every column step after a sample reaches rank(H) is a no-op
         self.h_rank = int(gf2.rank(H))
-        if config.backend != "auto" and not self.wide:
+        if config.backend != "auto" and by_rows:
             raise ValueError(
                 f"backend={config.backend!r} targets wide systems (n_words > "
-                "4 * m_words); this one takes the row elimination"
+                "4 * m_words) and ones too large for the row elimination; this "
+                "one takes the row elimination"
             )
-        if self.wide:
+        if not by_rows:
             self.elimination = config.backend
             if self.elimination == "auto":
                 fits = smem_bytes(self.m) <= SMEM_LIMIT
@@ -121,7 +136,7 @@ class OSDDecoder(nn.Module):
 
     def _residual(self, syndromes, hard):
         B = hard.shape[0]
-        if self.wide:
+        if self.elimination != "rows":
             hp = torch.nn.functional.pad(hard, (0, 1))  # phantom slots read n
             hs = hp[:, self.vos_parity].view(B, self.m, self.dc_parity)
             s_hat = hs.sum(dim=-1, dtype=torch.int32) % 2
@@ -132,7 +147,7 @@ class OSDDecoder(nn.Module):
     def forward(self, syndromes: torch.Tensor, llrs: torch.Tensor,
                 hard: torch.Tensor) -> torch.Tensor:
         """OSD-0 solutions (B, n) int8."""
-        dev = (self.Hc if self.wide else self.H).device
+        dev = (self.H if self.elimination == "rows" else self.Hc).device
         syndromes = torch.as_tensor(syndromes, device=dev)
         llrs = torch.as_tensor(llrs, device=dev)
         hard = torch.as_tensor(hard, device=dev).to(torch.int32)
@@ -148,7 +163,7 @@ class OSDDecoder(nn.Module):
             corr[bidx, torch.where(piv >= 0, piv, n).long()] = b
             sol = hard ^ corr[:, :n]
             return torch.where(overflow[:, None], hard, sol).to(torch.int8)
-        if self.wide:
+        if self.elimination == "transform":
             # OSD-0 reads only (b, piv_col), which the b-exit leaves exact
             _, b, _, piv = eliminate_transform(order, resid, self.Hc, self.h_rank,
                                                b_exit=True)

@@ -75,6 +75,7 @@ class DEMEngine(MonteCarloEngine):
         self.device = dev
         self.m_checks, self.n_vars = dem.H.shape
         self.distance = 0  # every logical error is "incorrectable"
+        self.n_rounds = 0  # the DEM's rounds are in its H: no data folding
         self.bp = BPDecoder(dem.H, config.bp).to(dev)
         self.osd = OSDDecoder(dem.H, config.osd).to(dev) if config.osd is not None else None
         vos, self._dc_parity = parity_tables(dem.H)

@@ -15,8 +15,13 @@ OSD call; failures beyond it keep the BP output and are counted in
 ``osd_overflow``. This gives the counters of the JAX engine's lax.cond tier
 ladder, which needs no counterpart on the GPU.
 
-Not in this slice (see ROADMAP.md): the space-time channel, rescue_iters,
-checkpointing and multi-device execution.
+The space-time channel decodes T rounds of the code (``EngineConfig.n_rounds``,
+0 meaning the code's distance) with ``SpaceTimeBPDecoder`` on the base code's
+tables and OSD-0 on the materialized ``H_st``; the classification folds the
+data rounds into the net flip of each qubit, as the JAX engine does.
+
+Not in this slice (see ROADMAP.md): rescue_iters, checkpointing and
+multi-device execution.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from qldpc_tpu_torch.decoders.bp import BPConfig, BPDecoder, BPResult
 from qldpc_tpu_torch.decoders.osd import OSDConfig, OSDDecoder
+from qldpc_tpu_torch.decoders.spacetime_bp import SpaceTimeBPDecoder
 from qldpc_tpu_torch.mc.metrics import (
     HIST_BINS,
     Counters,
@@ -37,20 +43,23 @@ from qldpc_tpu_torch.mc.metrics import (
     zeros_counters,
 )
 from qldpc_tpu_torch.noise import channels as ch
+from qldpc_tpu_torch.noise import spacetime as st
 from qldpc_tpu_torch.utils import rng
 
 __all__ = ["EngineConfig", "MonteCarloEngine", "SweepResult"]
 
-_CHANNELS = ("code-capacity", "doubled", "phenomenological")
+_CHANNELS = ("code-capacity", "doubled", "phenomenological", "space-time")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     bp: BPConfig = BPConfig()
     osd: OSDConfig | None = OSDConfig()  # None = BP-only (fault => logical error)
-    channel: str = "code-capacity"  # | "doubled" | "phenomenological"
+    channel: str = "code-capacity"  # | "doubled" | "phenomenological" | "space-time"
     basis: str = "x"
-    syndrome_flip_rate: float | None = None  # phenomenological q (None => p)
+    n_rounds: int = 0  # space-time rounds; 0 => code.distance
+    syndrome_flip_rate: float | None = None  # phenomenological and
+    # space-time measurement-error rate q (None => p)
     batch_size: int = 4096
     osd_fraction: float = 1.0  # OSD capacity as a fraction of the batch;
     # failures beyond it keep the BP output and count as osd_overflow
@@ -58,17 +67,20 @@ class EngineConfig:
     _channels: ClassVar[tuple[str, ...]] = _CHANNELS
 
     def __post_init__(self):
-        if self.channel == "space-time":
-            raise NotImplementedError(
-                "the space-time channel is not ported yet (ROADMAP.md, queue "
-                "1 item 11)"
-            )
         if self.channel not in self._channels:
             raise ValueError(f"unknown channel {self.channel!r}")
         if self.basis not in ("x", "z"):
             raise ValueError(f"unknown basis {self.basis!r}")
         if self.batch_size < 1:
             raise ValueError("batch_size must be positive")
+        if self.n_rounds < 0:
+            raise ValueError("n_rounds must be >= 0")
+        if self.channel == "space-time" and self.bp.schedule == "layered":
+            # the JAX engine's fallback to BPDecoder(H_st) raises there too
+            raise ValueError(
+                "the layered schedule requires a check-regular graph; the "
+                "space-time matrix is not one"
+            )
 
 
 @dataclasses.dataclass
@@ -111,16 +123,27 @@ class MonteCarloEngine:
         self.config = config
         H = code.Hx if config.basis == "x" else code.Hz
         L = code.Lx if config.basis == "x" else code.Lz
-        self.m_checks, self.n_vars = H.shape
+        self.n_qubits = H.shape[1]
         self.distance = code.distance
-        self.bp = BPDecoder(H, config.bp).to(self.device)
+        if config.channel == "space-time":
+            self.n_rounds = config.n_rounds or max(code.distance, 1)
+            H_dec = st.space_time_matrix(H, self.n_rounds)
+            self.bp = SpaceTimeBPDecoder(H, self.n_rounds, config.bp).to(self.device)
+            self._H_space = torch.tensor(np.asarray(H) % 2, dtype=torch.float32,
+                                         device=self.device)
+        else:
+            self.n_rounds = 0
+            H_dec = H
+            self.bp = BPDecoder(H, config.bp).to(self.device)
+        self.m_checks, self.n_vars = H_dec.shape
         self.osd = (
-            OSDDecoder(H, config.osd).to(self.device)
+            OSDDecoder(H_dec, config.osd).to(self.device)
             if config.osd is not None else None
         )
-        self._Hf = torch.tensor(np.asarray(H) % 2, dtype=torch.float32, device=self.device)
+        self._Hf = torch.tensor(np.asarray(H_dec) % 2, dtype=torch.float32, device=self.device)
         self._Lf = torch.tensor(np.asarray(L) % 2, dtype=torch.float32, device=self.device)
         self.k_osd = max(1, int(round(config.batch_size * config.osd_fraction)))
+        # space-time's n*T + m*T variables are its draws
         self._check_counter_space(self.n_vars + (
             self.m_checks if config.channel == "phenomenological" else 0
         ))
@@ -146,13 +169,22 @@ class MonteCarloEngine:
         elif cfg.channel == "doubled":
             errors = ch.doubled_channel(key, 0, p, B, n, device=dev)
             syn = ch.syndrome_of(self._Hf, errors)
-        else:
+        elif cfg.channel == "phenomenological":
             q = p if cfg.syndrome_flip_rate is None else cfg.syndrome_flip_rate
             errors, flips = ch.phenomenological(
                 key, 0, p, B, n, self.m_checks, q=q, device=dev
             )
             syn = (ch.syndrome_of(self._Hf, errors) + flips) % 2
-        # every channel is decoded with the plain log((1-p)/p) prior
+        else:
+            q = p if cfg.syndrome_flip_rate is None else cfg.syndrome_flip_rate
+            errors, syn = st.sample_space_time_counters(
+                key, 0, self._H_space, p, B, self.n_rounds, q=q, device=dev
+            )
+            m = self._H_space.shape[0]
+            priors = st.space_time_prior_llr(self.n_qubits, m, self.n_rounds, p,
+                                             q=q, device=dev)
+            return errors, syn, priors
+        # the other channels are decoded with the plain log((1-p)/p) prior
         priors = ch.uniform_prior_llr(n, p, device=dev)
         return errors, syn, priors
 
@@ -177,8 +209,14 @@ class MonteCarloEngine:
         errors_i = errors.to(torch.int32)
         final_i = final.to(torch.int32)
         residual = (errors_i + final_i) % 2
+        if self.n_rounds:
+            # the logical check and both weights see the net flip per qubit
+            residual = st.fold_data_correction(residual, self.n_qubits, self.n_rounds)
+            err_weight = st.fold_data_correction(
+                errors_i, self.n_qubits, self.n_rounds).sum(-1)
+        else:
+            err_weight = errors_i.sum(-1)
         logical_vec = torch.remainder(residual.to(torch.float32) @ self._Lf.T, 2.0)
-        err_weight = errors_i.sum(-1)
         res_weight = residual.sum(-1)
 
         vec_logical = (logical_vec != 0).any(-1)

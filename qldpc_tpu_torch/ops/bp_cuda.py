@@ -27,6 +27,7 @@ if TYPE_CHECKING:
 
 __all__ = [
     "BPTables",
+    "check_rule",
     "bp_flooding",
     "bp_flooding_plain",
     "bp_flooding_cuda",
@@ -100,34 +101,42 @@ def _leave_one_out_product(t: list[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
-def _check_messages(Q, ssign, tables: BPTables, cfg: BPConfig, alpha: float):
-    """Check-to-variable messages R (B, E), alpha applied last."""
-    B = Q.shape[0]
-    m, dc = tables.m, tables.dc
-    Qc = Q.view(B, m, dc)
-    slots = range(dc)
+def check_rule(qc: torch.Tensor, ssign: torch.Tensor, cfg: BPConfig,
+               alpha: float) -> torch.Tensor:
+    """Check-to-variable messages on check groups ``qc`` (..., k), every
+    slot a real edge; ``ssign`` (...) is each check's syndrome sign. The
+    leave-one-out tanh product (sum-product) or the sign product and two
+    minima (min-sum, optional offset), alpha applied last."""
+    k = qc.shape[-1]
+    slots = range(k)
     if cfg.method == "sum-product":
-        t = [torch.tanh(Qc[:, :, j] * 0.5) for j in slots]
+        t = [torch.tanh(qc[..., j] * 0.5) for j in slots]
         others = _leave_one_out_product(t)
         R = [
             2.0 * torch.atanh(torch.clamp(o * ssign, -TANH_CLIP, TANH_CLIP))
             for o in others
         ]
     else:
-        sgn = torch.where(Qc >= 0, 1.0, -1.0).to(Q.dtype)
-        r_signs = _leave_one_out_product([sgn[:, :, j] for j in slots])
-        aq = Qc.abs()
+        sgn = torch.where(qc >= 0, 1.0, -1.0).to(qc.dtype)
+        r_signs = _leave_one_out_product([sgn[..., j] for j in slots])
+        aq = qc.abs()
         min1 = aq.min(dim=-1, keepdim=True).values
-        first = torch.nn.functional.one_hot(aq.argmin(dim=-1), dc).bool()
+        first = torch.nn.functional.one_hot(aq.argmin(dim=-1), k).bool()
         min2 = torch.where(first, torch.inf, aq).min(dim=-1, keepdim=True).values
         mags = torch.where(aq == min1, min2, min1)
         if cfg.offset:
             mags = torch.clamp(mags - cfg.offset, min=0.0)
-        R = [ssign * r_signs[j] * mags[:, :, j] for j in slots]
+        R = [ssign * r_signs[j] * mags[..., j] for j in slots]
     R = torch.stack(R, dim=-1)
     if alpha != 1.0:
         R = R * alpha
-    return R.reshape(B, m * dc)
+    return R
+
+
+def _check_messages(Q, ssign, tables: BPTables, cfg: BPConfig, alpha: float):
+    """Check-to-variable messages R (B, E), alpha applied last."""
+    B = Q.shape[0]
+    return check_rule(Q.view(B, tables.m, tables.dc), ssign, cfg, alpha).reshape(B, -1)
 
 
 def bp_flooding_plain(

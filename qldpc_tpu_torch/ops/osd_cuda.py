@@ -26,6 +26,8 @@ from qldpc_tpu_torch._build import KernelLibrary
 __all__ = [
     "WORD",
     "pack_rows",
+    "rows_smem_bytes",
+    "ROWS_SMEM_LIMIT",
     "eliminate",
     "eliminate_rows",
     "eliminate_rows_plain",
@@ -33,6 +35,9 @@ __all__ = [
 ]
 
 WORD = 32
+# dynamic shared memory one K2 block may opt in to on sm_90 (227 KB); a
+# system whose packed rows exceed it in one warp cannot run on K2
+ROWS_SMEM_LIMIT = 227 * 1024
 _SMEM_BUDGET = 48 * 1024
 _MAX_WARPS = 8
 
@@ -104,9 +109,14 @@ def eliminate_rows_plain(A: torch.Tensor, b: torch.Tensor, n: int,
     return A, b, piv
 
 
+def rows_smem_bytes(m: int, nw: int) -> int:
+    """Shared memory of one K2 warp: a sample's packed rows at an odd word
+    stride, b and piv_col."""
+    return 4 * (m * (nw | 1) + 2 * m)
+
+
 def _warps_per_block(m: int, nw: int) -> int:
-    per_warp = 4 * (m * (nw | 1) + 2 * m)
-    return max(1, min(_MAX_WARPS, _SMEM_BUDGET // per_warp))
+    return max(1, min(_MAX_WARPS, _SMEM_BUDGET // rows_smem_bytes(m, nw)))
 
 
 def eliminate_rows_cuda(A: torch.Tensor, b: torch.Tensor, n: int,

@@ -133,15 +133,18 @@ def test_config_conversion():
         bp_config_from_reference({"mm_dtype": "bfloat16"})
     with pytest.raises(ValueError, match="stream_dtype"):
         bp_config_from_reference({"stream_dtype": "bfloat16"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bp_config_from_reference(JaxBPConfig(schedule="layered"))
+    # the layered schedule and its layer count change the result: they carry over
+    got = bp_config_from_reference(JaxBPConfig(schedule="layered", n_layers=3, backend="pallas"))
+    assert got == BPConfig(schedule="layered", n_layers=3)
     with pytest.raises(ValueError, match="no fields"):
         bp_config_from_reference({"not_a_field": 1})
 
 
 def test_out_of_slice_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BPConfig(schedule="layered")
+    # the layered schedule is ported now; unknown schedules still raise
+    assert BPConfig(schedule="layered").n_layers == 0
+    with pytest.raises(ValueError, match="unknown schedule"):
+        BPConfig(schedule="serial")
     # irregular checks are ported now: they take the check-slot layout
     H = np.array([[1, 1, 0], [0, 1, 1], [1, 1, 1]], np.uint8)
     dec = BPDecoder(H)

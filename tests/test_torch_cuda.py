@@ -5,11 +5,13 @@ them with ``python -m pytest tests/test_torch_cuda.py -q --noconftest``. The
 tolerances are those of chip_smoke.py: K1 may differ in decision
 (converged, iterations, hard) on at most 1 lane in 10^4 and K3 on at most 1
 lane in 1024, with posteriors within rtol = atol = 1e-5 on the other lanes;
-K3 under min-sum, K2, K4 and K5a-d are bit-identical, and K1 and K3
-propagate a NaN message as the plain versions do.
+K3, K6 and K7 under min-sum, K2, K4 and K5a-d are bit-identical; K6 and K7
+under sum-product are held to K1's rule (at least 1 lane allowed); K1, K3,
+K6 and K7 propagate a NaN message as the plain versions do.
 """
 
 import math
+from dataclasses import replace as dataclasses_replace
 
 import numpy as np
 import pytest
@@ -24,8 +26,13 @@ from qldpc_tpu_torch.mc import (
     MonteCarloEngine,
     counters_to_dict,
 )
+from qldpc_tpu_torch.decoders.spacetime_bp import SpaceTimeBPDecoder
 from qldpc_tpu_torch.noise.circuit import memory_experiment_dem, parametric_memory_dem
+from qldpc_tpu_torch.noise.spacetime import space_time_matrix, space_time_prior_llr
+from qldpc_tpu_torch.ops import osd_cuda, osd_transform_cuda
 from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
+from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered_cuda, bp_layered_plain
+from qldpc_tpu_torch.ops.spacetime_bp_cuda import st_bp_cuda, st_bp_plain
 from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain
 from qldpc_tpu_torch.ops.osd_cuda import (
     eliminate_rows_cuda,
@@ -354,5 +361,140 @@ def test_dem_engine_factored_on_card_matches_cpu_engine(cuda):
     cfg = DEMEngineConfig(bp=MIN_SUM, osd=OSDConfig(backend="factored"), batch_size=512)
     got = DEMEngine(dem, cfg, device=cuda).run(1000, seed=2, p=0.01)
     ref = DEMEngine(dem, cfg, device="cpu").run(1000, seed=2, p=0.01)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def _hold_bp(got, ref, method: str, B: int):
+    """Min-sum bit for bit; sum-product K1's rule: at most 1 lane in 10^4
+    (at least 1) differing in decision, posteriors of the rest within 1e-5."""
+    kv, kc, ki, kh = got
+    rv, rc, ri, rh = ref
+    if method == "min-sum":
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        return
+    differ = (kc != rc) | (ki != ri) | (kh != rh).any(1)
+    assert int(differ.sum()) <= max(1, 1e-4 * B)
+    agree = ~differ
+    torch.testing.assert_close(kv[agree], rv[agree], rtol=1e-5, atol=1e-5)
+
+
+def _st_detectors(H, T, p, B, seed):
+    m, n = H.shape
+    rng = np.random.default_rng(seed)
+    e = (rng.random((B, T, n)) < p).astype(np.int64)
+    u = (rng.random((B, T, m)) < p).astype(np.int64)
+    s = np.einsum("btn,mn->btm", e, H) % 2
+    u_prev = np.concatenate([np.zeros_like(u[:, :1]), u[:, :-1]], axis=1)
+    return ((s + u + u_prev) % 2).reshape(B, T * m).astype(np.uint8)
+
+
+ST_CASES = [("steane", 3), ("[[72, 12, 6]]", 6), ("[[144, 12, 12]]", 12)]
+
+
+@pytest.mark.parametrize("code_name,T", ST_CASES)
+@pytest.mark.parametrize("case", list(BP_CASES))
+def test_k6_matches_plain(cuda, code_name, T, case):
+    cfg = dataclasses_replace(BP_CASES[case], max_iter=40)
+    H = get_code(code_name).Hx
+    B, p = 512, 0.008
+    dec = SpaceTimeBPDecoder(H, T, cfg).to(cuda)
+    det = torch.from_numpy(_st_detectors(H, T, p, B, seed=13)).to(cuda)
+    priors = space_time_prior_llr(H.shape[1], H.shape[0], T, p, device=cuda)
+    got = st_bp_cuda(det, priors, dec.tables(), T, cfg)
+    ref = st_bp_plain(det, priors, dec.tables(), T, cfg)
+    torch.cuda.synchronize()
+    _hold_bp(got, ref, cfg.method, B)
+    Hst = torch.from_numpy(space_time_matrix(H, T).astype(np.float32)).to(cuda)
+    kc, kh = got[1], got[3]
+    assert bool(((kh.float() @ Hst.T) % 2 == det.float())[kc].all())
+
+
+def test_k6_propagates_nan_from_infinite_measurement_priors(cuda):
+    """Checks of degree 1 in pairs on one variable, and measurement priors
+    of +inf (q = 0): from round 1 on a variable gets +inf and -inf from its
+    two checks, and the NaN spreads through min, the offset clamp and the
+    clip."""
+    H = np.zeros((6, 12), np.uint8)
+    H[np.arange(6), 2 * (np.arange(6) // 2)] = 1
+    T = 3
+    cfg = BPConfig(max_iter=10, method="min-sum", offset=0.1, clip_llr=8.0)
+    dec = SpaceTimeBPDecoder(H, T, cfg).to(cuda)
+    rng = np.random.default_rng(9)
+    det = torch.from_numpy((rng.random((256, 18)) < 0.5).astype(np.uint8)).to(cuda)
+    priors = space_time_prior_llr(12, 6, T, 0.05, q=0.0, device=cuda)
+    got = st_bp_cuda(det, priors, dec.tables(), T, cfg)
+    ref = st_bp_plain(det, priors, dec.tables(), T, cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0]).any())
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("code_name,L", [("steane", 0), ("[[72, 12, 6]]", 0),
+                                         ("[[72, 12, 6]]", 3), ("[[144, 12, 12]]", 0)])
+@pytest.mark.parametrize("case", ["sum-product", "min-sum", "min-sum-alpha-offset"])
+def test_k7_matches_plain(cuda, code_name, L, case):
+    cfg = dataclasses_replace(BP_CASES[case], schedule="layered", n_layers=L)
+    B, p = 16384, 0.05
+    H, syn_np = _syndromes(code_name, p, B, seed=14)
+    dec = BPDecoder(H, cfg).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    prior = torch.full((H.shape[1],), math.log((1 - p) / p), dtype=torch.float32, device=cuda)
+    got = bp_layered_cuda(syn, prior, dec.tables(), cfg)
+    ref = bp_layered_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _hold_bp(got, ref, cfg.method, B)
+
+
+def test_k7_propagates_nan_from_degree_one_checks(cuda):
+    H = np.zeros((6, 12), np.uint8)
+    H[np.arange(6), 2 * (np.arange(6) // 2)] = 1
+    cfg = BPConfig(max_iter=10, method="min-sum", offset=0.1, clip_llr=8.0, schedule="layered")
+    dec = BPDecoder(H, cfg).to(cuda)
+    rng = np.random.default_rng(9)
+    syn = torch.from_numpy((rng.random((256, 6)) < 0.5).astype(np.uint8)).to(cuda)
+    prior = torch.full((12,), 2.0, device=cuda)
+    got = bp_layered_cuda(syn, prior, dec.tables(), cfg)
+    ref = bp_layered_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0]).any())
+    _assert_same(got, ref)
+
+
+def test_osd_on_the_144_space_time_matrix_launches_k4_not_k2(cuda):
+    Hst = space_time_matrix(get_code("[[144, 12, 12]]").Hx, 12)
+    osd = OSDDecoder(Hst)
+    assert osd.elimination == "transform"
+    rng = np.random.default_rng(15)
+    B = 32
+    e = (rng.random((B, Hst.shape[1])) < 0.01).astype(np.int64)
+    syn = torch.from_numpy(((e @ Hst.T) % 2).astype(np.int8))
+    llrs = torch.from_numpy(rng.normal(4.0, 3.0, (B, Hst.shape[1])).astype(np.float32))
+    hard = (llrs < 0).to(torch.int8)
+    ref = osd(syn, llrs, hard)
+    osd_cuda.eliminate_rows_cuda.launches = 0
+    osd_transform_cuda.eliminate_transform_cuda.launches = 0
+    got = osd.to(cuda)(syn.to(cuda), llrs.to(cuda), hard.to(cuda))
+    torch.cuda.synchronize()
+    assert osd_transform_cuda.eliminate_transform_cuda.launches == 1
+    assert osd_cuda.eliminate_rows_cuda.launches == 0
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("case", ["space-time", "layered"])
+def test_new_paths_on_card_match_cpu_engine(cuda, case):
+    if case == "space-time":
+        cfg = EngineConfig(bp=MIN_SUM, osd=OSDConfig(), channel="space-time", n_rounds=3,
+                           batch_size=256)
+        p = 0.01
+    else:
+        cfg = EngineConfig(bp=dataclasses_replace(MIN_SUM, schedule="layered"), osd=OSDConfig(),
+                           batch_size=512)
+        p = 0.06
+    code = get_code("[[72, 12, 6]]")
+    got = counters_to_dict(MonteCarloEngine(code, cfg, device=cuda).run_rate(p, 512, seed=2))
+    ref = counters_to_dict(MonteCarloEngine(code, cfg, device="cpu").run_rate(p, 512, seed=2))
+    assert ref["BPs_fault"] > 0
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

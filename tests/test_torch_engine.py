@@ -107,8 +107,9 @@ def test_config_conversion_and_out_of_slice_features():
         engine_config_from_reference(JaxEngineConfig(rescue_iters=10))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine_config_from_reference(JaxEngineConfig(osd=OSDConfig(order=3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine_config_from_reference(JaxEngineConfig(channel="space-time"))
+    # the space-time channel is ported now: its round count carries over
+    st = engine_config_from_reference(JaxEngineConfig(channel="space-time", n_rounds=4))
+    assert st.channel == "space-time" and st.n_rounds == 4
     eng = MonteCarloEngine(port_code("steane"), EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.sweep([0.01], trials=8, checkpoint=object())

@@ -12,10 +12,12 @@ from qldpc_tpu_torch.convert import osd_config_from_reference
 from qldpc_tpu_torch.decoders import OSDConfig
 from qldpc_tpu_torch.ops import (
     bp_cuda,
+    bp_layered_cuda,
     dem_bp_cuda,
     osd_cuda,
     osd_factored_cuda,
     osd_transform_cuda,
+    spacetime_bp_cuda,
 )
 
 torch.set_num_threads(2)
@@ -74,6 +76,14 @@ def test_dem_kernel_sources_ship_beside_the_wrappers():
         assert module._LIB.source == csrc / source
 
 
+def test_spacetime_and_layered_kernel_sources_ship_beside_the_wrappers():
+    csrc = REPO / "qldpc_tpu_torch" / "ops" / "csrc"
+    for module, source in ((spacetime_bp_cuda, "spacetime_bp.cu"),
+                           (bp_layered_cuda, "bp_layered.cu")):
+        assert (csrc / source).is_file()
+        assert module._LIB.source == csrc / source
+
+
 _DEM_WITHOUT_JAX = """
 import sys
 sys.modules["jax"] = None  # any import of jax now raises
@@ -123,6 +133,10 @@ def test_wrappers_refuse_unknown_devices():
         osd_cuda.eliminate_rows(meta.to(torch.int32).view(2, 3, 1), meta.to(torch.int32), 3)
     with pytest.raises(ValueError, match="needs CUDA"):
         bp_cuda.bp_flooding_cuda(torch.zeros(1, 3), torch.zeros(7), None, None)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        spacetime_bp_cuda.st_bp_cuda(torch.zeros(1, 3), torch.zeros(7), None, 1, None)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        bp_layered_cuda.bp_layered_cuda(torch.zeros(1, 3), torch.zeros(7), None, None)
     with pytest.raises(ValueError, match="needs A and b on one CUDA device"):
         osd_cuda.eliminate_rows_cuda(torch.zeros((1, 3, 1), dtype=torch.int32),
                                      torch.zeros((1, 3), dtype=torch.int32), 3)
