@@ -16,7 +16,10 @@ Phases (any failure raises and the script exits non-zero):
      its counters held against the CPU engine on a small input;
   6. BP(50) throughput of K1 and of the plain torch version;
   circuit level, the [[72,12,6]] memory-experiment DEM (432 x 15765):
-  7. K3 against its plain torch version, B = 1024, sum-product and min-sum;
+  7. K3 against its plain torch version, B = 1024, sum-product and min-sum,
+     and its summary path (no stored R) against its message path: bit for
+     bit, both timed in turns, their peak memory, the summary path's device
+     time per iteration by pass and the bytes each streams per iteration;
   8. K4 against its plain torch version on the BP failures of phase 7;
   9. the DEM engine's sweep at p = 0.001 and 0.002, with the kernel launch
      counts of that sweep, its observable error and OSD invocation rates
@@ -26,7 +29,7 @@ Phases (any failure raises and the script exits non-zero):
   10. steady-state trials/s of the DEM engine, with the kernels and with
       their plain versions;
   circuit level, the [[144,12,12]] memory-experiment DEM (1728 x 66981):
-  11. K3 against its plain torch version, B = 1024, sum-product, p = 0.002;
+  11. K3 as in phase 7, B = 1024, sum-product, p = 0.002;
   12. K5a-d against their plain versions on the BP failures of phase 11:
       the whole elimination on 128 of them, and each kernel at every block
       of one OSD call on all of them; the factored OSD-0 solutions against
@@ -46,7 +49,8 @@ Phases (any failure raises and the script exits non-zero):
       sum-product LER and OSD rate within 4 sigma);
   18. steady-state trials/s of the space-time engine;
   layered schedule, code capacity [[144,12,12]], BP(50) + OSD-0:
-  19. K7 against its plain torch version, B = 65,536, p = 0.050119;
+  19. K7 (one warp a sample, samples from a work counter) against its plain
+      torch version, B = 65,536, p = 0.050119, and both per-call times;
   20. the layered engine at p = 0.050119 (launches K7 and K2), its LER held
       against the JAX layered engine's and its counters against the CPU
       engine on a small input.
@@ -432,10 +436,93 @@ def dem_engine(dev, cfg_bp=None, batch: int = DEM_BATCH, code: str = DEM_CODE,
     return DEMEngine(dem, cfg, device=dev, name=f"{code} DEM, rounds {rounds}")
 
 
+def kernel_device_ms(fn, prefixes: tuple[str, ...]) -> dict:
+    """Device milliseconds of one ``fn()`` under torch.profiler, summed by
+    kernel name (a template kernel's name starts with "void ")."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(prefixes, 0.0)
+    for e in prof.key_averages():
+        name = e.key.removeprefix("void ")
+        for prefix in prefixes:
+            if e.device_type == DeviceType.CUDA and name.startswith(prefix):
+                out[prefix] += e.self_device_time_total / 1e3
+    return out
+
+
+def peak_bytes(fn) -> int:
+    """Device memory ``fn()`` allocates at its peak, beyond what was live."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+K3_SPLIT = ("dem_summary_kernel", "dem_word_var_kernel", "dem_syndrome_kernel",
+            "dem_freeze_kernel", "dem_init")
+
+
+def k3_paths(name: str, args, cfg, tables, B: int) -> dict:
+    """K3's summary path against its message path on the same inputs: bit
+    for bit, then both timed in turns, their peak memory, the summary path's
+    device time per iteration by pass and the bytes each path streams per
+    iteration with every sample running."""
+    from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, summary_path
+
+    if not summary_path(tables, cfg):
+        raise AssertionError(f"K3 {name}: the summary path does not apply")
+    got = dem_bp_cuda(*args)
+    msg = dem_bp_cuda(*args, _store_r=True)
+    torch.cuda.synchronize()
+    differ = (got[1] != msg[1]) | (got[2] != msg[2]) | (got[3] != msg[3]).any(1) | \
+        (got[0].view(torch.int32) != msg[0].view(torch.int32)).any(1)
+    n_diff = int(differ.sum())
+    log(f"K3 {name}: summary path against the message path: {n_diff} of {B} lanes "
+        f"differ (bits of posteriors, decisions, iterations)")
+    if n_diff:
+        raise AssertionError(f"K3 {name}: the summary path differs from the message path")
+    summ = lambda: dem_bp_cuda(*args)
+    mesg = lambda: dem_bp_cuda(*args, _store_r=True)
+    ms = [cuda_ms(summ, reps=2), cuda_ms(mesg, reps=2), cuda_ms(mesg, reps=2),
+          cuda_ms(summ, reps=2)]
+    peak = peak_bytes(summ), peak_bytes(mesg)
+    E, m, n = int(tables.check_deg.sum()), tables.m, tables.n
+    S = m * tables.dc
+    log(f"K3 {name}: summary path {ms[0]:.3f} / {ms[3]:.3f} ms, message path {ms[1]:.3f} / "
+        f"{ms[2]:.3f} ms per call (in turns); peak memory {peak[0] / 1e9:.3f} GB against "
+        f"{peak[1] / 1e9:.3f} GB (R is {S * B * 4 / 1e9:.3f} GB)")
+    if peak[1] - peak[0] < 0.9 * S * B * 4:  # the allocator rounds to 2 MB blocks
+        raise AssertionError(f"K3 {name}: the summary path allocates an R-sized array")
+    iters = int(got[2].max()) + 1
+    split = kernel_device_ms(summ, K3_SPLIT)
+    log(f"K3 {name}: summary path device ms per iteration ({iters} iterations run): "
+        + ", ".join(f"{k} {v / iters:.4f}" for k, v in split.items()))
+    # device-memory bytes per iteration, every sample running: the summary
+    # path reads each real slot's word twice and writes it once, writes the
+    # summaries, the posteriors and the decisions; the message path reads Q
+    # twice and writes R (check), reads R and writes Q (variable); both read
+    # the syndromes. The gathers of summaries (8 B a slot) and decisions (1 B
+    # a slot) are served by the L2 and counted apart.
+    words = 3 * E * B * 4 + 2 * m * B * 4 + n * B * 5 + m * B
+    message = 5 * E * B * 4 + n * B * 5 + 2 * m * B
+    log(f"K3 {name}: bytes streamed per iteration {words / 1e9:.3f} GB (summary path) "
+        f"against {message / 1e9:.3f} GB (message path); L2 gathers {E * B * 9 / 1e9:.3f} "
+        f"and {E * B / 1e9:.3f} GB")
+    return dict(ms=ms[0], message_ms=ms[1])
+
+
 def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum")):
-    """K3 against the plain version on one DEM. Returns its record at the
-    first rate, sum-product (max_abs_err over every case, ms, plain ms, the
-    bound) and the BP failures at p = 0.002, sum-product."""
+    """K3 against the plain version on one DEM, and its summary path against
+    its message path. Returns its record at the first rate, sum-product
+    (max_abs_err over every case, ms, plain ms, the bound) and the BP
+    failures at p = 0.002, sum-product."""
     from qldpc_tpu_torch.decoders import BPConfig
     from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain
 
@@ -469,16 +556,18 @@ def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum"))
             if not bool((s_hat[kc] == syn[kc]).all()):
                 raise AssertionError(f"K3 {method} p={p}: a converged lane misses its syndrome")
             worst = max(worst, err)
+            args = (syn, llr, tables, cfg)
+            paths = k3_paths(f"{eng.code.name} BP(50) {method} p={p} B={B}", args, cfg, tables, B)
             if method == "sum-product" and p == 0.002:
                 fail = ~kc
                 failures = dict(syn=syn[fail], llrs=kv[fail], hard=kh[fail])
             if method == "sum-product" and rec is None:
-                args = (syn, llr, tables, cfg)
-                rec = dict(ms=cuda_ms(lambda: dem_bp_cuda(*args), reps=3),
+                rec = dict(ms=paths["ms"],
                            plain_ms=cuda_ms(lambda: dem_bp_plain(*args), reps=1),
                            **bp_bound(syn, llr, tables, ki, int(tables.check_deg.sum())))
                 log(f"K3 {eng.code.name} BP(50) sum-product p={p} B={B}: {rec['ms']:.3f} ms "
-                    f"per call, plain {rec['plain_ms']:.3f} ms")
+                    f"per call, plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']})")
     rec["max_abs_err"] = worst
     return rec, failures
 

@@ -23,7 +23,12 @@ from torch import nn
 
 from qldpc_tpu_torch.ops.tanner import TannerGraph
 from qldpc_tpu_torch.ops.bp_cuda import BPTables, bp_flooding
-from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered, layer_count
+from qldpc_tpu_torch.ops.bp_layered_cuda import (
+    LayeredTables,
+    bp_layered,
+    layer_count,
+    layer_tables,
+)
 from qldpc_tpu_torch.ops.dem_bp_cuda import DEMTables, dem_bp, dem_tables
 
 __all__ = ["BPConfig", "BPResult", "BPDecoder"]
@@ -95,7 +100,7 @@ class BPDecoder(nn.Module):
                     "the layered schedule requires a check-regular graph "
                     "(every check with the same degree)"
                 )
-            layer_count(g.m, config.n_layers)  # raises when it does not divide m
+            L = layer_count(g.m, config.n_layers)  # raises when it does not divide m
         if self.slot_layout:
             self._table_names = tuple(f.name for f in dataclasses.fields(DEMTables))
             for name, arr in dem_tables(g).items():
@@ -109,9 +114,16 @@ class BPDecoder(nn.Module):
             self.register_buffer(
                 "var_edge", torch.from_numpy(g.var_edge.astype(np.int32))
             )
+            if config.schedule == "layered":
+                for name, arr in layer_tables(g.var_edge, g.m, g.dc_max, L).items():
+                    self.register_buffer(name, torch.from_numpy(arr))
+                self._table_names += ("layer_vars", "layer_edges")
 
-    def tables(self) -> BPTables | DEMTables:
-        kind = DEMTables if self.slot_layout else BPTables
+    def tables(self) -> BPTables | LayeredTables | DEMTables:
+        if self.slot_layout:
+            kind = DEMTables
+        else:
+            kind = LayeredTables if self.config.schedule == "layered" else BPTables
         return kind(**{name: getattr(self, name) for name in self._table_names})
 
     def forward(self, syndromes: torch.Tensor, priors: torch.Tensor,

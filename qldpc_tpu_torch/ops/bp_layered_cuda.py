@@ -11,6 +11,10 @@ scatter (``v.at[:, var_l].add``), so a variable with two edges in one layer
 gets both in ascending edge order; the plain version and K7 fold them in
 that order explicitly. No damping: the config refuses it.
 
+K7 walks only the variables a layer touches, from ``layer_tables`` built
+once on the host; ``BPDecoder`` with ``schedule="layered"`` keeps them as
+buffers and hands them over in ``LayeredTables``.
+
 ``bp_layered`` is the entry point: the plain version for CPU tensors, K7 for
 CUDA tensors, never a fallback.
 """
@@ -18,8 +22,10 @@ CUDA tensors, never a fallback.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
 
 from qldpc_tpu_torch._build import KernelLibrary
@@ -28,11 +34,17 @@ from qldpc_tpu_torch.ops.bp_cuda import BPTables, check_rule
 if TYPE_CHECKING:
     from qldpc_tpu_torch.decoders.bp import BPConfig
 
-__all__ = ["layer_count", "bp_layered", "bp_layered_plain", "bp_layered_cuda"]
+__all__ = [
+    "LayeredTables",
+    "layer_count",
+    "layer_tables",
+    "bp_layered",
+    "bp_layered_plain",
+    "bp_layered_cuda",
+]
 
-_THREADS = 256
-_SMEM_BUDGET = 48 * 1024
-_MAX_SAMPLES_PER_BLOCK = 64
+_WARPS_PER_BLOCK = 8
+_SMEM_PER_BLOCK = 227 * 1024  # what one block may have on the H100
 _MAX_DC = 32
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,13 +52,27 @@ _LIB = KernelLibrary(
     "bp_layered.cu",
     {
         "bp_layered_launch": [
-            _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
-            _i, _i, _i, _i, _i, _i, _i,
+            _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+            _i, _i, _i, _i, _i, _i, _i, _i,
             _f, _i, _f, _i, _f, _i, _i,
-            _i, _i, _vp,
+            _i, _vp,
         ]
     },
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class LayeredTables(BPTables):
+    """``BPTables`` with K7's per-layer tables (``layer_tables``).
+
+    layer_vars (L, T) int32: the variables each layer touches, ascending,
+      padded with n.
+    layer_edges (L, T, K) int32: each one's layer-local edges (e - l*El),
+      ascending, padded with -1.
+    """
+
+    layer_vars: torch.Tensor
+    layer_edges: torch.Tensor
 
 
 def layer_count(m: int, n_layers: int = 0) -> int:
@@ -56,6 +82,28 @@ def layer_count(m: int, n_layers: int = 0) -> int:
     if m % L:
         raise ValueError(f"n_layers={L} must divide m={m}")
     return L
+
+
+def layer_tables(var_edge: np.ndarray, m: int, dc: int, L: int) -> dict[str, np.ndarray]:
+    """The ``LayeredTables`` arrays from a check-regular graph's ``var_edge``
+    (n, dv), sorted per row and padded with E = m*dc: per layer, the
+    variables its checks touch and, for each, its edges in the layer in
+    ascending order, the order in which the posterior adds their deltas."""
+    n, E, El = var_edge.shape[0], m * dc, (m // L) * dc
+    layer = np.where(var_edge < E, var_edge // El, -1)
+    per = []
+    for l in range(L):
+        touched = np.flatnonzero((layer == l).any(axis=1))
+        local = np.sort(np.where(layer[touched] == l, var_edge[touched] - l * El, El), axis=1)
+        per.append((touched, local))
+    T = max(1, max(len(t) for t, _ in per))
+    K = max(1, max(int((loc < El).sum(axis=1).max(initial=0)) for _, loc in per))
+    layer_vars = np.full((L, T), n, np.int32)
+    layer_edges = np.full((L, T, K), -1, np.int32)
+    for l, (touched, local) in enumerate(per):
+        layer_vars[l, : len(touched)] = touched
+        layer_edges[l, : len(touched)] = np.where(local[:, :K] < El, local[:, :K], -1)
+    return dict(layer_vars=layer_vars, layer_edges=layer_edges)
 
 
 def bp_layered_plain(syndromes: torch.Tensor, priors: torch.Tensor, tables: BPTables,
@@ -117,15 +165,10 @@ def bp_layered_plain(syndromes: torch.Tensor, priors: torch.Tensor, tables: BPTa
     return values, conv, iters, hard
 
 
-def _samples_per_block(tables: BPTables, L: int) -> int:
-    m, n, dc = tables.m, tables.n, tables.dc
-    per_sample = 4 * (m * dc + (m // L) * dc + n) + m
-    return max(1, min(_MAX_SAMPLES_PER_BLOCK, _SMEM_BUDGET // per_sample))
-
-
-def bp_layered_cuda(syndromes: torch.Tensor, priors: torch.Tensor, tables: BPTables,
+def bp_layered_cuda(syndromes: torch.Tensor, priors: torch.Tensor, tables: LayeredTables,
                     cfg: BPConfig, alpha: float | None = None):
-    """Launch K7. Same contract as ``bp_layered_plain``; float32 only."""
+    """Launch K7. Same contract as ``bp_layered_plain``; float32 only; the
+    tables must be ``LayeredTables`` built for ``cfg``'s layer count."""
     dev = syndromes.device
     if dev.type != "cuda":
         raise ValueError("bp_layered_cuda needs CUDA tensors")
@@ -135,8 +178,11 @@ def bp_layered_cuda(syndromes: torch.Tensor, priors: torch.Tensor, tables: BPTab
     if tables.dc > _MAX_DC:
         raise ValueError(f"check degree {tables.dc} exceeds the kernel's {_MAX_DC}")
     B = syndromes.shape[0]
-    n, m = tables.n, tables.m
+    n, m, dc = tables.n, tables.m, tables.dc
     L = layer_count(m, cfg.n_layers)
+    if not isinstance(tables, LayeredTables) or tables.layer_vars.shape[0] != L:
+        raise ValueError(f"K7 needs LayeredTables for {L} layers: "
+                         "BPDecoder(H, BPConfig(schedule='layered', ...)).tables()")
     if syndromes.shape != (B, m):
         raise ValueError(f"syndromes must be (B, {m}), got {tuple(syndromes.shape)}")
     if priors.shape == (n,):
@@ -145,31 +191,40 @@ def bp_layered_cuda(syndromes: torch.Tensor, priors: torch.Tensor, tables: BPTab
         prior_stride = n
     else:
         raise ValueError(f"priors must be ({n},) or ({B}, {n})")
-    for t in (priors, tables.check_var, tables.var_edge):
+    # contiguous operands bound to names: each must outlive the launch
+    index_tables = tuple(t.contiguous() for t in (
+        tables.check_var, tables.layer_vars, tables.layer_edges))
+    for t in (priors, *index_tables):
         if t.device != dev:
             raise ValueError("all BP operands must be on one device")
-    if tables.check_var.dtype != torch.int32 or tables.var_edge.dtype != torch.int32:
+    if any(t.dtype != torch.int32 for t in index_tables):
         raise TypeError("BP tables must be int32")
-    # contiguous operands bound to names: each must outlive the launch
+    check_var, layer_vars, layer_edges = index_tables
+    T, K = layer_edges.shape[1], layer_edges.shape[2]
+    # a warp's slice of shared memory: R, one layer's deltas, the
+    # posteriors, the syndrome bytes
+    per_warp = 4 * (m * dc + (m // L) * dc + n) + m + 32
+    warps = min(_WARPS_PER_BLOCK, _SMEM_PER_BLOCK // per_warp)
+    if warps < 1:
+        raise ValueError(f"one sample's state ({per_warp} bytes) exceeds a block's shared memory")
     syn = syndromes.to(torch.uint8).contiguous()
     priors = priors.contiguous()
-    check_var = tables.check_var.contiguous()
-    var_edge = tables.var_edge.contiguous()
     values = torch.empty((B, n), dtype=torch.float32, device=dev)
     conv = torch.empty(B, dtype=torch.uint8, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     alpha32 = float(alpha)
     _LIB.call(
         "bp_layered_launch",
         syn.data_ptr(), priors.data_ptr(), prior_stride,
-        check_var.data_ptr(), var_edge.data_ptr(),
-        values.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-        B, m, n, tables.dc, tables.dv, L,
+        check_var.data_ptr(), layer_vars.data_ptr(), layer_edges.data_ptr(),
+        values.data_ptr(), conv.data_ptr(), iters.data_ptr(), counter.data_ptr(),
+        B, m, n, dc, L, T, K,
         0 if cfg.method == "sum-product" else 1,
         alpha32, int(alpha32 != 1.0),
         float(cfg.offset), int(bool(cfg.offset)),
         float(cfg.clip_llr or 0.0), int(cfg.clip_llr is not None),
-        cfg.max_iter, _samples_per_block(tables, L), _THREADS,
+        cfg.max_iter, warps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     bp_layered_cuda.launches += 1

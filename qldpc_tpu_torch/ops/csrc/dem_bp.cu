@@ -8,19 +8,54 @@
 // The TPU kernel consumed streams that XLA had gathered beforehand, because
 // Mosaic cannot gather; here every thread gathers its own operands.
 //
-// What bounds it on the card: device memory. At the [[72,12,6]] DEM
-// (432 checks x 316 slots) and B = 1024 one slot-space float32 array is
-// 559 MB, so the messages Q and R cannot stay on chip as K1's do; each
-// iteration streams them through device memory a few times, and the
-// sum-product check rule adds tanhf/logf/expf/atanhf per slot. The layout is
-// slot-major with the batch minor (Q[s * B + b]): a warp handles 32
-// consecutive samples of one check or variable, so every load and store of a
-// message is one coalesced transaction, and the gather tables are read once
-// per warp as a broadcast. Samples that have converged are skipped, and
+// What bounds it on the card: device memory and the transcendentals of the
+// sum-product rule. At the [[144,12,12]] DEM (1728 checks, 447,948 edges)
+// and B = 1024 one slot-space float32 array is 1.83 GB, so messages cannot
+// stay on chip as K1's do and stream through device memory every
+// iteration. The layout is slot-major with the batch minor (W[s * B + b]):
+// a warp handles consecutive samples of one check or variable, so every
+// load and store of a message is coalesced and the gather tables are read
+// once per warp as a broadcast. Samples that have converged are skipped, and
 // once a whole iteration leaves no sample active every later launch returns
 // at once (per-iteration active counts on the device, no host sync).
 //
-// Per iteration, four launches:
+// The summary path (dem_bp_words_launch) is taken under the one-pass check
+// rule (dc > 16), except for sum-product with damping. There every
+// check-to-variable message R_j is a function of the slot's own word and a
+// per-(check, sample) summary, so R is never stored:
+//   * the slot word is Q_j itself for min-sum; for sum-product it is
+//     |lt_j|, lt_j = logf(max(|tanh(Q_j/2)|, 1e-15)) <= 0, with the float's
+//     sign bit set where tanh(Q_j/2) < 0, so tanhf and logf run once per slot
+//     (in the variable pass that writes the word) instead of twice;
+//   * the summary is (total of lt in slot order, total sign times the
+//     syndrome sign) for sum-product and (min1 or NaN, min2 carrying that
+//     sign in its sign bit) for min-sum: 8 bytes, an (m, B) pair of planes,
+//     14 MB at the [[144]] DEM, which the L2 keeps.
+// Per iteration: one read of every word in the check pass, one read and one
+// write in the variable pass (evict-first hints on the streamed words), and
+// four transcendentals per slot instead of six. Measured on the H100 at the
+// [[144]] DEM: the summary pass streams at about 3.1 TB/s with 128-bit
+// accesses over four samples a thread; the variable pass is the slower one
+// and runs fastest with two samples a thread (it holds dv x 2 messages in
+// registers; four cost occupancy, one costs index work per sample). An L2
+// persisting window on the summaries, an evict-last hint on their loads and a
+// variable-major word layout were each measured and gained nothing, so the
+// kernel has none of them. TMA and the tensor cores have no work here: the
+// accesses are row segments of a slot-major array, already coalesced, and
+// there is no product to feed.
+//   1. summary:  one thread per (check, 4 samples): the check's words once,
+//                folded in slot order, into its summary;
+//   2. variable: one thread per (variable, 2 samples): each slot's R from
+//                its word and its check's summary (the expressions of the
+//                message path, kept in registers), the posterior as a left
+//                fold plus the prior, the hard decision, then per slot
+//                Q = posterior - R (damping for min-sum, clip) and its word;
+//   3. syndrome (4 samples a thread) and 4. freeze as below.
+// (One sample a thread where B is odd, and for dv > 16.)
+//
+// The message path (dem_bp_launch; the prefix x suffix rule at dc <= 16,
+// which has no per-check summary, and sum-product with damping, which needs
+// the old Q) keeps Q and R in device memory, four launches per iteration:
 //   1. check:    one thread per (check, sample): R from Q over the check's
 //                real slots (phantom slots are the rule's neutral element,
 //                so skipping them is exact);
@@ -31,9 +66,12 @@
 //                decisions of its slots against the syndrome;
 //   4. freeze:   one thread per sample: a sample whose syndrome is
 //                reproduced converges at this iteration.
+// Both paths evaluate the same expressions on the same operands in the same
+// order, so on the summary path's configurations they agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 #define LARGE_DC 16
 #define TANH_CLIP 0.9999999f
@@ -69,18 +107,6 @@ __global__ void dem_init_kernel(
         iters[b] = max_iter > 0 ? max_iter - 1 : 0;
         mismatch[b] = 0;
     }
-}
-
-__global__ void dem_init_q_kernel(
-    const float* __restrict__ values, const int* __restrict__ var_of_slot,
-    const int* __restrict__ check_deg, float* __restrict__ Q,
-    int m, int dc, int B)
-{
-    const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-    if (i >= (size_t)m * dc * B) return;
-    const int s = (int)(i / B), b = (int)(i - (size_t)s * B);
-    if (s % dc >= check_deg[s / dc]) return;  // phantom slot
-    Q[i] = values[(size_t)var_of_slot[s] * B + b];
 }
 
 __global__ void dem_check_kernel(
@@ -199,24 +225,6 @@ __global__ void dem_var_kernel(
     }
 }
 
-__global__ void dem_syndrome_kernel(
-    const uint8_t* __restrict__ hard, const uint8_t* __restrict__ syn_t,
-    const int* __restrict__ var_of_slot, const int* __restrict__ check_deg,
-    const uint8_t* __restrict__ conv, uint8_t* __restrict__ mismatch,
-    const int* __restrict__ active, int it, int m, int dc, int B)
-{
-    if (it > 0 && active[it - 1] == 0) return;
-    const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-    if (i >= (size_t)m * B) return;
-    const int c = (int)(i / B), b = (int)(i - (size_t)c * B);
-    if (conv[b]) return;
-    const int* vos = var_of_slot + (size_t)c * dc;
-    const int d = check_deg[c];
-    int par = 0;
-    for (int j = 0; j < d; ++j) par ^= hard[(size_t)vos[j] * B + b];
-    if (par != syn_t[i]) mismatch[b] = 1;
-}
-
 __global__ void dem_freeze_kernel(
     uint8_t* __restrict__ conv, int* __restrict__ iters,
     uint8_t* __restrict__ mismatch, int* __restrict__ active, int it, int B)
@@ -236,6 +244,406 @@ __global__ void dem_freeze_kernel(
 static unsigned grid_for(size_t count, int threads)
 {
     return (unsigned)((count + threads - 1) / threads);
+}
+
+// ---- the summary path (its Q initialisation and syndrome test serve both) --
+
+#define MAX_DV 64
+#define SIGN_BIT ((int)0x80000000)
+
+// The sum-product slot word of Q: |lt| with the sign bit of t < 0 (a NaN t
+// gives a NaN word without the bit; its messages are NaN either way).
+__device__ __forceinline__ float sp_word(float q)
+{
+    const float t = tanhf(q * 0.5f);
+    const float lt = logf(max_nan(fabsf(t), 1e-15f));
+    return __int_as_float(__float_as_int(fabsf(lt)) | (t < 0.0f ? SIGN_BIT : 0));
+}
+
+// lt back from a word: lt <= 0, so -|word| (an lt of +0 comes back as -0,
+// which neither the slot-order fold nor total - lt can tell apart)
+__device__ __forceinline__ float word_lt(float w)
+{
+    return __int_as_float(__float_as_int(w) | SIGN_BIT);
+}
+
+__device__ __forceinline__ bool sign_set(float w)
+{
+    return __float_as_int(w) < 0;
+}
+
+// V consecutive samples of one slot or check, V in {1, 2, 4}: 64- and
+// 128-bit accesses. "cs" loads and stores are evict-first (the streamed slot
+// words).
+template <int V>
+__device__ __forceinline__ void load_cs(const float* p, float (&x)[V])
+{
+    if constexpr (V == 4) {
+        const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+        x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+    } else if constexpr (V == 2) {
+        const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
+        x[0] = t.x; x[1] = t.y;
+    } else {
+        x[0] = __ldcs(p);
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void load(const float* p, float (&x)[V])
+{
+    if constexpr (V == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+    } else if constexpr (V == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(p);
+        x[0] = t.x; x[1] = t.y;
+    } else {
+        x[0] = *p;
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void store_cs(float* p, const float (&x)[V])
+{
+    if constexpr (V == 4)
+        __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+    else if constexpr (V == 2)
+        __stcs(reinterpret_cast<float2*>(p), make_float2(x[0], x[1]));
+    else
+        __stcs(p, x[0]);
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&x)[V])
+{
+    if constexpr (V == 4)
+        *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+    else if constexpr (V == 2)
+        *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+    else
+        *p = x[0];
+}
+
+// bit u set where sample b + u has converged
+template <int V>
+__device__ __forceinline__ unsigned converged_lanes(const uint8_t* conv)
+{
+    unsigned bits = 0;
+#pragma unroll
+    for (int u = 0; u < V; ++u) bits |= (conv[u] ? 1u : 0u) << u;
+    return bits;
+}
+
+// R_j of the message path's sum-product rule (dem_check_kernel, dc > 16):
+// others = expf(total - lt) * tsign * s, then * ss; here csign = tsign * ss,
+// and products of +-1 are exact.
+__device__ __forceinline__ float sp_message(float w, float total, float csign,
+                                            float alpha, int use_alpha)
+{
+    const float s = sign_set(w) ? -1.0f : 1.0f;
+    const float others = expf(total - word_lt(w)) * csign * s;
+    const float x = clamp_nan(others, -TANH_CLIP, TANH_CLIP);
+    float rr = 2.0f * atanhf(x);
+    if (use_alpha) rr = rr * alpha;
+    return rr;
+}
+
+// R_j of the message path's min-sum rule: (ss * leave-one-out sign) * mag
+__device__ __forceinline__ float ms_message(float q, float min1, float smin2,
+                                            float alpha, int use_alpha,
+                                            float offset, int use_offset)
+{
+    const bool neg = sign_set(smin2) != (q < 0.0f);
+    float mag = fabsf(q) == min1 ? fabsf(smin2) : min1;
+    if (use_offset) mag = max_nan(mag - offset, 0.0f);
+    float rr = (neg ? -1.0f : 1.0f) * mag;
+    if (use_alpha) rr = rr * alpha;
+    return rr;
+}
+
+// The first Q of every real slot, the prior of its variable (no clip), or
+// its sum-product word where sp_words is set.
+__global__ void dem_init_q_kernel(
+    const float* __restrict__ prior, int ps_v, int ps_b,
+    const int* __restrict__ var_of_slot, const int* __restrict__ check_deg,
+    float* __restrict__ Q, int m, int dc, int B, int sp_words)
+{
+    const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (i >= (size_t)m * dc * B) return;
+    const int s = (int)(i / B), b = (int)(i - (size_t)s * B);
+    if (s % dc >= check_deg[s / dc]) return;  // phantom slot
+    const float q = prior[(size_t)var_of_slot[s] * ps_v + (size_t)b * ps_b];
+    Q[i] = sp_words ? sp_word(q) : q;
+}
+
+template <int V>
+__global__ void dem_summary_kernel(
+    const float* __restrict__ W, float* __restrict__ SA, float* __restrict__ SB,
+    const uint8_t* __restrict__ syn_t, const int* __restrict__ check_deg,
+    const uint8_t* __restrict__ conv, const int* __restrict__ active, int it,
+    int m, int dc, int B, int method)
+{
+    if (it > 0 && active[it - 1] == 0) return;
+    const int BV = B / V;
+    const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (i >= (size_t)m * BV) return;
+    const int c = (int)(i / BV), b = (int)(i - (size_t)c * BV) * V;
+    if (converged_lanes<V>(conv + b) == (1u << V) - 1) return;
+    const int d = check_deg[c];
+    const float* w = W + (size_t)c * dc * B + b;
+    const size_t sB = (size_t)B, o = (size_t)c * B + b;
+    float a[V], s[V];
+    int neg[V];
+    if (method == 0) {
+        // the log sum folded in slot order, the parity of the negative t
+        float total[V];
+#pragma unroll
+        for (int u = 0; u < V; ++u) { total[u] = 0.0f; neg[u] = 0; }
+        for (int j = 0; j < d; ++j) {
+            float x[V];
+            load_cs<V>(w + j * sB, x);
+#pragma unroll
+            for (int u = 0; u < V; ++u) {
+                neg[u] += sign_set(x[u]);
+                total[u] = total[u] + word_lt(x[u]);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+            a[u] = total[u];
+            s[u] = ((neg[u] & 1) ? -1.0f : 1.0f) * (syn_t[o + u] ? -1.0f : 1.0f);
+        }
+    } else {
+        // min1 with its first argmin and min2 over the other slots in one
+        // pass: min2 is the message path's fminf over j != argmin (ties give
+        // min2 == min1, a NaN |Q| is skipped by both); a NaN makes min1 NaN
+        float min1[V], min2[V];
+        bool has_nan[V];
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+            min1[u] = min2[u] = __int_as_float(0x7f800000);
+            neg[u] = 0;
+            has_nan[u] = false;
+        }
+        for (int j = 0; j < d; ++j) {
+            float x[V];
+            load_cs<V>(w + j * sB, x);
+#pragma unroll
+            for (int u = 0; u < V; ++u) {
+                neg[u] += x[u] < 0.0f;
+                const float q = fabsf(x[u]);
+                has_nan[u] |= isnan(q);
+                if (q < min1[u]) { min2[u] = min1[u]; min1[u] = q; }
+                else if (q < min2[u]) min2[u] = q;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+            a[u] = has_nan[u] ? __int_as_float(0x7fffffff) : min1[u];
+            const bool flip = (neg[u] & 1) != (syn_t[o + u] != 0);
+            s[u] = __int_as_float(__float_as_int(min2[u]) | (flip ? SIGN_BIT : 0));
+        }
+    }
+    store<V>(SA + o, a);
+    store<V>(SB + o, s);
+}
+
+// M is the method (0 sum-product, 1 min-sum), fixed at compile time so that
+// each kernel holds one rule's registers.
+template <int DV, int V, int M>
+__global__ void dem_word_var_kernel(
+    float* __restrict__ W, const float* __restrict__ SA, const float* __restrict__ SB,
+    const float* __restrict__ prior, int ps_v, int ps_b,
+    const int* __restrict__ var_slots, float* __restrict__ values,
+    uint8_t* __restrict__ hard, const uint8_t* __restrict__ conv,
+    const int* __restrict__ active, int it, int n, int dv, unsigned dc_magic, int S,
+    int B, float alpha, int use_alpha, float offset, int use_offset,
+    float damp_new, float damp_old, int use_damping, float clip, int use_clip)
+{
+    if (it > 0 && active[it - 1] == 0) return;
+    const int BV = B / V;
+    const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (i >= (size_t)n * BV) return;
+    const int v = (int)(i / BV), b = (int)(i - (size_t)v * BV) * V;
+    const unsigned done = converged_lanes<V>(conv + b);
+    if (done == (1u << V) - 1) return;
+    // the variable's slots in edge order, pads (S) after
+    const int* vs = var_slots + (size_t)v * dv;
+
+    // each R once, kept in registers; the posterior as a left fold over the
+    // slots, then the prior; a variable in no check keeps its bare prior
+    // (check = slot / dc by a multiply-high, exact for slot < 2^32 / dc)
+    float r[DV][V], acc[V];
+    int deg = 0;
+#pragma unroll
+    for (int u = 0; u < V; ++u) acc[u] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < DV; ++k) {
+        const int slot = k < dv ? vs[k] : S;
+        if (slot >= S) break;
+        const size_t o = (size_t)__umulhi((unsigned)slot, dc_magic) * B + b;
+        float x[V], a[V], s[V];
+        load_cs<V>(W + (size_t)slot * B + b, x);
+        load<V>(SA + o, a);
+        load<V>(SB + o, s);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+            r[k][u] = M == 0
+                ? sp_message(x[u], a[u], s[u], alpha, use_alpha)
+                : ms_message(x[u], a[u], s[u], alpha, use_alpha, offset, use_offset);
+            acc[u] = k == 0 ? r[k][u] : acc[u] + r[k][u];
+        }
+        deg = k + 1;
+    }
+    float val[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u)
+        val[u] = acc[u] + prior[(size_t)v * ps_v + (size_t)(b + u) * ps_b];
+    const size_t vo = (size_t)v * B + b;
+    if (done == 0) store_cs<V>(values + vo, val);
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+        if (done & (1u << u)) continue;
+        if (done) values[vo + u] = val[u];
+        hard[vo + u] = val[u] < 0.0f;
+    }
+    // the next words; min-sum damping mixes in the old Q, the word still in
+    // memory. A converged lane's words are never read again.
+#pragma unroll
+    for (int k = 0; k < DV; ++k) {
+        if (k >= deg) break;
+        float* w = W + (size_t)vs[k] * B + b;
+        float old[V], nw[V];
+        if (use_damping) load<V>(w, old);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+            float qn = val[u] - r[k][u];
+            if (use_damping) qn = damp_new * qn + damp_old * old[u];
+            if (use_clip) qn = clamp_nan(qn, -clip, clip);
+            nw[u] = M == 0 ? sp_word(qn) : qn;
+        }
+        store_cs<V>(w, nw);
+    }
+}
+
+template <int V>
+__global__ void dem_syndrome_kernel(
+    const uint8_t* __restrict__ hard, const uint8_t* __restrict__ syn_t,
+    const int* __restrict__ var_of_slot, const int* __restrict__ check_deg,
+    const uint8_t* __restrict__ conv, uint8_t* __restrict__ mismatch,
+    const int* __restrict__ active, int it, int m, int dc, int B)
+{
+    if (it > 0 && active[it - 1] == 0) return;
+    const int BV = B / V;
+    const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (i >= (size_t)m * BV) return;
+    const int c = (int)(i / BV), b = (int)(i - (size_t)c * BV) * V;
+    const unsigned done = converged_lanes<V>(conv + b);
+    if (done == (1u << V) - 1) return;
+    const int* vos = var_of_slot + (size_t)c * dc;
+    const int d = check_deg[c];
+    // the V samples' 0/1 bytes side by side: one XOR folds them all
+    using Word = typename std::conditional<V == 4, uint32_t, uint8_t>::type;
+    Word par = 0;
+    for (int j = 0; j < d; ++j)
+        par ^= *reinterpret_cast<const Word*>(hard + (size_t)vos[j] * B + b);
+    par ^= *reinterpret_cast<const Word*>(syn_t + (size_t)c * B + b);
+#pragma unroll
+    for (int u = 0; u < V; ++u)
+        if (((par >> (8 * u)) & 1) && !(done & (1u << u))) mismatch[b + u] = 1;
+}
+
+// One call of the summary path: the check-side kernels take VC samples a
+// thread, the variable kernel VV (measured on the H100: four samples a
+// thread stream the summary pass at full rate, while the variable kernel,
+// which holds DV x VV messages in registers, runs fastest with two).
+template <int DV, int VC, int VV, int M>
+static int run_words(
+    cudaStream_t stream, int threads, const uint8_t* syn_t, const float* P, int ps_v,
+    int ps_b, const int* vos, const int* deg, const int* vslots, float* values,
+    uint8_t* Hd, float* W, float* SA, float* SB, uint8_t* cv, int* iters, uint8_t* mm,
+    int* act, int B, int m, int n, int dc, int dv, float alpha, int use_alpha,
+    float offset, int use_offset, float damp_new, float damp_old, int use_damping,
+    float clip, int use_clip, int max_iter)
+{
+    const int S = m * dc;
+    const size_t BC = (size_t)(B / VC), BW = (size_t)(B / VV);
+    const unsigned magic = (unsigned)((0x100000000ull + dc - 1) / dc);
+    dem_init_kernel<<<grid_for((size_t)n * B, threads), threads, 0, stream>>>(
+        P, ps_v, ps_b, values, Hd, cv, iters, mm, n, B, max_iter);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    dem_init_q_kernel<<<grid_for((size_t)S * B, threads), threads, 0, stream>>>(
+        P, ps_v, ps_b, vos, deg, W, m, dc, B, M == 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    for (int it = 0; it < max_iter; ++it) {
+        dem_summary_kernel<VC><<<grid_for(m * BC, threads), threads, 0, stream>>>(
+            W, SA, SB, syn_t, deg, cv, act, it, m, dc, B, M);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        dem_word_var_kernel<DV, VV, M><<<grid_for(n * BW, threads), threads, 0, stream>>>(
+            W, SA, SB, P, ps_v, ps_b, vslots, values, Hd, cv, act, it, n, dv, magic, S, B,
+            alpha, use_alpha, offset, use_offset, damp_new, damp_old, use_damping,
+            clip, use_clip);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        dem_syndrome_kernel<VC><<<grid_for(m * BC, threads), threads, 0, stream>>>(
+            Hd, syn_t, vos, deg, cv, mm, act, it, m, dc, B);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        dem_freeze_kernel<<<grid_for((size_t)B, threads), threads, 0, stream>>>(
+            cv, iters, mm, act, it, B);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
+}
+
+template <int M>
+static int run_words_for(int B, int dv, cudaStream_t stream, int threads,
+                         const uint8_t* syn_t, const float* P, int ps_v, int ps_b,
+                         const int* vos, const int* deg, const int* vslots, float* values,
+                         uint8_t* Hd, float* W, float* SA, float* SB, uint8_t* cv,
+                         int* iters, uint8_t* mm, int* act, int m, int n, int dc,
+                         float alpha, int use_alpha, float offset, int use_offset,
+                         float damp_new, float damp_old, int use_damping, float clip,
+                         int use_clip, int max_iter)
+{
+#define RUN(DVT, VCT, VVT)                                                               \
+    return run_words<DVT, VCT, VVT, M>(                                                 \
+        stream, threads, syn_t, P, ps_v, ps_b, vos, deg, vslots, values, Hd, W, SA, SB, \
+        cv, iters, mm, act, B, m, n, dc, dv, alpha, use_alpha, offset, use_offset,      \
+        damp_new, damp_old, use_damping, clip, use_clip, max_iter)
+    if (dv > 16) RUN(MAX_DV, 1, 1);
+    if (B % 4 == 0) RUN(16, 4, 2);
+    if (B % 2 == 0) RUN(16, 1, 2);
+    RUN(16, 1, 1);
+#undef RUN
+}
+
+// The summary path. ``summary`` holds 2 * m * B floats (the two planes).
+// Refuses dv > MAX_DV, dc <= 16 and sum-product with damping (the message
+// path's cases).
+extern "C" int dem_bp_words_launch(
+    const void* syn_t, const void* prior, int ps_v, int ps_b,
+    const void* var_of_slot, const void* check_deg, const void* var_slots,
+    void* values, void* hard, void* W, void* summary,
+    void* conv, void* iters, void* mismatch, void* active,
+    int B, int m, int n, int dc, int dv, int method,
+    float alpha, int use_alpha, float offset, int use_offset,
+    float damp_new, float damp_old, int use_damping,
+    float clip, int use_clip, int max_iter, int threads, void* stream_)
+{
+    if (threads < 32 || threads > 1024 || dv < 1 || dv > MAX_DV || dc <= LARGE_DC
+        || (method == 0 && use_damping))
+        return (int)cudaErrorInvalidValue;
+    if (B <= 0) return (int)cudaSuccess;
+    float* SA = (float*)summary;
+    auto run = method == 0 ? &run_words_for<0> : &run_words_for<1>;
+    return run(B, dv, (cudaStream_t)stream_, threads, (const uint8_t*)syn_t,
+               (const float*)prior, ps_v, ps_b, (const int*)var_of_slot,
+               (const int*)check_deg, (const int*)var_slots, (float*)values,
+               (uint8_t*)hard, (float*)W, SA, SA + (size_t)m * B, (uint8_t*)conv,
+               (int*)iters, (uint8_t*)mismatch, (int*)active, m, n, dc, alpha, use_alpha,
+               offset, use_offset, damp_new, damp_old, use_damping, clip, use_clip,
+               max_iter);
 }
 
 extern "C" int dem_bp_launch(
@@ -267,7 +675,7 @@ extern "C" int dem_bp_launch(
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     dem_init_q_kernel<<<grid_for((size_t)S * B, threads), threads, 0, stream>>>(
-        V, (const int*)var_of_slot, (const int*)check_deg, fQ, m, dc, B);
+        P, ps_v, ps_b, (const int*)var_of_slot, (const int*)check_deg, fQ, m, dc, B, 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     for (int it = 0; it < max_iter; ++it) {
@@ -279,7 +687,7 @@ extern "C" int dem_bp_launch(
             fQ, fR, P, ps_v, ps_b, (const int*)var_slots, V, Hd, cv, act, it,
             n, dv, S, B, damp_new, damp_old, use_damping, clip, use_clip);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        dem_syndrome_kernel<<<grid_for((size_t)m * B, threads), threads, 0, stream>>>(
+        dem_syndrome_kernel<1><<<grid_for((size_t)m * B, threads), threads, 0, stream>>>(
             Hd, (const uint8_t*)syn_t, (const int*)var_of_slot,
             (const int*)check_deg, cv, mm, act, it, m, dc, B);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

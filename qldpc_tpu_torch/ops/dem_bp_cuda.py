@@ -3,9 +3,13 @@ kernel K3 and its plain torch version.
 
 K3 (``csrc/dem_bp.cu``) replaces qldpc_tpu/ops/dem_bp_pallas.py::_check_kernel
 and the variable-side fold around it; its header says what bounds it on the
-card and how the design answers. ``dem_bp_plain`` is the XLA slot path of
-qldpc_tpu/decoders/bp.py (``_check_messages`` and ``_step`` on the padded
-check-slot layout) written in torch:
+card and how the design answers. K3 has two paths, chosen from the config
+and the tables alone (``summary_path``): under the one-pass check rule
+(``dc > 16``) it stores no R, only one word per slot and a summary per
+(check, sample); the prefix x suffix rule and sum-product with damping keep
+the message path, which stores Q and R. ``dem_bp_plain`` is the XLA slot
+path of qldpc_tpu/decoders/bp.py (``_check_messages`` and ``_step`` on the
+padded check-slot layout) written in torch:
 
   * check c owns ``dc = dc_max`` slots, its real edges first, phantoms after;
     a phantom is the neutral element of each rule (tanh 1.0, sign +1,
@@ -49,6 +53,7 @@ __all__ = [
     "dem_bp",
     "dem_bp_plain",
     "dem_bp_cuda",
+    "summary_path",
 ]
 
 # above this check degree float32 BP takes the one-pass check rule
@@ -56,18 +61,21 @@ __all__ = [
 LARGE_DC = 16
 _THREADS = 256
 
+# the summary path unrolls a variable's slots in registers up to this degree
+MAX_DV = 64
+
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LAUNCH_ARGS = [
+    _vp, _vp, _i, _i, _vp, _vp, _vp,
+    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+    _i, _i, _i, _i, _i, _i,
+    _f, _i, _f, _i, _f, _f, _i, _f, _i, _i,
+    _i, _vp,
+]
 _LIB = KernelLibrary(
     "dem_bp.cu",
-    {
-        "dem_bp_launch": [
-            _vp, _vp, _i, _i, _vp, _vp, _vp,
-            _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-            _i, _i, _i, _i, _i, _i,
-            _f, _i, _f, _i, _f, _f, _i, _f, _i, _i,
-            _i, _vp,
-        ]
-    },
+    {"dem_bp_launch": _LAUNCH_ARGS,
+     "dem_bp_words_launch": _LAUNCH_ARGS},
 )
 
 
@@ -238,17 +246,28 @@ def dem_bp_plain(
     return values, conv, iters, hard
 
 
+def summary_path(tables: DEMTables, cfg: BPConfig) -> bool:
+    """Whether K3 runs without storing R: the one-pass check rule (every
+    check's messages follow from its summary and the slot's own word),
+    except sum-product with damping, whose update needs the old Q that its
+    slot word no longer holds."""
+    return tables.dc > LARGE_DC and not (cfg.method == "sum-product" and cfg.damping != 1.0)
+
+
 def dem_bp_cuda(
     syndromes: torch.Tensor,
     priors: torch.Tensor,
     tables: DEMTables,
     cfg: BPConfig,
     alpha: float | None = None,
+    *,
+    _store_r: bool = False,
 ):
     """Launch K3. Same contract as ``dem_bp_plain``; float32 only. A NaN
     message (min-sum on a check of degree 1 sends an infinite magnitude, and
     the variable side's ``inf - inf`` gives NaN) propagates as through
-    torch's ``min`` and ``clamp``."""
+    torch's ``min`` and ``clamp``. ``_store_r`` forces the message path
+    where ``summary_path`` holds, to compare the two paths."""
     dev = syndromes.device
     if dev.type != "cuda":
         raise ValueError("dem_bp_cuda needs CUDA tensors")
@@ -259,6 +278,9 @@ def dem_bp_cuda(
         )
     B = syndromes.shape[0]
     n, m, dc, dv = tables.n, tables.m, tables.dc, tables.dv
+    words = summary_path(tables, cfg) and not _store_r
+    if words and dv > MAX_DV:
+        raise ValueError(f"variable degree {dv} exceeds the summary path's {MAX_DV}")
     if syndromes.shape != (B, m):
         raise ValueError(f"syndromes must be (B, {m}), got {tuple(syndromes.shape)}")
     if priors.shape == (n,):
@@ -280,18 +302,20 @@ def dem_bp_cuda(
     syn_t = syndromes.to(torch.uint8).T.contiguous()  # (m, B)
     values = torch.empty((n, B), dtype=torch.float32, device=dev)
     hard = torch.empty((n, B), dtype=torch.uint8, device=dev)
+    # Q (or its slot words) in slot space; R there too on the message path,
+    # the two summary planes (m, B) on the summary path
     Q = torch.empty((S, B), dtype=torch.float32, device=dev)
-    R = torch.empty((S, B), dtype=torch.float32, device=dev)
+    R_or_summary = torch.empty((2 * m, B) if words else (S, B), dtype=torch.float32, device=dev)
     conv = torch.empty(B, dtype=torch.uint8, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     mismatch = torch.empty(B, dtype=torch.uint8, device=dev)
     active = torch.zeros(cfg.max_iter, dtype=torch.int32, device=dev)
     alpha32 = float(alpha)
     _LIB.call(
-        "dem_bp_launch",
+        "dem_bp_words_launch" if words else "dem_bp_launch",
         syn_t.data_ptr(), prior_t.data_ptr(), ps_v, ps_b,
         var_of_slot.data_ptr(), check_deg.data_ptr(), var_slots.data_ptr(),
-        values.data_ptr(), hard.data_ptr(), Q.data_ptr(), R.data_ptr(),
+        values.data_ptr(), hard.data_ptr(), Q.data_ptr(), R_or_summary.data_ptr(),
         conv.data_ptr(), iters.data_ptr(), mismatch.data_ptr(), active.data_ptr(),
         B, m, n, dc, dv,
         0 if cfg.method == "sum-product" else 1,

@@ -98,7 +98,7 @@ def main() -> int:
         bp_kernels = ("st_bp_kernel",)
     else:
         eng = MonteCarloEngine(code, EngineConfig(**kw), device="cuda")
-        bp_kernels = ("bp_layered_kernel",) if args.schedule == "layered" else ("bp_flooding_kernel",)
+        bp_kernels = ("bp_layered_",) if args.schedule == "layered" else ("bp_flooding_kernel",)
     eng.run_rate(args.p[0], args.batch)  # build the kernels, warm the allocator
     report = []
     for p in args.p:
@@ -120,8 +120,10 @@ def main() -> int:
         # kernels carry the device time; the aten ops above them repeat it
         dev_us = sum(e.self_device_time_total for e in events
                      if e.device_type == DeviceType.CUDA)
+        # a template kernel's name starts with its return type
         bp_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA and e.key.startswith(bp_kernels))
+                    if e.device_type == DeviceType.CUDA
+                    and e.key.removeprefix("void ").startswith(bp_kernels))
         line = (f"p={p} run_rate({trials}): wall {wall * 1e3:.3f} ms, device busy "
                 f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall); BP kernel "
                 f"{bp_us / 1e3:.3f} ms ({100 * bp_us / max(dev_us, 1e-9):.1f}% of device time)")

@@ -41,7 +41,14 @@ from qldpc_tpu.parallel import make_mesh
 from qldpc_tpu_torch.convert import code_from_reference, engine_config_from_reference
 from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
 from qldpc_tpu_torch.mc import MonteCarloEngine, counters_to_dict
-from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered, bp_layered_plain, layer_count
+from qldpc_tpu_torch.ops.bp_cuda import check_rule
+from qldpc_tpu_torch.ops.bp_layered_cuda import (
+    LayeredTables,
+    bp_layered,
+    bp_layered_plain,
+    layer_count,
+    layer_tables,
+)
 
 torch.set_num_threads(2)
 
@@ -169,3 +176,92 @@ def test_layered_engine_counters_identical_to_jax_engine(case):
     assert got["trials"] == 300
     for k in ref:
         np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)
+
+
+def _layered_from_tables(syn, priors, tables: LayeredTables, cfg):
+    """K7's schedule in plain torch: per layer the check rule, then the
+    posteriors of the touched variables only, each adding its layer-local
+    deltas in the order of ``layer_edges``."""
+    B = syn.shape[0]
+    n, m, dc = tables.n, tables.m, tables.dc
+    L, T, K = tables.layer_edges.shape
+    ml = m // L
+    El = ml * dc
+    var_of_edge = tables.check_var.reshape(-1).long()
+    syn = syn.to(torch.int32)
+    ssign = (1 - 2 * syn).to(priors.dtype)
+    values = priors.expand(B, n).clone()
+    R = torch.zeros((B, m * dc), dtype=priors.dtype)
+    conv = torch.zeros(B, dtype=torch.bool)
+    iters = torch.full((B,), cfg.max_iter - 1, dtype=torch.int32)
+    for it in range(cfg.max_iter):
+        v = values.clone()
+        Rn = R.clone()
+        for l in range(L):
+            R_l = R[:, l * El:(l + 1) * El]
+            Q_l = v[:, var_of_edge[l * El:(l + 1) * El]] - R_l
+            if cfg.clip_llr is not None:
+                Q_l = torch.clamp(Q_l, -cfg.clip_llr, cfg.clip_llr)
+            R_new = check_rule(Q_l.view(B, ml, dc), ssign[:, l * ml:(l + 1) * ml],
+                               cfg, cfg.alpha).reshape(B, El)
+            delta = R_new - R_l
+            for k in range(T):
+                var = int(tables.layer_vars[l, k])
+                if var >= n:
+                    continue
+                val = v[:, var]
+                for e in tables.layer_edges[l, k].tolist():
+                    if e < 0:
+                        break
+                    val = val + delta[:, e]
+                v[:, var] = val
+            Rn[:, l * El:(l + 1) * El] = R_new
+        R = torch.where(conv[:, None], R, Rn)
+        h = (v < 0).to(torch.int8)
+        ok = ((h[:, var_of_edge].view(B, m, dc).sum(-1, dtype=torch.int32) % 2) == syn).all(-1)
+        values = torch.where(conv[:, None], values, v)
+        iters = torch.where(conv, iters, torch.full_like(iters, it))
+        conv = conv | ok
+    return values, conv, iters, (values < 0).to(torch.int8)
+
+
+def test_layer_tables_list_each_layers_edges_once_in_ascending_order():
+    H = get_code("[[144, 12, 12]]").Hx
+    dec = BPDecoder(H, BPConfig(schedule="layered"))
+    t = dec.tables()
+    assert isinstance(t, LayeredTables)
+    m, dc, n = t.m, t.dc, t.n
+    L = layer_count(m)
+    El = (m // L) * dc
+    var_edge = t.var_edge.numpy()
+    for l in range(L):
+        seen = []
+        for v, edges in zip(t.layer_vars[l].tolist(), t.layer_edges[l].tolist()):
+            edges = [e for e in edges if e >= 0]
+            if v == n:
+                assert not edges
+                continue
+            want = [e - l * El for e in var_edge[v] if l * El <= e < (l + 1) * El]
+            assert edges == want == sorted(want) and edges
+            assert all(int(t.check_var.reshape(-1)[l * El + e]) == v for e in edges)
+            seen += edges
+        assert sorted(seen) == list(range(El))  # every edge of the layer, once
+    # at [[144,12,12]] with L = 4 a layer touches 66 of the 144 variables
+    assert (t.layer_vars < n).sum(1).tolist() == [66] * 4
+    direct = layer_tables(dec.graph.var_edge, m, dc, L)
+    assert np.array_equal(direct["layer_vars"], t.layer_vars.numpy())
+
+
+@pytest.mark.parametrize("config", list(OSD_FREE))
+def test_layer_tables_reproduce_plain_bit_for_bit(rng, config):
+    """[[72,12,6]] in 2 layers: many variables have two or three edges in
+    one layer, whose deltas must be added in ascending edge order."""
+    H, syn, prior = _batch(rng, "[[72, 12, 6]]", 0.05, 128)
+    cfg = BPConfig(schedule="layered", n_layers=2, max_iter=25, **OSD_FREE[config])
+    tables = BPDecoder(H, cfg).tables()
+    assert tables.layer_edges.shape[2] >= 2
+    args = (torch.from_numpy(syn), torch.from_numpy(prior.astype(np.float32)), tables, cfg)
+    got, ref = _layered_from_tables(*args), bp_layered_plain(*args)
+    assert 0 < int(ref[1].sum()) < len(syn)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)

@@ -7,7 +7,8 @@ tolerances are those of chip_smoke.py: K1 may differ in decision
 lane in 1024, with posteriors within rtol = atol = 1e-5 on the other lanes;
 K3, K6 and K7 under min-sum, K2, K4 and K5a-d are bit-identical; K6 and K7
 under sum-product are held to K1's rule (at least 1 lane allowed); K1, K3,
-K6 and K7 propagate a NaN message as the plain versions do.
+K6 and K7 propagate a NaN message as the plain versions do. K3's summary
+path (the one-pass check rule) equals its message path bit for bit.
 """
 
 import math
@@ -33,7 +34,7 @@ from qldpc_tpu_torch.ops import osd_cuda, osd_transform_cuda
 from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
 from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered_cuda, bp_layered_plain
 from qldpc_tpu_torch.ops.spacetime_bp_cuda import st_bp_cuda, st_bp_plain
-from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain
+from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain, summary_path
 from qldpc_tpu_torch.ops.osd_cuda import (
     eliminate_rows_cuda,
     eliminate_rows_plain,
@@ -214,6 +215,71 @@ def test_k3_per_sample_priors_and_alpha(cuda):
     ref = dem_bp_plain(syn, prior, dec.tables(), cfg, alpha=0.5)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+SUMMARY_CASES = {
+    "sum-product": BPConfig(max_iter=50),
+    "sum-product-alpha-clip": BPConfig(max_iter=50, alpha=0.8, clip_llr=12.0),
+    "min-sum": BPConfig(max_iter=50, method="min-sum"),
+    "min-sum-alpha-offset-clip": BPConfig(max_iter=50, method="min-sum", alpha=0.8,
+                                          offset=0.1, clip_llr=8.0),
+    "min-sum-damped": BPConfig(max_iter=50, method="min-sum", damping=0.6),
+}
+
+
+@pytest.mark.parametrize("graph", ["steane", "[[72, 12, 6]]"])
+@pytest.mark.parametrize("case", list(SUMMARY_CASES))
+@pytest.mark.parametrize("B", [1024, 1022])  # four samples a thread, and one
+def test_k3_summary_path_equals_message_path(cuda, graph, case, B):
+    cfg = SUMMARY_CASES[case]
+    dem, syn_np, prior_np = _dem_inputs(graph, B, seed=16)
+    dec = BPDecoder(dem.H, cfg).to(cuda)
+    assert summary_path(dec.tables(), cfg)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    prior = torch.from_numpy(prior_np).to(cuda)
+    got = dem_bp_cuda(syn, prior, dec.tables(), cfg)
+    msg = dem_bp_cuda(syn, prior, dec.tables(), cfg, _store_r=True)
+    ref = dem_bp_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _assert_same(got, msg)
+    kv, kc, ki, kh = got
+    rv, rc, ri, rh = ref
+    if cfg.method == "min-sum":
+        _assert_same(got, ref)
+        return
+    differ = (kc != rc) | (ki != ri) | (kh != rh).any(1)
+    assert int(differ.sum()) <= max(1, B // 1024)
+    torch.testing.assert_close(kv[~differ], rv[~differ], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_k3_summary_path_per_sample_priors(cuda, method):
+    dem, syn_np, _ = _dem_inputs("steane", 512, seed=17)
+    cfg = BPConfig(max_iter=30, method=method, alpha=0.7)
+    dec = BPDecoder(dem.H, cfg).to(cuda)
+    rng = np.random.default_rng(18)
+    prior = torch.from_numpy(rng.uniform(1.0, 9.0, (512, dem.H.shape[1])).astype(np.float32)).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    got = dem_bp_cuda(syn, prior, dec.tables(), cfg, alpha=0.5)
+    _assert_same(got, dem_bp_cuda(syn, prior, dec.tables(), cfg, alpha=0.5, _store_r=True))
+    if method == "min-sum":
+        _assert_same(got, dem_bp_plain(syn, prior, dec.tables(), cfg, alpha=0.5))
+
+
+def test_k3_summary_path_propagates_nan_from_a_degree_one_check(cuda):
+    """The Steane DEM (dc_max 75) with a check of degree 1 added."""
+    dem, syn_np, prior_np = _dem_inputs("steane", 512, seed=19)
+    H = np.vstack([dem.H, np.eye(1, dem.H.shape[1], dtype=dem.H.dtype)])
+    syn_np = np.hstack([syn_np, np.ones((512, 1), np.uint8)])
+    cfg = BPConfig(max_iter=20, method="min-sum", offset=0.1, clip_llr=8.0)
+    dec = BPDecoder(H, cfg).to(cuda)
+    assert summary_path(dec.tables(), cfg)
+    syn, prior = torch.from_numpy(syn_np).to(cuda), torch.from_numpy(prior_np).to(cuda)
+    got = dem_bp_cuda(syn, prior, dec.tables(), cfg)
+    ref = dem_bp_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0]).any())
+    _assert_same(got, ref)
 
 
 @pytest.mark.parametrize("graph", ["steane", "[[72, 12, 6]]"])
@@ -445,6 +511,30 @@ def test_k7_matches_plain(cuda, code_name, L, case):
     ref = bp_layered_plain(syn, prior, dec.tables(), cfg)
     torch.cuda.synchronize()
     _hold_bp(got, ref, cfg.method, B)
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_k7_mixed_batch_of_early_and_late_samples(cuda, method):
+    """Samples that converge at iteration 0 (zero syndromes), 1 or 2 (light
+    errors) and samples that run all iterations (heavy errors), shuffled, in
+    a batch that is no multiple of the warps per block."""
+    cfg = BPConfig(max_iter=30, method=method, schedule="layered")
+    H = get_code("[[144, 12, 12]]").Hx
+    rng = np.random.default_rng(20)
+    B = 8191
+    p = rng.choice([0.0, 0.01, 0.25], size=B, p=[0.3, 0.4, 0.3])
+    errors = (rng.random((B, H.shape[1])) < p[:, None]).astype(np.int64)
+    syn = torch.from_numpy(((errors @ H.T) % 2).astype(np.uint8)).to(cuda)
+    dec = BPDecoder(H, cfg).to(cuda)
+    prior = torch.full((H.shape[1],), math.log(99.0), dtype=torch.float32, device=cuda)
+    got = bp_layered_cuda(syn, prior, dec.tables(), cfg)
+    ref = bp_layered_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _hold_bp(got, ref, method, B)
+    iters = got[2].cpu().numpy()
+    for it in (0, 1, 2, 29):
+        assert (iters == it).sum() > 10, f"no samples stop at iteration {it}"
+    assert int((~got[1]).sum()) > 100
 
 
 def test_k7_propagates_nan_from_degree_one_checks(cuda):

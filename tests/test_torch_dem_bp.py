@@ -41,7 +41,14 @@ from qldpc_tpu.noise.circuit import memory_experiment_dem
 from qldpc_tpu.ops.tanner import TannerGraph
 from qldpc_tpu_torch.convert import bp_config_from_reference
 from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
-from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp, dem_bp_plain
+from qldpc_tpu_torch.ops.bp_cuda import TANH_CLIP
+from qldpc_tpu_torch.ops.dem_bp_cuda import (
+    _check_messages,
+    _fold,
+    dem_bp,
+    dem_bp_plain,
+    summary_path,
+)
 
 torch.set_num_threads(2)
 
@@ -204,3 +211,193 @@ def test_dem_bp_refuses_unknown_devices():
     meta = torch.zeros((2, dec.graph.m), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         dem_bp(meta, meta[0, :1], dec.tables(), dec.config)
+
+
+# ---- K3's summary path, rendered in plain torch ---------------------------
+# Under the one-pass check rule every message R_j follows from the slot's own
+# word and a per-(check, sample) summary (csrc/dem_bp.cu). These renderings
+# repeat the kernel's expressions on the CPU; they must give the message
+# path's R, and the whole decoder's outputs, bit for bit.
+
+_SIGN = torch.tensor(-(2**31), dtype=torch.int32)
+_ZERO = torch.tensor(0, dtype=torch.int32)
+
+
+def _encode(Q, method):
+    """Slot words: Q (min-sum), or |lt| with the sign bit where t < 0."""
+    if method == "min-sum":
+        return Q
+    t = torch.tanh(Q * 0.5)
+    lt = torch.log(torch.clamp(t.abs(), min=1e-15))
+    return (lt.abs().view(torch.int32) | torch.where(t < 0, _SIGN, _ZERO)).view(torch.float32)
+
+
+def _decode(w):
+    """(lt, t < 0) of sum-product words; lt <= 0 comes back as -|w|."""
+    return (w.view(torch.int32) | _SIGN).view(torch.float32), w.view(torch.int32) < 0
+
+
+def _summaries(W, ssign, tables, method):
+    """The two (B, m, 1) planes of every check's summary."""
+    B, m, dc = W.shape[0], tables.m, tables.dc
+    Wc = W.view(B, m, dc)
+    mask = tables.slot_mask
+    ss = ssign[..., None]
+    if method == "sum-product":
+        lt, neg = _decode(torch.where(mask, Wc, 0.0))  # phantoms: lt -0, t >= 0
+        odd = neg.sum(-1, keepdim=True, dtype=torch.int32) % 2
+        return _fold(lt), (1 - 2 * odd).to(W.dtype) * ss
+    aq = torch.where(mask, Wc.abs(), torch.inf)
+    nan = torch.isnan(aq)
+    finite = torch.where(nan, torch.inf, aq)
+    first = torch.arange(dc) == finite.argmin(-1, keepdim=True)
+    min1 = torch.where(nan.any(-1, keepdim=True), torch.nan, finite.min(-1, keepdim=True).values)
+    min2 = torch.where(first, torch.inf, finite).min(-1, keepdim=True).values
+    odd = (mask & (Wc < 0)).sum(-1, keepdim=True, dtype=torch.int32) % 2
+    flip = (odd == 1) != (ss < 0)
+    return min1, (min2.view(torch.int32) | torch.where(flip, _SIGN, _ZERO)).view(torch.float32)
+
+
+def _messages(W, summary, tables, cfg, alpha):
+    """R (B, m*dc) from the words and the summaries, alpha last."""
+    B, m, dc = W.shape[0], tables.m, tables.dc
+    Wc = W.view(B, m, dc)
+    a, s = summary
+    if cfg.method == "sum-product":
+        lt, neg = _decode(Wc)
+        others = torch.exp(a - lt) * s * torch.where(neg, -1.0, 1.0)
+        R = 2.0 * torch.atanh(torch.clamp(others, -TANH_CLIP, TANH_CLIP))
+    else:
+        neg = (s.view(torch.int32) < 0) != (Wc < 0)
+        mags = torch.where(Wc.abs() == a, s.abs(), a)
+        if cfg.offset:
+            mags = torch.clamp(mags - cfg.offset, min=0.0)
+        R = torch.where(neg, -1.0, 1.0) * mags
+    if alpha != 1.0:
+        R = R * alpha
+    return R.reshape(B, m * dc)
+
+
+def _summary_bp(syn, priors, tables, cfg):
+    """dem_bp_plain's loop on slot words and summaries (no stored R)."""
+    B = syn.shape[0]
+    n, m, dc = tables.n, tables.m, tables.dc
+    vos, var_slots = tables.var_of_slot.reshape(-1).long(), tables.var_slots.long()
+    syn = syn.to(torch.int32)
+    priors = priors.expand(B, n)
+    ssign = (1 - 2 * syn).to(priors.dtype)
+    W = _encode(priors[:, vos], cfg.method)
+    values, hard = priors.clone(), torch.zeros((B, n), dtype=torch.int8)
+    conv = torch.zeros(B, dtype=torch.bool)
+    iters = torch.full((B,), cfg.max_iter - 1, dtype=torch.int32)
+    for it in range(cfg.max_iter):
+        act = torch.nonzero(~conv).flatten()
+        if act.numel() == 0:
+            break
+        Wa = W[act]
+        R = _messages(Wa, _summaries(Wa, ssign[act], tables, cfg.method), tables, cfg, cfg.alpha)
+        rv = torch.cat([R, torch.zeros((act.numel(), 1))], dim=1)[:, var_slots]
+        vals = _fold(rv)[..., 0] + priors[act]
+        Qn = vals[:, vos] - R
+        if cfg.damping != 1.0:  # min-sum only here: its word is Q
+            Qn = cfg.damping * Qn + (1.0 - cfg.damping) * Wa
+        if cfg.clip_llr is not None:
+            Qn = torch.clamp(Qn, -cfg.clip_llr, cfg.clip_llr)
+        h = (vals < 0).to(torch.int8)
+        hs = torch.where(tables.slot_mask, h[:, vos].view(-1, m, dc), 0)
+        ok = (hs.sum(dim=-1, dtype=torch.int32) % 2 == syn[act]).all(dim=-1)
+        W[act] = _encode(Qn, cfg.method)
+        values[act], hard[act], iters[act], conv[act] = vals, h, it, ok
+    return values, conv, iters, hard
+
+
+SUMMARY_CASES = {
+    "sum-product": dict(),
+    "sp-alpha-clip": dict(alpha=0.8, clip_llr=12.0),
+    "min-sum": dict(method="min-sum"),
+    "ms-alpha-offset-clip": dict(method="min-sum", alpha=0.75, offset=0.1, clip_llr=6.0),
+    "ms-damped": dict(method="min-sum", damping=0.6),
+}
+
+
+def _steane_dem(degree_one: bool = False):
+    """The Steane DEM (dc_max 75); optionally with a check of degree 1 on
+    the first mechanism, whose min-sum message is an infinite magnitude."""
+    dem = memory_experiment_dem(get_code("steane"), p=0.01, rounds=3)
+    H, prior = dem.H, dem.llrs.astype(np.float32)
+    if degree_one:
+        H = np.vstack([H, np.eye(1, H.shape[1], dtype=H.dtype)])
+    return H, prior
+
+
+def test_slot_word_round_trip():
+    Q = torch.tensor([0.0, -0.0, 1e-30, -1e-30, 0.3, -0.3, 9.0, -9.0, 17.0, -17.0,
+                      40.0, -40.0, np.inf, -np.inf, np.nan])
+    t = torch.tanh(Q * 0.5)
+    lt = torch.log(torch.clamp(t.abs(), min=1e-15))
+    got_lt, got_neg = _decode(_encode(Q, "sum-product"))
+    assert torch.equal(got_neg, t < 0)
+    torch.testing.assert_close(got_lt, lt, rtol=0, atol=0, equal_nan=True)
+    saturated = t.abs() == 1.0  # |t| = 1: lt = +0 comes back as -0, the same number
+    assert int(saturated.sum()) == 4 and bool((got_lt[saturated] == 0).all())
+    assert torch.equal(_encode(Q, "min-sum").view(torch.int32), Q.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", list(SUMMARY_CASES))
+def test_summary_messages_equal_check_messages_bit_for_bit(rng, case):
+    """R from words and summaries against _check_messages on messages that
+    include |t| = 1 (|Q| = 20), zeros, a NaN and infinities, on the Steane
+    DEM with a check of degree 1."""
+    cfg = BPConfig(max_iter=5, **SUMMARY_CASES[case])
+    H, _ = _steane_dem(degree_one=True)
+    dec = BPDecoder(H, cfg)
+    tables = dec.tables()
+    assert summary_path(tables, cfg) and tables.dc > 16 and int(tables.check_deg.min()) == 1
+    B = 64
+    Q = torch.from_numpy(rng.normal(0.0, 8.0, (B, tables.m * tables.dc)).astype(np.float32))
+    Q[:, ::7] = 20.0 * torch.sign(Q[:, ::7])  # tanh(10) rounds to 1: lt = 0
+    Q[:5, 3] = 0.0
+    Q[5, 0], Q[6, 1], Q[7, 2] = np.nan, np.inf, -np.inf
+    ssign = torch.from_numpy(1 - 2 * rng.integers(0, 2, (B, tables.m)).astype(np.float32))
+    ref = _check_messages(Q, ssign, tables, cfg, cfg.alpha)
+    W = _encode(Q, cfg.method)
+    got = _messages(W, _summaries(W, ssign, tables, cfg.method), tables, cfg, cfg.alpha)
+    real = tables.slot_mask.reshape(-1)
+    assert bool(torch.isnan(ref[:, real]).any())
+    torch.testing.assert_close(got[:, real], ref[:, real], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", list(SUMMARY_CASES))
+def test_summary_path_decodes_bit_for_bit_like_plain(rng, case):
+    cfg = BPConfig(max_iter=30, **SUMMARY_CASES[case])
+    H, syn, prior = _inputs(rng, "steane-dem", B=200)
+    tables = BPDecoder(H, cfg).tables()
+    args = (torch.from_numpy(syn), torch.from_numpy(prior), tables, cfg)
+    ref = dem_bp_plain(*args)
+    got = _summary_bp(*args)
+    assert 0 < int(ref[1].sum()) < len(syn)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+def test_summary_path_propagates_nan_from_a_degree_one_check(rng):
+    H, prior = _steane_dem(degree_one=True)
+    errors = (rng.random((128, H.shape[1])) < 0.01).astype(np.int64)
+    syn = ((errors @ H.T) % 2).astype(np.int8)
+    syn[:, -1] = 1
+    cfg = BPConfig(max_iter=20, method="min-sum", offset=0.1, clip_llr=8.0)
+    args = (torch.from_numpy(syn), torch.from_numpy(prior), BPDecoder(H, cfg).tables(), cfg)
+    ref = dem_bp_plain(*args)
+    assert bool(torch.isnan(ref[0]).any())
+    for g, r in zip(_summary_bp(*args), ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+def test_summary_path_rule():
+    dem_tables = BPDecoder(_steane_dem()[0]).tables()
+    small = BPDecoder(_random_irregular(np.random.default_rng(0))).tables()
+    assert summary_path(dem_tables, BPConfig())
+    assert summary_path(dem_tables, BPConfig(method="min-sum", damping=0.6))
+    assert not summary_path(dem_tables, BPConfig(damping=0.7))  # needs the old Q
+    assert not summary_path(small, BPConfig())  # dc <= 16: prefix x suffix
+    assert not summary_path(small, BPConfig(method="min-sum"))
