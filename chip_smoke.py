@@ -14,7 +14,8 @@ Phases (any failure raises and the script exits non-zero):
   5. the Monte-Carlo engine's sweep on the card, with the kernel launch
      counts of that sweep, its LER held against the reference archive, and
      its counters held against the CPU engine on a small input;
-  6. BP(50) throughput of K1 and of the plain torch version;
+  6. BP(50) throughput of K1 and of the plain torch version, at the
+     engine's batch of 65,536 syndromes and at 262,144;
   circuit level, the [[72,12,6]] memory-experiment DEM (432 x 15765):
   7. K3 against its plain torch version, B = 1024, sum-product and min-sum,
      and its summary path (no stored R) against its message path: bit for
@@ -40,7 +41,10 @@ Phases (any failure raises and the script exits non-zero):
   14. steady-state trials/s of the DEM engine;
   space-time, [[144,12,12]] at T = 12 (H_st 864 x 2592), the space-time
   preset's BP(100) + OSD-0 at batch 512:
-  15. K6 against its plain torch version, sum-product and min-sum, p = 0.008;
+  15. K6 (one sample over a cluster of blocks) against its plain torch
+      version, sum-product and min-sum, p = 0.008, and K6 timed on the batch,
+      on its non-converging lanes alone and on one of them alone (the ms per
+      iteration of one sample);
   16. K4 against its plain version on the BP failures of phase 15, and the
       OSD-0 solutions against the plain row elimination's;
   17. the space-time engine's sweep at p = 0.004 and 0.008 (launches K6 and
@@ -398,24 +402,30 @@ def phase_engine_vs_cpu(dev) -> None:
 
 
 def phase_throughput(H: np.ndarray, dev, card_line: str) -> dict:
+    """K1 and its plain version at the engine's batch and at
+    THROUGHPUT_BATCH; returns the record at the engine's batch."""
     from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
     from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
 
-    B, p = THROUGHPUT_BATCH, 0.01
+    p = 0.01
     cfg = BPConfig(max_iter=50)
     dec = BPDecoder(H, cfg).to(dev)
-    _, syn_np = sample(H, p, B, seed=2)
-    syn = torch.from_numpy(syn_np).to(dev)
     prior = torch.full((H.shape[1],), math.log((1 - p) / p), dtype=torch.float32, device=dev)
-    args = (syn, prior, dec.tables(), cfg)
-    ms = cuda_ms(lambda: bp_flooding_cuda(*args), reps=5)
-    plain_ms = cuda_ms(lambda: bp_flooding_plain(*args), reps=2)
-    log(f"BP(50) {CODE} p={p} B={B}: K1 {ms:.3f} ms = {B / ms * 1e3:.0f} syndromes/s; "
-        f"plain torch {plain_ms:.3f} ms = {B / plain_ms * 1e3:.0f} syndromes/s "
-        f"on {card_line}")
-    iters = bp_flooding_cuda(*args)[2]
-    return dict(ms=ms, plain_ms=plain_ms,
-                **bp_bound(syn, prior, dec.tables(), iters, int(H.sum())))
+    rec = None
+    for B in (ENGINE_BATCH, THROUGHPUT_BATCH):
+        _, syn_np = sample(H, p, B, seed=2)
+        syn = torch.from_numpy(syn_np).to(dev)
+        args = (syn, prior, dec.tables(), cfg)
+        ms = cuda_ms(lambda: bp_flooding_cuda(*args), reps=5)
+        plain_ms = cuda_ms(lambda: bp_flooding_plain(*args), reps=2)
+        iters = bp_flooding_cuda(*args)[2]
+        b = bp_bound(syn, prior, dec.tables(), iters, int(H.sum()))
+        log(f"BP(50) {CODE} p={p} B={B}: K1 {ms:.3f} ms = {B / ms * 1e3:.0f} syndromes/s; "
+            f"plain torch {plain_ms:.3f} ms = {B / plain_ms * 1e3:.0f} syndromes/s; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) on {card_line}")
+        if rec is None:
+            rec = dict(ms=ms, plain_ms=plain_ms, **b)
+    return rec
 
 
 def binomial_limit(x: float, n: int, ref: float, n_ref: int) -> float:
@@ -736,9 +746,15 @@ def _k5_cost(name: str, args) -> tuple[int, float]:
     rows = torch.gather(C[lanes.long()], 2, pcl[:, None, :].expand(-1, C.shape[1], -1))
     rows = rows * (prow < m_pad)[:, None, :]
     coeff = popcount(rows[:, : scur // 32 + kw])
-    # P rows, the pivots' C rows, the new P rows; one XOR per word of P per
-    # set coefficient bit
-    return 4 * A * (scur * mw + K * (scur // 32 + kw) + K * mw), float(coeff * mw)
+    # the P rows some pivot's coefficients reference (G is sparse), the
+    # pivots' C rows, the new P rows; one XOR per word of P per set
+    # coefficient bit
+    used = 0
+    if scur:
+        G = rows[:, : scur // 32].transpose(1, 2)  # (A, K, scur / 32)
+        bits = (G[..., None] >> torch.arange(32, dtype=torch.int32, device=G.device)) & 1
+        used = int(bits.any(dim=1).sum())
+    return 4 * (used * mw + A * K * (scur // 32 + kw) + A * K * mw), float(coeff * mw)
 
 
 def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
@@ -893,7 +909,7 @@ def phase_k6(dev) -> tuple[dict, dict]:
     from qldpc_tpu_torch.decoders import BPConfig
     from qldpc_tpu_torch.decoders.spacetime_bp import SpaceTimeBPDecoder
     from qldpc_tpu_torch.noise.spacetime import space_time_matrix, space_time_prior_llr
-    from qldpc_tpu_torch.ops.spacetime_bp_cuda import st_bp_cuda, st_bp_plain
+    from qldpc_tpu_torch.ops.spacetime_bp_cuda import launch_shape, st_bp_cuda, st_bp_plain
 
     H, T, B, p = get_code(ST_CODE).Hx, ST_ROUNDS, ST_BATCH, 0.008
     det = torch.from_numpy(st_detectors(H, T, p, B, seed=4)).to(dev)
@@ -920,9 +936,19 @@ def phase_k6(dev) -> tuple[dict, dict]:
             rec = dict(ms=cuda_ms(lambda: st_bp_cuda(*args), reps=10),
                        plain_ms=cuda_ms(lambda: st_bp_plain(*args), reps=1),
                        **bp_bound(det, priors, tables, ki, edges))
+            S, C, threads = launch_shape(tables, T)
             log(f"K6 BP({ST_ITERS}) sum-product B={B}: {rec['ms']:.4f} ms per call, plain "
                 f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
-                f"{edges} real edges of H_st)")
+                f"{edges} real edges of H_st); {S} sample(s) over a cluster of {C} blocks of "
+                f"{threads} threads")
+            # a batch lasts as long as its slowest samples: time the lanes
+            # that run all iterations, then one of them alone
+            late = det[~kc]
+            ms_late = cuda_ms(lambda: st_bp_cuda(late, *args[1:]), reps=10)
+            ms_one = cuda_ms(lambda: st_bp_cuda(late[:1].contiguous(), *args[1:]), reps=10)
+            log(f"K6 BP({ST_ITERS}) sum-product: {ms_late:.4f} ms on the {late.shape[0]} "
+                f"non-converging lanes alone, {ms_one:.4f} ms on one of them alone: "
+                f"{ms_one / ST_ITERS * 1e3:.2f} us per iteration of one sample")
     rec["max_abs_err"] = worst
     return rec, failures
 

@@ -28,9 +28,19 @@
 //        word-major, a thread per row; the first candidate row is a block
 //        minimum, as in K4; b and the pivoted flags are packed back with
 //        __ballot_sync;
-//   K5d  one block per sample: P_new (27 KB), the pivots' C rows and a
-//        32-row tile of P in shared memory; the intra-block triangle is
-//        resolved serially over j2 in pivot order.
+//   K5d  one block per sample, no barrier per pivot column. With N the
+//        strictly lower part of the block's D (the pivot rows' block
+//        coefficients) and L = I ^ N, P_new = L^-1 (E ^ G.P), E the pivot
+//        rows' unit rows. One warp forward-substitutes L^-1 in registers
+//        (a row broadcast by __shfl_sync per pivot that some later pivot
+//        row holds) while the other warps gather G. G is sparse (under 0.3%
+//        of its bits at the [[144]] DEM), so the block stages only the P
+//        rows that some row of G references, in tiles of 64 rows brought in
+//        by cp.async, double-buffered; G's bits are renumbered to those
+//        rows' ranks and each thread walks the set bits of its 8-64 output
+//        rows (a warp shares its rows, so the walk does not diverge),
+//        accumulating in registers; then X = E ^ G.P goes to shared memory
+//        and each output row XORs the X rows of its L^-1 bits.
 // The TPU kernels' VMEM budget models, 128-lane slabs and the XLA row
 // gathers around them (Mosaic cannot gather) are not carried over: each
 // kernel gathers its own columns and rows.
@@ -42,8 +52,10 @@
 #define KW 4
 #define Y_ROWS 128
 #define W_ROWS 256
-#define TILE 32
 #define RESOLVE_THREADS 512
+#define RESOLVE_WARPS (RESOLVE_THREADS / 32)
+#define TILE_ROWS 64  // staged P rows a buffer; two buffers hold K rows
+#define FULL 0xffffffffu
 #define SMEM_MAX 232448
 
 __device__ __forceinline__ int block_min(int v, int* s_warp, int* s_out)
@@ -237,72 +249,196 @@ __global__ void factored_elim_kernel(
     for (int j = tid; j < K; j += nt) prow_out[(size_t)a * K + j] = prow_s[j];
 }
 
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes)
+{
+    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+    if (bytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
+    else if (bytes == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+}
+
+// P rows [r0, r0 + nr) of the used-row list into a staging buffer, as one
+// cp.async group per thread
+__device__ __forceinline__ void stage_rows(
+    uint32_t* dst, const uint32_t* Pl, const int* rows, int r0, int nr, int mw, int chunk)
+{
+    const int per_row = mw * 4 / chunk;
+    for (int i = threadIdx.x; i < nr * per_row; i += blockDim.x) {
+        const int r = i / per_row, c = i - r * per_row;
+        cp_async(reinterpret_cast<char*>(dst + (size_t)r * mw) + c * chunk,
+                 reinterpret_cast<const char*>(Pl + (size_t)rows[r0 + r] * mw) + c * chunk, chunk);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 // K5d: P[lane][scur + j] = e_{prow[j]} ^ XOR_{s < scur, G[j][s]} P[lane][s]
-// ^ XOR_{j2 < j, D[j][j2]} P_new[j2], G and D the C rows of the pivots.
-__global__ void factored_resolve_kernel(
+// ^ XOR_{j2 < j, D[j][j2]} P_new[j2], G and D the C rows of the pivots,
+// computed as L^-1 (E ^ G.P). RPG output rows a thread: a row group of
+// RPG rows is spread over the warps that cover its mw words.
+template <int RPG>
+__global__ void __launch_bounds__(RESOLVE_THREADS) factored_resolve_kernel(
     uint32_t* __restrict__ P, const uint32_t* __restrict__ C,
     const int* __restrict__ lanes, const int* __restrict__ prow,
-    int s_max, int mw, int cw, int m_pad, int blk)
+    int s_max, int mw, int cw, int m_pad, int blk, int chunk)
 {
+    constexpr int WPG = RPG * RESOLVE_WARPS / K;  // warps a row group
     extern __shared__ __align__(16) uint32_t smem[];
     __shared__ int pr[K];
+    __shared__ uint32_t Li[K * KW];  // L^-1, row j in words 4 j .. 4 j + 3
+    __shared__ int n_used;
     const int scur = blk * K, sw_n = scur >> 5;
-    uint32_t* Pn = smem;                         // K x mw
-    uint32_t* G = Pn + (size_t)K * mw;           // K x sw_n
-    uint32_t* Pt = G + (size_t)K * sw_n;         // TILE x mw
-    uint32_t* D = Pt + (size_t)TILE * mw;        // K x KW
+    uint32_t* XT = smem;                        // 2 x TILE_ROWS x mw staged P rows, then K x mw X
+    uint32_t* Gc = XT + (size_t)K * mw;         // sw_n x K: G's bits at the ranks of their rows
+    uint32_t* U = Gc + (size_t)K * sw_n;        // sw_n: the rows some G row references
+    int* pre = reinterpret_cast<int*>(U + sw_n);  // sw_n: set bits of U before word sw
+    int* rows = pre + sw_n;                     // the referenced rows, ascending
     const int a = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+    const int lid = tid & 31, warp = tid >> 5;
     const size_t lane = (size_t)lanes[a];
     const uint32_t* Cl = C + lane * cw * m_pad;
     uint32_t* Pl = P + lane * s_max * mw;
 
     for (int j = tid; j < K; j += nt) pr[j] = prow[(size_t)a * K + j];
-    __syncthreads();
-    for (int i = tid; i < K * sw_n; i += nt) {
-        const int j = i / sw_n, p = pr[j];
-        G[i] = p < m_pad ? Cl[(size_t)(i - j * sw_n) * m_pad + p] : 0u;
-    }
-    for (int i = tid; i < K * KW; i += nt) {
-        const int j = i / KW, p = pr[j];
-        D[i] = p < m_pad ? Cl[(size_t)(blk * KW + (i - j * KW)) * m_pad + p] : 0u;
-    }
-    for (int i = tid; i < K * mw; i += nt) Pn[i] = 0u;
+    for (int i = tid; i < sw_n; i += nt) U[i] = 0u;
+    for (int i = tid; i < K * sw_n; i += nt) Gc[i] = 0u;
     __syncthreads();
 
-    for (int t0 = 0; t0 < scur; t0 += TILE) {
-        for (int i = tid; i < TILE * mw; i += nt) Pt[i] = Pl[(size_t)t0 * mw + i];
-        __syncthreads();
-        const int tw = t0 >> 5;
-        for (int i = tid; i < K * mw; i += nt) {
-            const int j = i / mw, w = i - j * mw;
-            const uint32_t g = G[j * sw_n + tw];
-            if (!g) continue;
-            uint32_t x = Pn[i];
+    if (warp == 0) {
+        // L^-1 by forward substitution: lane l holds rows l + 32 kk; row
+        // j2 is final once every pivot before it has been applied
+        uint32_t d[4][KW], l[4][KW];
 #pragma unroll
-            for (int q = 0; q < TILE; ++q) x ^= Pt[q * mw + w] & (0u - ((g >> q) & 1u));
-            Pn[i] = x;
+        for (int kk = 0; kk < 4; ++kk) {
+            const int p = pr[lid + 32 * kk];
+#pragma unroll
+            for (int q = 0; q < KW; ++q) {
+                const uint32_t v = p < m_pad ? Cl[(size_t)(blk * KW + q) * m_pad + p] : 0u;
+                d[kk][q] = q < kk ? v : q == kk ? v & ((1u << lid) - 1u) : 0u;
+                l[kk][q] = q == kk ? 1u << lid : 0u;
+            }
         }
-        __syncthreads();
-    }
-
-    for (int j = tid; j < K; j += nt) {
-        const int p = pr[j];
-        if (p < m_pad) Pn[j * mw + (p >> 5)] ^= 1u << (p & 31);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            for (int i = 0; i < 32; ++i) {
+                bool need = false;
+#pragma unroll
+                for (int kk = k; kk < 4; ++kk) need |= (d[kk][k] >> i) & 1u;
+                if (!__any_sync(FULL, need)) continue;
+                uint32_t row[KW];
+#pragma unroll
+                for (int q = 0; q < KW; ++q) row[q] = __shfl_sync(FULL, l[k][q], i);
+#pragma unroll
+                for (int kk = k; kk < 4; ++kk)
+                    if ((d[kk][k] >> i) & 1u)
+#pragma unroll
+                        for (int q = 0; q < KW; ++q) l[kk][q] ^= row[q];
+            }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int q = 0; q < KW; ++q) Li[(lid + 32 * kk) * KW + q] = l[kk][q];
+    } else {
+        for (int i = tid - 32; i < K * sw_n; i += nt - 32) {
+            const int sw = i / K, p = pr[i - sw * K];
+            const uint32_t g = p < m_pad ? Cl[(size_t)sw * m_pad + p] : 0u;
+            if (g) atomicOr(&U[sw], g);
+        }
     }
     __syncthreads();
-    // strictly lower triangle in pivot order: row j2 is final before any
-    // later row reads it
-    for (int j2 = 0; j2 < K - 1; ++j2) {
-        const uint32_t* src = Pn + j2 * mw;
-        for (int i = (j2 + 1) * mw + tid; i < K * mw; i += nt) {
-            const int j = i / mw;
-            if ((D[j * KW + (j2 >> 5)] >> (j2 & 31)) & 1u) Pn[i] ^= src[i - j * mw];
+
+    if (warp == 0) {
+        int base = 0;
+        for (int s0 = 0; s0 < sw_n; s0 += 32) {
+            const int sw = s0 + lid;
+            const int c = sw < sw_n ? __popc(U[sw]) : 0;
+            int incl = c;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int y = __shfl_up_sync(FULL, incl, o);
+                if (lid >= o) incl += y;
+            }
+            if (sw < sw_n) pre[sw] = base + incl - c;
+            base += __shfl_sync(FULL, incl, 31);
+        }
+        if (lid == 0) n_used = base;
+    }
+    __syncthreads();
+
+    for (int sw = tid; sw < sw_n; sw += nt) {
+        uint32_t u = U[sw];
+        for (int r = pre[sw]; u; u &= u - 1u) rows[r++] = sw * 32 + __ffs(u) - 1;
+    }
+    for (int i = tid; i < K * sw_n; i += nt) {
+        // G again, from the L2: its set bits renumbered to their rows' ranks
+        const int sw = i / K, j = i - sw * K, p = pr[j];
+        uint32_t g = p < m_pad ? Cl[(size_t)sw * m_pad + p] : 0u;
+        const uint32_t u = U[sw];
+        for (; g; g &= g - 1u) {
+            const int b = __ffs(g) - 1;
+            const int pos = pre[sw] + __popc(u & ((1u << b) - 1u));
+            atomicOr(&Gc[(pos >> 5) * K + j], 1u << (pos & 31));
+        }
+    }
+    __syncthreads();
+
+    // G.P over the staged rows; the block's warps split as (row group, words)
+    const int nu = n_used, n_tiles = (nu + TILE_ROWS - 1) / TILE_ROWS;
+    const int grp = warp / WPG, w = (warp - grp * WPG) * 32 + lid, j0 = grp * RPG;
+    uint32_t acc[RPG];
+#pragma unroll
+    for (int jj = 0; jj < RPG; ++jj) acc[jj] = 0u;
+    if (n_tiles) stage_rows(XT, Pl, rows, 0, min(TILE_ROWS, nu), mw, chunk);
+    for (int t = 0; t < n_tiles; ++t) {
+        if (t + 1 < n_tiles) {
+            const int r0 = (t + 1) * TILE_ROWS;
+            stage_rows(XT + (size_t)((t + 1) & 1) * TILE_ROWS * mw, Pl, rows, r0,
+                       min(TILE_ROWS, nu - r0), mw, chunk);
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         }
         __syncthreads();
+        const uint32_t* Tt = XT + (size_t)(t & 1) * TILE_ROWS * mw;
+        if (w < mw) {
+#pragma unroll
+            for (int qw = 0; qw < TILE_ROWS / 32; ++qw) {
+                const uint32_t* gw = Gc + (size_t)(t * (TILE_ROWS / 32) + qw) * K + j0;
+#pragma unroll
+                for (int jj = 0; jj < RPG; ++jj)
+                    for (uint32_t g = gw[jj]; g; g &= g - 1u)
+                        acc[jj] ^= Tt[(qw * 32 + __ffs(g) - 1) * mw + w];
+            }
+        }
+        __syncthreads();  // the buffer is restaged two tiles on, or becomes X
     }
 
+    uint32_t* X = XT;
+    if (w < mw) {
+#pragma unroll
+        for (int jj = 0; jj < RPG; ++jj) {
+            const int p = pr[j0 + jj];
+            const uint32_t e = p < m_pad && (p >> 5) == w ? 1u << (p & 31) : 0u;
+            X[(j0 + jj) * mw + w] = acc[jj] ^ e;
+        }
+    }
+    __syncthreads();
     uint32_t* out = Pl + (size_t)scur * mw;
-    for (int i = tid; i < K * mw; i += nt) out[i] = Pn[i];
+    if (w < mw) {
+#pragma unroll
+        for (int jj = 0; jj < RPG; ++jj) {
+            const uint32_t* li = Li + (j0 + jj) * KW;
+            uint32_t r = 0u;
+#pragma unroll
+            for (int q = 0; q < KW; ++q)
+                for (uint32_t bits = li[q]; bits; bits &= bits - 1u)
+                    r ^= X[(q * 32 + __ffs(bits) - 1) * mw + w];
+            out[(size_t)(j0 + jj) * mw + w] = r;
+        }
+    }
 }
 
 static int launch_check(const void* kernel, size_t smem)
@@ -365,12 +501,22 @@ extern "C" int factored_resolve_launch(
     int A, int s_max, int mw, int cw, int m_pad, int blk, void* stream)
 {
     if (A <= 0) return (int)cudaSuccess;
-    const size_t sw_n = (size_t)blk * K / 32;
-    const size_t smem = sizeof(uint32_t) * ((size_t)K * mw + K * sw_n + (size_t)TILE * mw + K * KW);
-    int err = launch_check((const void*)factored_resolve_kernel, smem);
+    // warps a row group must span to cover mw words, as a power of two
+    int wpg = 1;
+    while (wpg * 32 < mw) wpg <<= 1;
+    if (wpg > 8) return (int)cudaErrorInvalidValue;
+    // the widest cp.async a P row's start allows
+    int chunk = 16;
+    while (chunk > 4 && ((mw * 4) % chunk || (uintptr_t)P % chunk)) chunk >>= 1;
+    const size_t scur = (size_t)blk * K, sw_n = scur / 32;
+    const size_t smem = sizeof(uint32_t) * ((size_t)K * mw + K * sw_n + 2 * sw_n + scur);
+    const void* kernel = wpg == 1 ? (const void*)factored_resolve_kernel<8>
+                       : wpg == 2 ? (const void*)factored_resolve_kernel<16>
+                       : wpg == 4 ? (const void*)factored_resolve_kernel<32>
+                                  : (const void*)factored_resolve_kernel<64>;
+    int err = launch_check(kernel, smem);
     if (err) return err;
-    factored_resolve_kernel<<<A, RESOLVE_THREADS, smem, (cudaStream_t)stream>>>(
-        (uint32_t*)P, (const uint32_t*)C, (const int*)lanes, (const int*)prow,
-        s_max, mw, cw, m_pad, blk);
-    return (int)cudaGetLastError();
+    void* args[] = {&P, (void*)&C, (void*)&lanes, (void*)&prow, &s_max, &mw, &cw, &m_pad, &blk, &chunk};
+    return (int)cudaLaunchKernel(kernel, dim3(A), dim3(RESOLVE_THREADS), args, smem,
+                                 (cudaStream_t)stream);
 }

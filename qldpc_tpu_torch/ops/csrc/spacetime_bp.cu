@@ -9,40 +9,64 @@
 // tables and evaluated atanh through its log identity; here every thread
 // gathers from shared memory and calls atanhf.
 //
-// What bounds it on the card: as K1, the check update's transcendental work
-// (tanhf and atanhf on every one of the dc + 2 slots of each of the T*m
-// checks, each iteration, for sum-product) and the block-wide barriers
-// between the phases of an iteration. Device memory is touched only to load
-// a sample's detectors and the priors and to store its posteriors: a block
-// decodes S samples with Q and R on all T*m*(dc + 2) slots, the T*(n + m)
-// posteriors and the hard decisions resident in shared memory (69 KB per
-// sample at [[144,12,12]], T = 12, so one sample a block and three blocks a
-// multiprocessor), and leaves as soon as its samples have converged.
+// What bounds it on the card: latency. Device memory is touched only to
+// load a sample's detectors and the priors and to store its posteriors; Q
+// and R on all T*m*(dc + 2) slots, the T*(n + m) posteriors and the hard
+// decisions stay in shared memory (69 KB a sample at [[144,12,12]], T = 12).
+// A batch's time is that of its slowest samples (at p = 0.008 one in twenty
+// runs all 100 iterations), so what counts is how long one iteration of one
+// sample takes: dependent tanhf -> prefix/suffix -> atanhf chains and the
+// barriers between the phases, which a single block of a few warps cannot
+// hide. So a sample's T rounds are split over a cluster of C blocks on
+// neighbouring multiprocessors, each holding a contiguous range of rounds
+// in its own shared memory with a thread per variable of its rounds. The
+// rounds couple only through the measurement variables: u_t meets check t
+// and check t+1. So each iteration a block sends m floats to each
+// neighbour through distributed shared memory: the R of its first round's
+// u_{t-1} slots to the block before it, and the posterior of its last
+// round's u_t to the block after it, which updates that Q itself. Two
+// cluster barriers an iteration order those exchanges; the convergence test
+// is one OR of per-warp mismatch masks into every block's flag word, read
+// after the next iteration's first barrier (the check phase it overlaps
+// writes only R, which a converged sample never reads again). Where a whole
+// sample is small, C = 1 and a block decodes several samples.
 //
-// Layout per sample: spatial slot t*E + c*dc + j (E = m*dc, the base code's
-// edge e = c*dc + j in round t); temporal slots t*m + c, "a" for u_t and "b"
-// for u_{t-1}, whose round-0 entries are the phantom pinned to BIG. The
-// priors are per variable, shared by the batch, and read through the cache.
-// Per iteration:
-//   1. check phase, one thread per (sample, round, check): R on the dc + 2
-//      slots from Q, the rule of K1;
+// Layout per block and sample, over its Tl rounds: spatial slot
+// tl*E + c*dc + j (E = m*dc, the base code's edge e = c*dc + j in round
+// t0 + tl); temporal slots tl*m + c, "a" for u_t and "b" for u_{t-1}, whose
+// round-0 entries are the phantom pinned to BIG. The priors are per
+// variable, shared by the batch, and read through the cache. Per iteration:
+//   1. check phase, one thread per (sample, round, check): first, in the
+//      first round of a block after the first, Q_b from the posterior of
+//      u_{t-1} the block before sent (the previous iteration's update of
+//      that message, deferred to here); then R on the dc + 2 slots from Q,
+//      the rule of K1;
+//   -- cluster barrier; samples whose detectors the previous iteration
+//      reproduced are frozen, and the loop ends when none is left --
 //   2. variable phase, one thread per (sample, round, variable): the
 //      posterior as a left fold over the base variable's edges in that round
 //      plus the prior, hard decision, Q = posterior - R on its edges; then
 //      one thread per (sample, round, check) for u_t: the posterior
 //      (R_a[t] + R_b[t+1]) + prior (R_b[T] = 0), Q_a[t] and Q_b[t+1];
 //      damping and clip on all three message planes;
+//   -- cluster barrier --
 //   3. syndrome phase, one thread per (sample, round, check): parity of the
 //      base check's hard decisions in round t, u_t and u_{t-1} against the
-//      detector;
-//   4. one thread freezes the samples whose detectors are reproduced.
+//      detector, a warp's mismatches ORed into every block's flag word.
+// Every message takes the same floating-point operations in the same order
+// whatever C is: only where a value lives depends on it.
 // A converged sample keeps the state of the iteration that converged it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 #define MAX_SLOTS 32
 #define MAX_S 16
+#define MAX_CLUSTER 8
+#define MAX_THREADS 512
 #define TANH_CLIP 0.9999999f
 
 // torch.clamp and torch.min propagate NaN, fminf and fmaxf drop it (as K1)
@@ -116,7 +140,13 @@ __device__ __forceinline__ float message_update(
     return qn;
 }
 
-__global__ void st_bp_kernel(
+__device__ __forceinline__ void cluster_barrier(int C)
+{
+    if (C > 1) cg::this_cluster().sync();
+    else __syncthreads();
+}
+
+__global__ void __launch_bounds__(MAX_THREADS) st_bp_kernel(
     const uint8_t* __restrict__ syn,       // (B, T*m) 0/1 detectors
     const float* __restrict__ prior_sp,    // (T*n,)
     const float* __restrict__ prior_u,     // (T*m,)
@@ -128,89 +158,124 @@ __global__ void st_bp_kernel(
     int B, int T, int m, int n, int dc, int dv,
     int method, float alpha, int use_alpha, float offset, int use_offset,
     float damp_new, float damp_old, int use_damping,
-    float clip, int use_clip, int max_iter, int S)
+    float clip, int use_clip, int max_iter, int S, int C)
 {
     extern __shared__ float smem[];
-    const int E = m * dc, TE = T * E, Tm = T * m, Tn = T * n;
+    // this block's rounds [t0, t0 + Tl) of its cluster's S samples
+    const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+    const int t0 = rank * T / C, Tl = (rank + 1) * T / C - t0;
+    const int E = m * dc, TlE = Tl * E, Tlm = Tl * m, Tln = Tl * n;
+    const int Tm = T * m, Tn = T * n;
     const int k = dc + 2;
-    float* Qs = smem;               // (S, TE)
-    float* Qa = Qs + S * TE;        // (S, Tm)
-    float* Qb = Qa + S * Tm;        // (S, Tm), round 0 pinned to BIG
-    float* Rs = Qb + S * Tm;        // (S, TE)
-    float* Ra = Rs + S * TE;        // (S, Tm)
-    float* Rb = Ra + S * Tm;        // (S, Tm)
-    float* Vs = Rb + S * Tm;        // (S, Tn) data posteriors
-    float* Vu = Vs + S * Tn;        // (S, Tm) measurement posteriors
-    uint8_t* hs = reinterpret_cast<uint8_t*>(Vu + S * Tm);  // (S, Tn)
-    uint8_t* hu = hs + S * Tn;      // (S, Tm)
-    uint8_t* ssyn = hu + S * Tm;    // (S, Tm)
+    const bool first = t0 == 0, last = t0 + Tl == T;
+    // the halos first: a neighbour finds them at the same offsets, whatever
+    // its own Tl
+    float* rb_next = smem;             // (S, m) R_b of round t0 + Tl, from the block after
+    float* v_prev = rb_next + S * m;   // (S, m) posterior of u_{t0-1}, from the block before
+    float* Qs = v_prev + S * m;     // (S, Tl*E)
+    float* Qa = Qs + S * TlE;       // (S, Tl*m)
+    float* Qb = Qa + S * Tlm;       // (S, Tl*m), round 0 pinned to BIG
+    float* Rs = Qb + S * Tlm;       // (S, Tl*E)
+    float* Ra = Rs + S * TlE;       // (S, Tl*m)
+    float* Rb = Ra + S * Tlm;       // (S, Tl*m)
+    float* Vs = Rb + S * Tlm;       // (S, Tl*n) data posteriors
+    float* Vu = Vs + S * Tln;       // (S, Tl*m) measurement posteriors
+    uint8_t* hs = reinterpret_cast<uint8_t*>(Vu + S * Tlm);  // (S, Tl*n)
+    uint8_t* hu = hs + S * Tln;     // (S, Tl*m)
+    uint8_t* ssyn = hu + S * Tlm;   // (S, Tl*m)
 
-    __shared__ int active[MAX_S];
-    __shared__ int mismatch[MAX_S];
-    __shared__ int conv_s[MAX_S];
+    // mismatch flags (bit s: sample s missed a detector), by iteration parity
+    __shared__ uint32_t flags[2];
     __shared__ int iters_s[MAX_S];
-    __shared__ int any_active;
 
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
-    const int b0 = blockIdx.x * S;
-
-    for (int i = tid; i < S * Tn; i += nt) {
-        const int r = i % Tn;
-        Vs[i] = prior_sp[r];
+    const int b0 = (blockIdx.x / C) * S;
+    float* rb_next_before = rb_next;  // the block before's rb_next
+    float* v_prev_after = v_prev;     // the block after's v_prev
+    uint32_t* flags_of[MAX_CLUSTER];
+    if (C > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        if (!first) rb_next_before = cluster.map_shared_rank(rb_next, rank - 1);
+        if (!last) v_prev_after = cluster.map_shared_rank(v_prev, rank + 1);
+        for (int c = 0; c < C; ++c) flags_of[c] = cluster.map_shared_rank(flags, c);
+    } else {
+        flags_of[0] = flags;
     }
-    for (int i = tid; i < S * Tm; i += nt) {
-        const int s = i / Tm, r = i - s * Tm, b = b0 + s;
-        const float pu = prior_u[r];
+
+    for (int i = tid; i < S * Tln; i += nt) {
+        const int r = i % Tln;
+        Vs[i] = prior_sp[t0 * n + r];
+    }
+    for (int i = tid; i < S * Tlm; i += nt) {
+        const int s = i / Tlm, r = i - s * Tlm, b = b0 + s;
+        const int g = t0 * m + r;  // the check's row of H_st
+        const float pu = prior_u[g];
         Vu[i] = pu;
         Qa[i] = pu;
-        Qb[i] = r < m ? 1e9f : prior_u[r - m];
-        ssyn[i] = b < B ? syn[(size_t)b * Tm + r] : 0;
+        Qb[i] = g < m ? 1e9f : prior_u[g - m];
+        ssyn[i] = b < B ? syn[(size_t)b * Tm + g] : 0;
     }
-    for (int i = tid; i < S * TE; i += nt) {
-        const int r = i % TE, t = r / E, e = r - t * E;
-        Qs[i] = prior_sp[t * n + check_var[e]];
+    for (int i = tid; i < S * TlE; i += nt) {
+        const int r = i % TlE, tl = r / E, e = r - tl * E;
+        Qs[i] = prior_sp[(t0 + tl) * n + check_var[e]];
     }
-    if (tid < S) {
-        active[tid] = (b0 + tid) < B;
-        conv_s[tid] = 0;
-        iters_s[tid] = max_iter > 0 ? max_iter - 1 : 0;
-    }
-    __syncthreads();
+    if (tid < 2) flags[tid] = 0u;
+    if (tid < S) iters_s[tid] = max_iter > 0 ? max_iter - 1 : 0;
+    uint32_t active = 0u, conv = 0u;
+    for (int s = 0; s < S; ++s)
+        if (b0 + s < B) active |= 1u << s;
+    // every block of the cluster runs, and its flags are zero, before any
+    // block writes into another
+    cluster_barrier(C);
 
-    for (int it = 0; it < max_iter; ++it) {
+    int it = 0;
+    for (; it < max_iter; ++it) {
+        if (tid == 0) flags[it & 1] = 0u;  // last read before the previous barrier
         // ---- 1. check phase ----------------------------------------------
-        for (int i = tid; i < S * Tm; i += nt) {
-            const int s = i / Tm, r = i - s * Tm;
-            if (!active[s]) continue;
+        for (int i = tid; i < S * Tlm; i += nt) {
+            const int s = i / Tlm, r = i - s * Tlm;
+            if (!((active >> s) & 1u)) continue;
+            const int tl = r / m, c = r - tl * m;
+            if (tl == 0 && !first && it > 0)  // the last iteration's Q_b of u_{t0-1}
+                Qb[i] = message_update(v_prev[s * m + c] - Rb[i], Qb[i], damp_new, damp_old,
+                                       use_damping, clip, use_clip);
             float q[MAX_SLOTS], rr[MAX_SLOTS];
-            const float* qs = Qs + (size_t)s * TE + r * dc;
+            const float* qs = Qs + (size_t)s * TlE + r * dc;
             for (int j = 0; j < dc; ++j) q[j] = qs[j];
             q[dc] = Qa[i];
             q[dc + 1] = Qb[i];
             check_rule(q, rr, k, ssyn[i] ? -1.0f : 1.0f, method,
                        alpha, use_alpha, offset, use_offset);
-            float* rs = Rs + (size_t)s * TE + r * dc;
+            float* rs = Rs + (size_t)s * TlE + r * dc;
             for (int j = 0; j < dc; ++j) rs[j] = rr[j];
             Ra[i] = rr[dc];
             Rb[i] = rr[dc + 1];
+            if (tl == 0 && !first) rb_next_before[s * m + c] = rr[dc + 1];
         }
-        if (tid < S) mismatch[tid] = 0;
-        __syncthreads();
+        cluster_barrier(C);
+        if (it > 0) {
+            // samples whose detectors the last iteration reproduced
+            const uint32_t done = active & ~flags[(it - 1) & 1];
+            if (tid < S && ((done >> tid) & 1u)) iters_s[tid] = it - 1;
+            conv |= done;
+            active &= ~done;
+            if (!active) break;
+        }
 
         // ---- 2. variable phase: data variables ---------------------------
-        for (int i = tid; i < S * Tn; i += nt) {
-            const int s = i / Tn, r = i - s * Tn;
-            if (!active[s]) continue;
-            const int t = r / n, v = r - t * n;
+        for (int i = tid; i < S * Tln; i += nt) {
+            const int s = i / Tln, r = i - s * Tln;
+            if (!((active >> s) & 1u)) continue;
+            const int tl = r / n, v = r - tl * n;
             const int* ve = var_edge + v * dv;
-            const float* rs = Rs + (size_t)s * TE + t * E;
+            const float* rs = Rs + (size_t)s * TlE + tl * E;
             float acc = ve[0] < E ? rs[ve[0]] : 0.0f;
             for (int j = 1; j < dv; ++j) acc = acc + (ve[j] < E ? rs[ve[j]] : 0.0f);
-            const float val = acc + prior_sp[r];
+            const float val = acc + prior_sp[t0 * n + r];
             Vs[i] = val;
             hs[i] = val < 0.0f;
-            float* qs = Qs + (size_t)s * TE + t * E;
+            float* qs = Qs + (size_t)s * TlE + tl * E;
             for (int j = 0; j < dv; ++j) {
                 const int e = ve[j];
                 if (e >= E) continue;
@@ -219,66 +284,74 @@ __global__ void st_bp_kernel(
             }
         }
         // ---- 2'. variable phase: measurement variables (a shift) ---------
-        for (int i = tid; i < S * Tm; i += nt) {
-            const int s = i / Tm, r = i - s * Tm;
-            if (!active[s]) continue;
-            const bool last = r >= Tm - m;
+        for (int i = tid; i < S * Tlm; i += nt) {
+            const int s = i / Tlm, r = i - s * Tlm;
+            if (!((active >> s) & 1u)) continue;
+            const int c = r % m;
+            const bool top = r >= Tlm - m;  // this block's last round
+            const bool final_round = top && last;
             const float ra = Ra[i];
-            const float rb_next = last ? 0.0f : Rb[i + m];
-            const float val = (ra + rb_next) + prior_u[r];
+            const float rb = final_round ? 0.0f : top ? rb_next[s * m + c] : Rb[i + m];
+            const float val = (ra + rb) + prior_u[t0 * m + r];
             Vu[i] = val;
             hu[i] = val < 0.0f;
             Qa[i] = message_update(val - ra, Qa[i], damp_new, damp_old,
                                    use_damping, clip, use_clip);
-            if (!last)
-                Qb[i + m] = message_update(val - rb_next, Qb[i + m], damp_new,
+            if (final_round) continue;
+            if (top)
+                v_prev_after[s * m + c] = val;
+            else
+                Qb[i + m] = message_update(val - rb, Qb[i + m], damp_new,
                                            damp_old, use_damping, clip, use_clip);
         }
-        __syncthreads();
+        cluster_barrier(C);
 
         // ---- 3. syndrome phase -------------------------------------------
-        for (int i = tid; i < S * Tm; i += nt) {
-            const int s = i / Tm, r = i - s * Tm;
-            if (!active[s]) continue;
-            const int t = r / m, c = r - t * m;
+        uint32_t miss = 0u;
+        for (int i = tid; i < S * Tlm; i += nt) {
+            const int s = i / Tlm, r = i - s * Tlm;
+            if (!((active >> s) & 1u)) continue;
+            const int tl = r / m, c = r - tl * m;
             const int* cv = check_var + c * dc;
-            const uint8_t* h = hs + (size_t)s * Tn + t * n;
+            const uint8_t* h = hs + (size_t)s * Tln + tl * n;
             int par = hu[i];
-            if (t > 0) par ^= hu[i - m];
+            if (tl > 0) par ^= hu[i - m];
+            else if (!first) par ^= v_prev[s * m + c] < 0.0f;
             for (int j = 0; j < dc; ++j) par ^= h[cv[j]];
-            if (par != ssyn[i]) mismatch[s] = 1;
+            if (par != ssyn[i]) miss |= 1u << s;
         }
-        __syncthreads();
-
-        // ---- 4. freeze ---------------------------------------------------
-        if (tid == 0) {
-            int any = 0;
-            for (int s = 0; s < S; ++s) {
-                if (!active[s]) continue;
-                if (mismatch[s]) {
-                    any = 1;
-                } else {
-                    active[s] = 0;
-                    conv_s[s] = 1;
-                    iters_s[s] = it;
-                }
-            }
-            any_active = any;
-        }
-        __syncthreads();
-        if (!any_active) break;
+        miss = __reduce_or_sync(0xffffffffu, miss);
+        if ((tid & 31) == 0 && miss)
+            for (int c = 0; c < C; ++c) atomicOr(flags_of[c] + (it & 1), miss);
     }
+    if (it == max_iter && max_iter > 0) {
+        cluster_barrier(C);
+        conv |= active & ~flags[(it - 1) & 1];
+    }
+    __syncthreads();
 
     const int N = Tn + Tm;
-    for (int i = tid; i < S * N; i += nt) {
-        const int s = i / N, r = i - s * N, b = b0 + s;
-        if (b >= B) continue;
-        values_out[(size_t)b * N + r] = r < Tn ? Vs[s * Tn + r] : Vu[s * Tm + r - Tn];
+    for (int i = tid; i < S * Tln; i += nt) {
+        const int s = i / Tln, b = b0 + s;
+        if (b < B) values_out[(size_t)b * N + t0 * n + (i - s * Tln)] = Vs[i];
     }
-    if (tid < S && b0 + tid < B) {
-        conv_out[b0 + tid] = (uint8_t)conv_s[tid];
+    for (int i = tid; i < S * Tlm; i += nt) {
+        const int s = i / Tlm, b = b0 + s;
+        if (b < B) values_out[(size_t)b * N + Tn + t0 * m + (i - s * Tlm)] = Vu[i];
+    }
+    if (rank == 0 && tid < S && b0 + tid < B) {
+        conv_out[b0 + tid] = (uint8_t)((conv >> tid) & 1u);
         iters_out[b0 + tid] = iters_s[tid];
     }
+}
+
+// S samples a cluster of C blocks (C > 1 only with S = 1), Tl_max rounds a
+// block at most
+static size_t smem_bytes(int S, int Tl, int m, int n, int dc)
+{
+    const size_t Tlm = (size_t)Tl * m, Tln = (size_t)Tl * n, TlE = Tlm * dc;
+    return (size_t)S * (2 * TlE + 5 * Tlm + Tln + 2 * (size_t)m) * sizeof(float)
+           + (size_t)S * (Tln + 2 * Tlm);
 }
 
 extern "C" int st_bp_launch(
@@ -289,27 +362,39 @@ extern "C" int st_bp_launch(
     float alpha, int use_alpha, float offset, int use_offset,
     float damp_new, float damp_old, int use_damping,
     float clip, int use_clip, int max_iter,
-    int samples_per_block, int threads, void* stream)
+    int samples_per_cluster, int cluster, int threads, void* stream)
 {
-    if (dc + 2 > MAX_SLOTS || samples_per_block > MAX_S || samples_per_block < 1)
+    const int S = samples_per_cluster, C = cluster;
+    if (dc + 2 > MAX_SLOTS || S > MAX_S || S < 1 || C < 1 || C > MAX_CLUSTER || C > T
+        || (C > 1 && S > 1) || threads < 32 || threads > MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
-    const int S = samples_per_block;
-    const size_t Tm = (size_t)T * m, Tn = (size_t)T * n, TE = Tm * dc;
-    const size_t smem = (size_t)S * (2 * TE + 5 * Tm + Tn) * sizeof(float)
-                        + (size_t)S * (Tn + 2 * Tm);
+    const size_t smem = smem_bytes(S, (T + C - 1) / C, m, n, dc);
     // opt in for every size: the static shared memory counts against the
     // same 48 KB default as the dynamic part
     cudaError_t err = cudaFuncSetAttribute(
         st_bp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (B + S - 1) / S;
-    if (blocks > 0) {
-        st_bp_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-            (const uint8_t*)syn, (const float*)prior_sp, (const float*)prior_u,
-            (const int*)check_var, (const int*)var_edge,
-            (float*)values_out, (uint8_t*)conv_out, (int*)iters_out,
-            B, T, m, n, dc, dv, method, alpha, use_alpha, offset, use_offset,
-            damp_new, damp_old, use_damping, clip, use_clip, max_iter, S);
-    }
+    const int groups = (B + S - 1) / S;
+    if (groups == 0) return (int)cudaSuccess;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(groups * C);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &config, st_bp_kernel,
+        (const uint8_t*)syn, (const float*)prior_sp, (const float*)prior_u,
+        (const int*)check_var, (const int*)var_edge,
+        (float*)values_out, (uint8_t*)conv_out, (int*)iters_out,
+        B, T, m, n, dc, dv, method, alpha, use_alpha, offset, use_offset,
+        damp_new, damp_old, use_damping, clip, use_clip, max_iter, S, C);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -26,7 +26,9 @@ block, for the samples still running:
        where none) (:183 ``_elim_kernel``);
   K5d  ``factored_resolve_*``: the block's new pivot rows
        P_new = e_p ^ G . P ^ D . P_new, the last term over the strict lower
-       triangle in pivot order (:308 ``_resolve_kernel``).
+       triangle in pivot order (:308 ``_resolve_kernel``); the kernel
+       computes it as L^-1 (E ^ G . P) with L = I ^ tril(D, -1), which GF(2)
+       makes the same bits.
 
 All products are over GF(2). A sample stops at a block boundary once no
 unresolved syndrome bit is left or its rank reaches rank(H) (the JAX

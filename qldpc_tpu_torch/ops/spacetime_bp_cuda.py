@@ -35,16 +35,21 @@ from qldpc_tpu_torch.ops.bp_cuda import BPTables, check_rule
 if TYPE_CHECKING:
     from qldpc_tpu_torch.decoders.bp import BPConfig
 
-__all__ = ["BIG", "st_bp", "st_bp_plain", "st_bp_cuda", "smem_per_sample"]
+__all__ = ["BIG", "st_bp", "st_bp_plain", "st_bp_cuda", "smem_per_sample", "launch_shape"]
 
 BIG = 1e9  # the phantom u_{t-1} slot of round 0
-_THREADS = 256
 # dynamic shared memory one block may opt in to on sm_90 (227 KB), less the
-# kernel's static per-sample flags
+# kernel's static flags
 _SMEM_LIMIT = 227 * 1024 - 512
-# three blocks of one sample each share an SM at [[144,12,12]], T = 12
+# a sample up to this size keeps one block (C = 1), with as many samples as
+# fit _SMEM_BUDGET; a larger one spreads over a cluster of about
+# _ROUNDS_PER_BLOCK rounds a block
+_SMALL_SAMPLE = 24 * 1024
 _SMEM_BUDGET = 72 * 1024
+_ROUNDS_PER_BLOCK = 3
+_MAX_CLUSTER = 8  # the portable cluster size
 _MAX_SAMPLES_PER_BLOCK = 16
+_MAX_THREADS = 512
 _MAX_DC = 30  # dc + 2 slots per check
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -55,7 +60,7 @@ _LIB = KernelLibrary(
             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
             _i, _i, _i, _i, _i, _i, _i,
             _f, _i, _f, _i, _f, _f, _i, _f, _i, _i,
-            _i, _i, _vp,
+            _i, _i, _i, _vp,
         ]
     },
 )
@@ -154,14 +159,44 @@ def smem_per_sample(tables: BPTables, n_rounds: int) -> int:
     return 4 * (2 * T * m * dc + 5 * T * m + T * n) + T * n + 2 * T * m
 
 
-def _samples_per_block(tables: BPTables, n_rounds: int) -> int:
-    per_sample = smem_per_sample(tables, n_rounds)
-    return max(1, min(_MAX_SAMPLES_PER_BLOCK, _SMEM_BUDGET // per_sample))
+def _smem_per_block(tables: BPTables, rounds: int, samples: int) -> int:
+    """Shared memory of one block holding ``rounds`` rounds of ``samples``
+    samples, with the two halos of m floats a sample."""
+    return samples * (smem_per_sample(tables, rounds) + 8 * tables.m)
+
+
+def launch_shape(tables: BPTables, n_rounds: int, cluster: int | None = None,
+                 threads: int | None = None) -> tuple[int, int, int]:
+    """K6's geometry: ``(samples a cluster, cluster width C, threads a
+    block)``. C comes from T and a sample's state: 1 for a sample of at most
+    24 KB (several samples a block), else about three rounds a block, at
+    most 8 blocks and T; ``cluster`` overrides C (clamped to T) and
+    ``threads`` the thread count, which is otherwise a thread per data
+    variable of a block's rounds, at most 512."""
+    T = n_rounds
+    per = smem_per_sample(tables, T)
+    if cluster is None:
+        cluster = 1 if per <= _SMALL_SAMPLE else -(-T // _ROUNDS_PER_BLOCK)
+    C = max(1, min(cluster, T, _MAX_CLUSTER))
+    S = 1 if C > 1 else max(1, min(_MAX_SAMPLES_PER_BLOCK, _SMEM_BUDGET // per))
+    rounds = -(-T // C)
+    if threads is None:
+        threads = min(_MAX_THREADS, max(64, 32 * -(-S * rounds * tables.n // 32)))
+    smem = _smem_per_block(tables, rounds, S)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"a block's state takes {smem} bytes of shared memory at cluster width {C}, "
+            f"over the {_SMEM_LIMIT} one block can hold"
+        )
+    return S, C, threads
 
 
 def st_bp_cuda(detectors: torch.Tensor, priors: torch.Tensor, tables: BPTables,
-               n_rounds: int, cfg: BPConfig, alpha: float | None = None):
-    """Launch K6. Same contract as ``st_bp_plain``; float32 only."""
+               n_rounds: int, cfg: BPConfig, alpha: float | None = None, *,
+               _cluster: int | None = None, _threads: int | None = None):
+    """Launch K6. Same contract as ``st_bp_plain``; float32 only.
+    ``_cluster`` and ``_threads`` override ``launch_shape``'s choice (for
+    the tests and probes)."""
     dev = detectors.device
     if dev.type != "cuda":
         raise ValueError("st_bp_cuda needs CUDA tensors")
@@ -171,11 +206,7 @@ def st_bp_cuda(detectors: torch.Tensor, priors: torch.Tensor, tables: BPTables,
     T, m, n = n_rounds, tables.m, tables.n
     if tables.dc > _MAX_DC:
         raise ValueError(f"check degree {tables.dc} exceeds the kernel's {_MAX_DC}")
-    if smem_per_sample(tables, T) > _SMEM_LIMIT:
-        raise ValueError(
-            f"one sample's state takes {smem_per_sample(tables, T)} bytes of shared "
-            f"memory, over the {_SMEM_LIMIT} one block can hold"
-        )
+    S, C, threads = launch_shape(tables, T, _cluster, _threads)
     B = detectors.shape[0]
     if detectors.shape != (B, T * m):
         raise ValueError(f"detectors must be (B, {T * m}), got {tuple(detectors.shape)}")
@@ -206,7 +237,7 @@ def st_bp_cuda(detectors: torch.Tensor, priors: torch.Tensor, tables: BPTables,
         float(cfg.offset), int(bool(cfg.offset)),
         float(cfg.damping), float(1.0 - cfg.damping), int(cfg.damping != 1.0),
         float(cfg.clip_llr or 0.0), int(cfg.clip_llr is not None),
-        cfg.max_iter, _samples_per_block(tables, T), _THREADS,
+        cfg.max_iter, S, C, threads,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     st_bp_cuda.launches += 1

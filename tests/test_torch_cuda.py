@@ -8,7 +8,11 @@ lane in 1024, with posteriors within rtol = atol = 1e-5 on the other lanes;
 K3, K6 and K7 under min-sum, K2, K4 and K5a-d are bit-identical; K6 and K7
 under sum-product are held to K1's rule (at least 1 lane allowed); K1, K3,
 K6 and K7 propagate a NaN message as the plain versions do. K3's summary
-path (the one-pass check rule) equals its message path bit for bit.
+path (the one-pass check rule) equals its message path bit for bit. K5d is
+also held on synthetic edge blocks (block 0, no pivot, dense G) at four row
+widths; K6 at cluster widths 1 and above, rounds that do not divide evenly
+and a width above T, where every width gives the default width's bits.
+``test_k6_geometry_follows_the_state_size`` needs no card.
 """
 
 import math
@@ -33,7 +37,7 @@ from qldpc_tpu_torch.noise.spacetime import space_time_matrix, space_time_prior_
 from qldpc_tpu_torch.ops import osd_cuda, osd_transform_cuda
 from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
 from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered_cuda, bp_layered_plain
-from qldpc_tpu_torch.ops.spacetime_bp_cuda import st_bp_cuda, st_bp_plain
+from qldpc_tpu_torch.ops.spacetime_bp_cuda import launch_shape, st_bp_cuda, st_bp_plain
 from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain, summary_path
 from qldpc_tpu_torch.ops.osd_cuda import (
     eliminate_rows_cuda,
@@ -410,6 +414,43 @@ def test_each_k5_kernel_matches_plain_at_every_block(cuda, monkeypatch):
     assert all(c >= 1 for c in calls.values())
 
 
+def _resolve_state(mw: int, blk: int, case: str, seed: int, B: int = 48):
+    """A K5d input in the port's layout: random P rows, C words with bits
+    above D's diagonal, distinct pivot rows (a fifth without a pivot, or
+    all of them for "no-pivot"), on 32 of B samples. "sparse" sets about
+    0.6% of C's bits (the [[144]] DEM sets under 1%); "dense" half of them,
+    so that G references every P row and the staging runs several tiles."""
+    rng = np.random.default_rng(seed)
+    K, m_pad = ofc.BLOCK_COLS, 32 * mw
+    s_max = (blk + 2) * K
+    u32 = lambda *shape: rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+    P = u32(B, s_max, mw)
+    C = u32(B, s_max // 32, m_pad)
+    if case != "dense":
+        C = np.where(rng.random(C.shape) < 0.05, C & u32(*C.shape) & u32(*C.shape), 0).astype(np.uint32)
+    prow = np.stack([rng.permutation(m_pad)[:K] for _ in range(32)]).astype(np.int32)
+    prow[rng.random(prow.shape) < 0.2] = m_pad
+    if case == "no-pivot":
+        prow[:] = m_pad
+    lanes = np.sort(rng.choice(B, 32, replace=False)).astype(np.int32)
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+    return to(P), to(C), to(lanes), to(prow)
+
+
+@pytest.mark.parametrize("mw", [5, 54, 100, 162])  # 4-, 8- and 16-byte copies; 8-64 rows a thread
+@pytest.mark.parametrize("blk,case", [(0, "sparse"), (3, "sparse"), (2, "no-pivot"), (4, "dense")])
+def test_k5d_matches_plain_on_edge_blocks(cuda, mw, blk, case):
+    """Block 0 (no G.P), a block where no column has a pivot, D with bits
+    above its diagonal (masked as the JAX kernel masks them), and a dense G
+    whose referenced P rows span several staged tiles."""
+    P, C, lanes, prow = (t.to(cuda) for t in _resolve_state(mw, blk, case, seed=30 + blk + mw))
+    got, ref = P.clone(), P.clone()
+    ofc.factored_resolve_cuda(got, C, lanes, prow, blk)
+    ofc.factored_resolve_plain(ref, C, lanes, prow, blk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
 def test_factored_osd_solutions_match_transform(cuda):
     dem, syn_np, prior_np = _dem_inputs("[[72, 12, 6]]", 512, seed=12)
     bp = BPDecoder(dem.H, BPConfig(max_iter=10)).to(cuda)
@@ -472,6 +513,87 @@ def test_k6_matches_plain(cuda, code_name, T, case):
     ref = st_bp_plain(det, priors, dec.tables(), T, cfg)
     torch.cuda.synchronize()
     _hold_bp(got, ref, cfg.method, B)
+    Hst = torch.from_numpy(space_time_matrix(H, T).astype(np.float32)).to(cuda)
+    kc, kh = got[1], got[3]
+    assert bool(((kh.float() @ Hst.T) % 2 == det.float())[kc].all())
+
+
+# (code, T, cluster width): C = 1 and C > 1, T not divisible by C, T < C
+K6_CLUSTERS = [("[[144, 12, 12]]", 12, 1), ("[[144, 12, 12]]", 12, 4),
+               ("[[144, 12, 12]]", 12, 5), ("[[72, 12, 6]]", 6, 4), ("steane", 3, 2),
+               ("steane", 3, 4)]
+
+
+@pytest.mark.parametrize("code_name,T,C", K6_CLUSTERS)
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_k6_cluster_widths_match_plain(cuda, code_name, T, C, method):
+    """Every cluster width gives the bits of the default width (the same
+    operations in the same order) and holds to the plain version."""
+    cfg = BPConfig(max_iter=40, method=method)
+    H = get_code(code_name).Hx
+    B, p = 256, 0.01
+    dec = SpaceTimeBPDecoder(H, T, cfg).to(cuda)
+    det = torch.from_numpy(_st_detectors(H, T, p, B, seed=21)).to(cuda)
+    priors = space_time_prior_llr(H.shape[1], H.shape[0], T, p, device=cuda)
+    got = st_bp_cuda(det, priors, dec.tables(), T, cfg, _cluster=C)
+    default = st_bp_cuda(det, priors, dec.tables(), T, cfg)
+    ref = st_bp_plain(det, priors, dec.tables(), T, cfg)
+    torch.cuda.synchronize()
+    _assert_same(got, default)
+    _hold_bp(got, ref, method, B)
+
+
+def test_k6_geometry_follows_the_state_size():
+    """C from T and a sample's state: [[144]] T = 12 over 4 blocks of three
+    rounds, [[288]] T = 18 over 6, small samples several to a block."""
+    def shape(code_name, T, **kw):
+        dec = SpaceTimeBPDecoder(get_code(code_name).Hx, T, BPConfig(max_iter=10))
+        return launch_shape(dec.tables(), T, **kw)
+
+    assert shape("[[144, 12, 12]]", 12) == (1, 4, 448)
+    assert shape("[[288, 12, 18]]", 18) == (1, 6, 512)
+    assert shape("steane", 3)[:2] == (16, 1)
+    assert shape("[[72, 12, 6]]", 6)[:2] == (4, 1)
+    assert shape("steane", 3, cluster=4)[:2] == (1, 3)  # clamped to T
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+@pytest.mark.parametrize("C", [None, 1])
+def test_k6_mixed_batch_of_early_and_late_samples(cuda, method, C):
+    """Samples that converge at once (no errors), early (light errors) and
+    samples that run all iterations (heavy errors), shuffled, in a batch
+    that is no multiple of the samples a block."""
+    cfg = BPConfig(max_iter=30, method=method)
+    H, T = get_code("[[144, 12, 12]]").Hx, 12
+    rng = np.random.default_rng(22)
+    B = 301
+    ps = rng.choice([0.0, 0.003, 0.06], size=B, p=[0.3, 0.5, 0.2])
+    det = np.concatenate([_st_detectors(H, T, p, 1, seed=100 + i) for i, p in enumerate(ps)])
+    det = torch.from_numpy(det).to(cuda)
+    priors = space_time_prior_llr(H.shape[1], H.shape[0], T, 0.005, device=cuda)
+    dec = SpaceTimeBPDecoder(H, T, cfg).to(cuda)
+    got = st_bp_cuda(det, priors, dec.tables(), T, cfg, _cluster=C)
+    ref = st_bp_plain(det, priors, dec.tables(), T, cfg)
+    torch.cuda.synchronize()
+    _hold_bp(got, ref, method, B)
+    iters = got[2].cpu().numpy()
+    assert (iters == 0).sum() > 10 and (iters == cfg.max_iter - 1).sum() > 10
+    assert int((~got[1]).sum()) > 10
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_k6_matches_plain_at_the_288_shape(cuda, method):
+    """[[288,12,18]] at T = 18: 207 KB of state a sample, over six blocks."""
+    cfg = BPConfig(max_iter=40, method=method)
+    H, T, B, p = get_code("[[288, 12, 18]]").Hx, 18, 64, 0.006
+    dec = SpaceTimeBPDecoder(H, T, cfg).to(cuda)
+    assert launch_shape(dec.tables(), T)[1] == 6
+    det = torch.from_numpy(_st_detectors(H, T, p, B, seed=23)).to(cuda)
+    priors = space_time_prior_llr(H.shape[1], H.shape[0], T, p, device=cuda)
+    got = st_bp_cuda(det, priors, dec.tables(), T, cfg)
+    ref = st_bp_plain(det, priors, dec.tables(), T, cfg)
+    torch.cuda.synchronize()
+    _hold_bp(got, ref, method, B)
     Hst = torch.from_numpy(space_time_matrix(H, T).astype(np.float32)).to(cuda)
     kc, kh = got[1], got[3]
     assert bool(((kh.float() @ Hst.T) % 2 == det.float())[kc].all())

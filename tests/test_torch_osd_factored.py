@@ -236,10 +236,13 @@ def test_w_plain_matches_pallas(slab):
     assert np.array_equal(got.numpy().view(np.uint32), ref)
 
 
-def test_panel_elim_and_resolve_plain_match_pallas(slab):
+@pytest.fixture(scope="module")
+def panel(slab):
+    """K5c on the slab in both packages: the JAX Pallas program and the
+    port's plain version, on the same W, b and pivoted flags."""
     s = slab
-    rng, B, m, m_pad, mw, blk, scur = (s[k] for k in ("rng", "B", "m", "m_pad", "mw", "blk", "scur"))
-    elim_prog, res_prog = s["progs"][2:]
+    rng, B, m, m_pad, mw, blk = (s[k] for k in ("rng", "B", "m", "m_pad", "mw", "blk"))
+    elim_prog = s["progs"][2]
     W = rng.integers(0, 2**32, size=(B, m_pad, K // WORD), dtype=np.uint64).astype(np.uint32)
     W[:, m:] = 0
     bits = lambda p: (rng.random((B, m_pad)) < p) & (np.arange(m_pad) < m)
@@ -248,13 +251,43 @@ def test_panel_elim_and_resolve_plain_match_pallas(slab):
     mj = s["elim"].m_pad
     W_j = np.zeros((mj, K // WORD, B), np.uint32)
     W_j[:m_pad] = W.transpose(1, 2, 0)
-    b_j, piv_j, cnew_j, prow_j = map(np.asarray, elim_prog(
-        jnp.asarray(s["ids"].T), W_j, _jax_rows(b0, mj).T, _jax_rows(piv0, mj).T))
+    jax_out = tuple(map(np.asarray, elim_prog(
+        jnp.asarray(s["ids"].T), W_j, _jax_rows(b0, mj).T, _jax_rows(piv0, mj).T)))
 
     lanes = _lanes(s)
     ln = lanes.numpy()
     b_t, piv_t, C_t = _t(b0.copy()), _t(piv0.copy()), _t(s["C"].copy())
     prow = ofc.factored_panel_elim_plain(_t(W[ln]), b_t, piv_t, C_t, lanes, _t(s["ids"][ln]), s["n"], blk)
+    return dict(jax=jax_out, lanes=lanes, prow=prow, b=b_t, piv=piv_t, C=C_t)
+
+
+def _jax_resolve(s, C, lanes, prow, blk):
+    """The JAX ``_resolve_kernel`` (interpret mode) on the slab's P and the
+    port's C: G and D are the pivots' rows of C, masked where a column has
+    no pivot, as the JAX slab loop gathers them. Returns the new P rows of
+    ``lanes`` in the port's layout, (A, K, mw) uint32."""
+    mj, m_pad, B = s["elim"].m_pad, s["m_pad"], s["B"]
+    ln = lanes.numpy()
+    C_j = np.zeros((mj, s["elim"].cw, B), np.uint32)
+    C_j[:m_pad] = C.numpy().view(np.uint32).transpose(2, 1, 0)
+    prow_all = np.full((K, B), mj, np.int32)
+    prow_all[:, ln] = np.where(prow.numpy() == m_pad, mj, prow.numpy()).T
+    valid = prow_all < mj
+    pcl = np.minimum(prow_all, mj - 1)[:, None, :]
+    G = np.where(valid[:, None, :], np.take_along_axis(C_j, pcl, axis=0), 0)
+    D = np.where(valid[:, None, :], np.take_along_axis(C_j[:, blk * 4: blk * 4 + 4], pcl, axis=0), 0)
+    P_j = _jax_rows(s["P"], mj).transpose(1, 2, 0)
+    Pnew_j = np.asarray(s["progs"][3](jnp.array([blk * K], jnp.int32), P_j, G, D, prow_all))
+    return Pnew_j[:, : s["mw"]].transpose(2, 0, 1)[ln]
+
+
+def test_panel_elim_and_resolve_plain_match_pallas(slab, panel):
+    s, pn = slab, panel
+    B, m_pad, mw, blk, scur = (s[k] for k in ("B", "m_pad", "mw", "blk", "scur"))
+    b_j, piv_j, cnew_j, prow_j = pn["jax"]
+    lanes, prow, b_t, piv_t, C_t = (pn[k] for k in ("lanes", "prow", "b", "piv", "C"))
+    ln = lanes.numpy()
+    mj = s["elim"].m_pad
     # JAX marks "no pivot" with its own m_pad
     assert np.array_equal(np.where(prow.numpy() == m_pad, mj, prow.numpy()), prow_j.T[ln])
     assert np.array_equal(b_t.numpy().view(np.uint32)[ln], b_j.T[ln, :mw])
@@ -265,25 +298,77 @@ def test_panel_elim_and_resolve_plain_match_pallas(slab):
     others[ln] = False
     assert np.array_equal(C_t.numpy().view(np.uint32)[others], s["C"][others])
 
-    # K5d on that state: G and D are the pivots' rows of C, masked where
-    # a column has no pivot, as the JAX slab loop gathers them
-    C_full = C_t.numpy().view(np.uint32)
-    C_j = np.zeros((mj, s["elim"].cw, B), np.uint32)
-    C_j[:m_pad] = C_full.transpose(2, 1, 0)
-    prow_all = np.full((K, B), mj, np.int32)
-    prow_all[:, ln] = np.where(prow.numpy() == m_pad, mj, prow.numpy()).T
-    valid = prow_all < mj
-    pcl = np.minimum(prow_all, mj - 1)[:, None, :]
-    G = np.where(valid[:, None, :], np.take_along_axis(C_j, pcl, axis=0), 0)
-    D = np.where(valid[:, None, :], np.take_along_axis(C_j[:, blk * 4: blk * 4 + 4], pcl, axis=0), 0)
-    P_j = _jax_rows(s["P"], mj).transpose(1, 2, 0)
-    Pnew_j = np.asarray(res_prog(jnp.array([scur], jnp.int32), P_j, G, D, prow_all))
+    # K5d on that state
     P_t = _t(s["P"].copy())
     ofc.factored_resolve_plain(P_t, C_t, lanes, prow, blk)
     P_out = P_t.numpy().view(np.uint32)
-    assert np.array_equal(P_out[ln, scur: scur + K], Pnew_j[:, :mw].transpose(2, 0, 1)[ln])
+    assert np.array_equal(P_out[ln, scur: scur + K], _jax_resolve(s, C_t, lanes, prow, blk))
     assert np.array_equal(P_out[ln, :scur], s["P"][ln, :scur])
     assert np.array_equal(P_out[others], s["P"][others])
+
+
+# ------------------------------------------------- K5d's triangle-free form
+def _resolve_decomposed(P, C, lanes, prow, blk: int) -> None:
+    """K5d as its kernel computes it, in plain torch: with N the strictly
+    lower part of the block's D (rows without a pivot zero) and L = I ^ N,
+    L^-1 by forward substitution in pivot order (row j2 is final once the
+    rows before it are applied, and goes to every later row j with
+    N[j, j2], as the kernel's warp broadcasts it), then
+    ``P_new = L^-1 (E ^ G.P)`` into ``P[lanes, blk * K: (blk + 1) * K]``."""
+    lanes_l = lanes.long()
+    A, m_pad, scur = prow.shape[0], C.shape[2], blk * K
+    valid = prow < m_pad
+    pcl = prow.long().clamp(max=m_pad - 1)
+    Cl = C[lanes_l]
+    rows = torch.gather(Cl, 2, pcl[:, None, :].expand(-1, Cl.shape[1], -1)) * valid[:, None, :]
+    N = torch.tril(ofc._unpack(rows[:, blk * 4: (blk + 1) * 4].transpose(1, 2)), diagonal=-1)
+    Linv = torch.eye(K, dtype=torch.int32).repeat(A, 1, 1)
+    for j2 in range(K):
+        Linv ^= N[:, :, j2, None] * Linv[:, j2, None, :]
+    X = torch.zeros((A, K, m_pad), dtype=torch.int32)
+    if scur:
+        G = ofc._unpack(rows[:, : scur // WORD].transpose(1, 2))
+        X = ofc._gf2_mm(G, ofc._unpack(P[lanes_l, :scur]))
+    X.scatter_(2, pcl[:, :, None], X.gather(2, pcl[:, :, None]) ^ valid[:, :, None].to(torch.int32))
+    P[lanes_l, scur: scur + K] = ofc._pack(ofc._gf2_mm(Linv, X))
+
+
+@pytest.mark.parametrize("case", ["panel", "first-block", "no-pivot", "upper-bits"])
+def test_resolve_decomposition_matches_plain_and_pallas(slab, panel, case):
+    """L^-1 (E ^ G.P) bit for bit against ``factored_resolve_plain`` and the
+    JAX kernel: on K5c's own output, at block 0 (no G.P), at a block where
+    no column has a pivot, and with dense C words, whose bits above D's
+    diagonal must be masked as the JAX kernel masks them."""
+    s = slab
+    rng, m_pad = np.random.default_rng(41), s["m_pad"]
+    lanes, C, blk = panel["lanes"], panel["C"], s["blk"]
+    prow = panel["prow"]
+    if case != "panel":
+        # distinct pivot rows on 30 of the block's columns, as many as the
+        # system's 40 rows allow
+        prow = np.full((lanes.shape[0], K), m_pad, np.int32)
+        for row in prow:
+            row[rng.choice(K, 30, replace=False)] = rng.permutation(s["m"])[:30]
+        C = s["C"].copy()
+        if case == "first-block":
+            blk = 0
+        if case == "no-pivot":
+            prow[:] = m_pad
+        if case == "upper-bits":
+            C[:, blk * 4: blk * 4 + 4, : s["m"]] = rng.integers(
+                0, 2**32, size=(s["B"], 4, s["m"]), dtype=np.uint64).astype(np.uint32)
+        prow, C = torch.from_numpy(prow), _t(C)
+    scur = blk * K
+    if case == "upper-bits":
+        D = ofc._unpack(C[lanes.long()][:, blk * 4: blk * 4 + 4].transpose(1, 2))
+        assert int(torch.triu(D).sum()) > 0
+    got, ref = _t(s["P"].copy()), _t(s["P"].copy())
+    _resolve_decomposed(got, C, lanes, prow, blk)
+    ofc.factored_resolve_plain(ref, C, lanes, prow, blk)
+    assert torch.equal(got, ref)
+    new = got.numpy().view(np.uint32)[lanes.numpy(), scur: scur + K]
+    assert np.array_equal(new, _jax_resolve(s, C, lanes, prow, blk))
+    assert bool(new.any()) == (case != "no-pivot")
 
 
 def test_elimination_choice_follows_the_shape(case, monkeypatch):
