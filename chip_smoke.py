@@ -33,8 +33,9 @@ Phases (any failure raises and the script exits non-zero):
   11. K3 as in phase 7, B = 1024, sum-product, p = 0.002;
   12. K5a-d against their plain versions on the BP failures of phase 11:
       the whole elimination on 128 of them, and each kernel at every block
-      of one OSD call on all of them; the factored OSD-0 solutions against
-      the plain transform elimination's on 32;
+      of one OSD call on all of them (K5a's and K5c's running samples,
+      columns before the block and µs logged per block); the factored OSD-0
+      solutions against the plain transform elimination's on 32;
   13. the DEM engine's sweep at p = 0.001 and 0.002 (launches K3 and K5a-d,
       never K4), held against docs/circuit_ler.md, and its counters held
       against the CPU DEM engine on 32 trials;
@@ -59,10 +60,13 @@ Phases (any failure raises and the script exits non-zero):
       against the JAX layered engine's and its counters against the CPU
       engine on a small input.
 Before the last it prints the card's name and power limit and the kernels'
-JSON record (each kernel's launches on its path, its time and its plain
-version's, and its bound: the larger of the bytes it must move over 3.35
-TB/s and the operations it must do over 67 T/s, the card's non-tensor
-32-bit peak, which also bounds its integer issue rate); the last line is
+JSON record (each kernel's launches on its path; its time between CUDA
+events around its calls, ``ms``, which holds the host's launch work where a
+call is short, and on the device alone, ``device_ms``, the events queued
+behind a spin kernel; its plain version's time; and its bound: the larger
+of the bytes it must move over 3.35 TB/s and the operations it must do
+over 67 T/s, the card's non-tensor 32-bit peak, which also bounds its
+integer issue rate); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
 """
@@ -163,6 +167,32 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SPIN_CYCLES = 4_000_000  # about 2 ms of the card's clock: longer than a launch's host work
+
+
+def launch_ms(fn) -> tuple[float, object]:
+    """Device ms of the launches ``fn()`` makes, and its result: CUDA events
+    around it, with the card held busy by a spin kernel until the host has
+    queued them, so that the host's launch work falls inside the spin and
+    not between the events (after a synchronize, one small launch spends
+    longer on the host than on the card)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), out
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of one ``fn()`` over ``reps`` calls after one warm-up,
+    each call timed by ``launch_ms``."""
+    fn()
+    return sum(launch_ms(fn)[0] for _ in range(reps)) / reps
 
 
 def nbytes(*tensors) -> int:
@@ -325,12 +355,14 @@ def phase_k2(H: np.ndarray, dev, failures: dict) -> dict:
     if not same:
         raise AssertionError("K2 disagrees with its plain version")
     ms = cuda_ms(lambda: eliminate_rows_cuda(A, resid, n, osd.h_rank), reps=5)
+    dev_ms = device_ms(lambda: eliminate_rows_cuda(A, resid, n, osd.h_rank), reps=5)
     plain_ms = cuda_ms(lambda: eliminate_rows_plain(A, resid, n, osd.h_rank), reps=1)
-    log(f"K2 time {ms:.4f} ms, plain {plain_ms:.4f} ms ({lanes} lanes)")
+    log(f"K2 time {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms "
+        f"({lanes} lanes)")
     # reads A and b, writes A, b and piv; each pivot touches every word of
     # every row once
     pivots = int((kp >= 0).sum())
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0,
                 **bound(2 * nbytes(A, resid) + nbytes(kp), pivots * A.shape[1] * A.shape[2]))
 
 
@@ -417,14 +449,16 @@ def phase_throughput(H: np.ndarray, dev, card_line: str) -> dict:
         syn = torch.from_numpy(syn_np).to(dev)
         args = (syn, prior, dec.tables(), cfg)
         ms = cuda_ms(lambda: bp_flooding_cuda(*args), reps=5)
+        dev_ms = device_ms(lambda: bp_flooding_cuda(*args), reps=5)
         plain_ms = cuda_ms(lambda: bp_flooding_plain(*args), reps=2)
         iters = bp_flooding_cuda(*args)[2]
         b = bp_bound(syn, prior, dec.tables(), iters, int(H.sum()))
-        log(f"BP(50) {CODE} p={p} B={B}: K1 {ms:.3f} ms = {B / ms * 1e3:.0f} syndromes/s; "
-            f"plain torch {plain_ms:.3f} ms = {B / plain_ms * 1e3:.0f} syndromes/s; bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) on {card_line}")
+        log(f"BP(50) {CODE} p={p} B={B}: K1 {ms:.3f} ms = {B / ms * 1e3:.0f} syndromes/s "
+            f"({dev_ms:.3f} ms on the device); plain torch {plain_ms:.3f} ms = "
+            f"{B / plain_ms * 1e3:.0f} syndromes/s; bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}) on {card_line}")
         if rec is None:
-            rec = dict(ms=ms, plain_ms=plain_ms, **b)
+            rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **b)
     return rec
 
 
@@ -525,7 +559,7 @@ def k3_paths(name: str, args, cfg, tables, B: int) -> dict:
     log(f"K3 {name}: bytes streamed per iteration {words / 1e9:.3f} GB (summary path) "
         f"against {message / 1e9:.3f} GB (message path); L2 gathers {E * B * 9 / 1e9:.3f} "
         f"and {E * B / 1e9:.3f} GB")
-    return dict(ms=ms[0], message_ms=ms[1])
+    return dict(ms=ms[0], message_ms=ms[1], device_ms=device_ms(summ, reps=2))
 
 
 def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum")):
@@ -572,12 +606,12 @@ def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum"))
                 fail = ~kc
                 failures = dict(syn=syn[fail], llrs=kv[fail], hard=kh[fail])
             if method == "sum-product" and rec is None:
-                rec = dict(ms=paths["ms"],
+                rec = dict(ms=paths["ms"], device_ms=paths["device_ms"],
                            plain_ms=cuda_ms(lambda: dem_bp_plain(*args), reps=1),
                            **bp_bound(syn, llr, tables, ki, int(tables.check_deg.sum())))
                 log(f"K3 {eng.code.name} BP(50) sum-product p={p} B={B}: {rec['ms']:.3f} ms "
-                    f"per call, plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-                    f"({rec['bound_by']})")
+                    f"per call ({rec['device_ms']:.3f} ms on the device), plain "
+                    f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     rec["max_abs_err"] = worst
     return rec, failures
 
@@ -612,15 +646,17 @@ def phase_k4(eng, failures: dict) -> dict:
             raise AssertionError(f"K4 (b_exit={b_exit}) disagrees with its plain version")
     args = (order, resid, osd.Hc, osd.h_rank, True)
     ms = cuda_ms(lambda: eliminate_transform_cuda(*args), reps=5)
+    dev_ms = device_ms(lambda: eliminate_transform_cuda(*args), reps=5)
     plain_ms = cuda_ms(lambda: eliminate_transform_plain(*args), reps=1)
-    log(f"K4 time {ms:.4f} ms, plain {plain_ms:.4f} ms ({lanes} lanes, b-exit on)")
+    log(f"K4 time {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms "
+        f"({lanes} lanes, b-exit on)")
     T, b, rank, piv = eliminate_transform_cuda(*args)
     # reads order, resid and the packed columns, writes T, b, rank, piv; for
     # each column up to a sample's last pivot, one AND and one XOR per word
     # of every row of T
     cols = float((piv.max(dim=1).values.to(torch.int64) + 1).sum())
     moved = nbytes(order.to(torch.int32), resid, osd.Hc, T, b, rank, piv)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0,
                 **bound(moved, cols * osd.m * osd.m_words * 2))
 
 
@@ -710,6 +746,7 @@ def phase_dem_throughput(eng, card_line: str) -> None:
 
 
 K5_NAMES = ("factored_y", "factored_w", "factored_panel_elim", "factored_resolve")
+K5_LANES_ARG = {"factored_y": 1, "factored_w": 1, "factored_panel_elim": 4, "factored_resolve": 2}
 
 
 def _k5_cost(name: str, args) -> tuple[int, float]:
@@ -722,8 +759,11 @@ def _k5_cost(name: str, args) -> tuple[int, float]:
     if name == "factored_y":
         P, lanes, ids, Hc, scur = args
         A, mw = lanes.shape[0], P.shape[2]
-        # P rows, the block's packed columns, Y; one AND and one XOR per word
-        return 4 * A * (scur * mw + K * mw + K + scur * kw), 2.0 * A * scur * K * mw
+        # P rows, the block's packed columns, Y; H is sparse, so one bit
+        # extract and one XOR per row s and set bit of a block column (the
+        # dense count, one AND and one XOR per word, is k5_dense_ops)
+        support = popcount(Hc[ids.long()])
+        return 4 * A * (scur * mw + K * mw + K + scur * kw), 2.0 * scur * support
     if name == "factored_w":
         C, lanes, ids, Hc, Y, scur = args
         A, m_pad = lanes.shape[0], C.shape[2]
@@ -757,12 +797,25 @@ def _k5_cost(name: str, args) -> tuple[int, float]:
     return 4 * (used * mw + A * K * (scur // 32 + kw) + A * K * mw), float(coeff * mw)
 
 
+def k5_dense_ops(args) -> float:
+    """K5a's operations counted densely: one AND and one XOR per word of P
+    and block column, as a dense product does them."""
+    P, lanes, ids, Hc, scur = args
+    return 2.0 * lanes.shape[0] * scur * ids.shape[1] * P.shape[2]
+
+
 def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
     """K5a-d against their plain versions on the BP failures: the whole
     elimination on the first 128, each kernel at every block of one OSD call
     on all of them (bit-identical outputs and in-place state), the OSD-0
-    solutions on 32 against the plain transform elimination's. Returns the
-    records of the four kernels, their times summed over one OSD call."""
+    solutions on 32 against the plain transform elimination's. Each kernel
+    is timed twice a block, each time one launch on a fresh copy of the
+    state: between plain CUDA events around the launch after a synchronize
+    (``ms``, the host's launch work included, ~100 us a launch) and on the
+    device alone (``device_ms``, ``launch_ms``). Logs K5a's and K5c's times
+    at each block, and K5a's bound on the dense count beside the sparse one.
+    Returns the records of the four kernels, their times summed over one
+    OSD call."""
     from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
     from qldpc_tpu_torch.ops.osd_transform_cuda import eliminate_transform_plain
 
@@ -783,21 +836,26 @@ def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
     if not same:
         raise AssertionError("K5 disagrees with its plain version")
 
-    stats = {name: dict(ms=0.0, plain_ms=0.0, moved=0, ops=0.0, calls=0) for name in K5_NAMES}
+    stats = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, moved=0, ops=0.0, calls=0, blocks=[])
+             for name in K5_NAMES}
+    dense_ops = 0.0
 
     def checked(name, kernel, plain):
         def run(*a):
             fresh = lambda: [x.clone() if torch.is_tensor(x) else x for x in a]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ms = 0.0
+            ms = dev_ms = 0.0
             for _ in range(reps):
                 kargs = fresh()
                 torch.cuda.synchronize()
                 ev[0].record()
-                kout = kernel(*kargs)
+                kernel(*kargs)
                 ev[1].record()
                 torch.cuda.synchronize()
                 ms += ev[0].elapsed_time(ev[1]) / reps
+                kargs = fresh()
+                t, kout = launch_ms(lambda: kernel(*kargs))
+                dev_ms += t / reps
             pargs = fresh()
             ev[0].record()
             pout = plain(*pargs)
@@ -807,9 +865,15 @@ def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
             outs += [(x, y) for x, y in zip(kargs, pargs) if torch.is_tensor(x)]
             if not all(torch.equal(x, y) for x, y in outs):
                 raise AssertionError(f"{name} disagrees with its plain version")
+            nonlocal dense_ops
             moved, ops = _k5_cost(name, kargs)
+            if name == "factored_y":
+                dense_ops += k5_dense_ops(kargs)
             st = stats[name]
+            A = a[K5_LANES_ARG[name]].shape[0]
+            st["blocks"].append((A, st["calls"] * ofc.BLOCK_COLS, dev_ms * 1e3, ms * 1e3))
             st["ms"] += ms
+            st["device_ms"] += dev_ms
             st["plain_ms"] += ev[0].elapsed_time(ev[1])
             st["moved"] += moved
             st["ops"] += ops
@@ -832,14 +896,22 @@ def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
     records = {}
     for name in K5_NAMES:
         st = stats[name]
-        records[name] = dict(ms=st["ms"], plain_ms=st["plain_ms"], max_abs_err=0.0,
-                             **bound(st["moved"], st["ops"]))
+        records[name] = dict(ms=st["ms"], device_ms=st["device_ms"], plain_ms=st["plain_ms"],
+                             max_abs_err=0.0, **bound(st["moved"], st["ops"]))
         log(f"{name} over the {st['calls']} blocks of one OSD call on {lanes} BP failures: "
-            f"{st['ms']:.4f} ms, plain {st['plain_ms']:.3f} ms, bit-identical at every block, "
-            f"bound {records[name]['bound_ms']:.4f} ms ({records[name]['bound_by']})")
+            f"{st['ms']:.4f} ms between events around each launch (the host's launch work "
+            f"included), {st['device_ms']:.4f} ms on the device, plain {st['plain_ms']:.3f} ms, "
+            f"bit-identical at every block, bound {records[name]['bound_ms']:.4f} ms "
+            f"({records[name]['bound_by']})")
+        if name in ("factored_y", "factored_panel_elim"):
+            log(f"  {name} per block (A, scur, device us, event us): " + " ".join(
+                f"({A}, {scur}, {us:.1f}, {ev_us:.1f})" for A, scur, us, ev_us in st["blocks"]))
+    dense = bound(stats["factored_y"]["moved"], dense_ops)
+    log(f"  factored_y bound on the dense count (an AND and a XOR per word): "
+        f"{dense['bound_ms']:.4f} ms ({dense['bound_by']})")
     total = cuda_ms(lambda: ofc.eliminate_factored_cuda(*args), reps=3)
     log(f"K5 per OSD call on {lanes} BP failures: {total:.3f} ms with its host syncs "
-        f"(kernels {sum(s['ms'] for s in stats.values()):.3f} ms)")
+        f"(kernels {sum(s['device_ms'] for s in stats.values()):.3f} ms on the device)")
 
     # OSD-0 solutions: factored (original column ids) against the plain
     # transform elimination (permuted column ids), which the RREF of
@@ -934,10 +1006,12 @@ def phase_k6(dev) -> tuple[dict, dict]:
             args = (det, priors, tables, T, cfg)
             edges = int(H.sum()) * T + (2 * T - 1) * H.shape[0]
             rec = dict(ms=cuda_ms(lambda: st_bp_cuda(*args), reps=10),
+                       device_ms=device_ms(lambda: st_bp_cuda(*args), reps=10),
                        plain_ms=cuda_ms(lambda: st_bp_plain(*args), reps=1),
                        **bp_bound(det, priors, tables, ki, edges))
             S, C, threads = launch_shape(tables, T)
-            log(f"K6 BP({ST_ITERS}) sum-product B={B}: {rec['ms']:.4f} ms per call, plain "
+            log(f"K6 BP({ST_ITERS}) sum-product B={B}: {rec['ms']:.4f} ms per call "
+                f"({rec['device_ms']:.4f} ms on the device), plain "
                 f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
                 f"{edges} real edges of H_st); {S} sample(s) over a cluster of {C} blocks of "
                 f"{threads} threads")
@@ -1118,9 +1192,11 @@ def phase_k7(H: np.ndarray, dev) -> dict:
         if method == "sum-product":
             args = (syn, prior, tables, cfg)
             rec = dict(ms=cuda_ms(lambda: bp_layered_cuda(*args), reps=5),
+                       device_ms=device_ms(lambda: bp_layered_cuda(*args), reps=5),
                        plain_ms=cuda_ms(lambda: bp_layered_plain(*args), reps=1),
                        **bp_bound(syn, prior, tables, got[2], int(H.sum())))
-            log(f"K7 BP(50) sum-product B={B}: {rec['ms']:.4f} ms per call, plain "
+            log(f"K7 BP(50) sum-product B={B}: {rec['ms']:.4f} ms per call "
+                f"({rec['device_ms']:.4f} ms on the device), plain "
                 f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     rec["max_abs_err"] = worst
     return rec
@@ -1267,7 +1343,8 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],
-             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+             ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
+             bound_ms=rec["bound_ms"],
              bound_by=rec["bound_by"], library_ms=None)
         for name, src, replaces, count, rec in rows
     ]

@@ -16,18 +16,34 @@
 // factored state, are 0.5 GB each at B = 1,024 and are streamed once per
 // product. The design keeps each product's reused operand in shared memory
 // and streams the other from device memory coalesced:
-//   K5a  one thread per frozen pivot row s: the block's 128 packed columns
-//        (27 KB) and a tile of 128 P rows sit in shared memory; each output
-//        word is 32 accumulators of x ^= P[s][w] & H[k][w] (one LOP3 per
-//        word and column) and then one __popc parity per column;
+//   K5a  one block per sample and run of row tiles. H is an LDPC matrix (a
+//        [[144]] DEM column sets ~7 of its 1,728 bits), so the block first
+//        lists each of its 128 columns' nonzero words (a warp reads a column
+//        coalesced and compacts it by ballot: word index and mask), once for
+//        all its tiles; then tiles of up to 128 P rows come in by cp.async,
+//        double-buffered, and thread (q, s) forms word q of Y[s] as 32
+//        parities, each an XOR of P[s][w] & mask over its column's list (one
+//        term per nonzero word, not one per word of the row); a warp shares
+//        q, so the lists are broadcast and the walk does not diverge;
 //   K5b  one thread per row r: the block's Y (up to 37 KB) in shared memory,
 //        read as warp broadcasts; C is word-major with the rows minor, so a
 //        warp reads 32 rows' coefficient words in one transaction, and a
 //        word that is zero for the whole warp is skipped;
-//   K5c  one block per sample: W and the new coefficients in shared memory,
-//        word-major, a thread per row; the first candidate row is a block
-//        minimum, as in K4; b and the pivoted flags are packed back with
-//        __ballot_sync;
+//   K5c  one warp runs a sample's 128 columns, several samples a block,
+//        no barrier per column: W sits column-major in shared memory
+//        (column j a mask over rows, mw words; 28 KB a sample at the
+//        [[144]] DEM), lane l owns words l, l + 32, ... of every column and
+//        of b and the pivoted flags (in registers). Per column the pivot is
+//        the lowest set bit of col_j & ~piv (a ballot per 32 words, a
+//        shuffle, __ffs), row p's bits in the block are bit p of every
+//        column (a ballot per 32 columns), M = col_j ^ e_p is the rows it
+//        eliminates, which is C's new column j and overwrites col_j, and
+//        each later column holding bit p takes ^= M. W comes in and C goes
+//        out through one 32 x 32 bit transpose per word group, a five-step
+//        butterfly of __shfl_xor_sync (five shuffles against the 32 ballots
+//        and selects of the other way); when the samples are few, a group
+//        of four warps shares those transposes, with one named barrier
+//        before the columns and one after;
 //   K5d  one block per sample, no barrier per pivot column. With N the
 //        strictly lower part of the block's D (the pivot rows' block
 //        coefficients) and L = I ^ N, P_new = L^-1 (E ^ G.P), E the pivot
@@ -48,79 +64,140 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #define K 128
 #define KW 4
-#define Y_ROWS 128
 #define W_ROWS 256
 #define RESOLVE_THREADS 512
 #define RESOLVE_WARPS (RESOLVE_THREADS / 32)
 #define TILE_ROWS 64  // staged P rows a buffer; two buffers hold K rows
+#define Y_TILE_MAX 128  // K5a: P rows a tile, four threads a row
+#define ELIM_SAMPLES_MAX 8  // K5c: samples a block
+#define ELIM_GROUP 4  // K5c: warps a sample
 #define FULL 0xffffffffu
 #define SMEM_MAX 232448
 
-__device__ __forceinline__ int block_min(int v, int* s_warp, int* s_out)
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes)
 {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    v = __reduce_min_sync(0xffffffffu, v);
-    if (lane == 0) s_warp[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-        int x = lane < nwarps ? s_warp[lane] : 0x7fffffff;
-        x = __reduce_min_sync(0xffffffffu, x);
-        if (lane == 0) *s_out = x;
+    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+    if (bytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
+    else if (bytes == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+}
+
+// The 32 x 32 bit transpose across a warp: lane l holds row l on entry and
+// column l on exit (bit i of lane l's word goes to bit l of lane i's). Step
+// s swaps the lane-index bit s with the bit-index bit s: a lane keeps the
+// half of its bits whose index bit s equals its lane bit s and takes the
+// other half from its partner, rotated by s (the bits a rotation wraps land
+// in the kept half): a shuffle, a funnel shift and one LOP3 a step.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lid)
+{
+    const uint32_t lo[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u, 0x55555555u};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+        const int s = 16 >> k;
+        const bool up = lid & s;
+        const uint32_t keep = up ? ~lo[k] : lo[k];
+        const uint32_t y = __shfl_xor_sync(FULL, x, s);
+        const uint32_t t = __funnelshift_l(y, y, up ? 32 - s : s);  // rotate left
+        x = (x & keep) | (t & ~keep);
     }
-    __syncthreads();
-    return *s_out;
+    return x;
 }
 
 // K5a: Y[a][s][q] bit kk = parity(P[lane][s] & Hc[ids[a][32 q + kk]]), s < scur.
+// Block (a, y) takes row tiles [y * per, (y + 1) * per) of sample a; rows
+// rows a tile, 4 * rows threads.
 __global__ void factored_y_kernel(
     const uint32_t* __restrict__ P, const int* __restrict__ lanes,
     const int* __restrict__ ids, const uint32_t* __restrict__ Hc,
-    uint32_t* __restrict__ Y, int s_max, int mw, int scur)
+    uint32_t* __restrict__ Y, int s_max, int mw, int scur, int rows, int per)
 {
     extern __shared__ __align__(16) uint32_t smem[];
-    const int stride = mw | 1;               // odd: a thread per row, no bank conflicts
-    uint32_t* Ht = smem;                     // mw x K: word w of block column k
-    uint32_t* Ps = Ht + (size_t)mw * K;      // Y_ROWS x stride
+    const int stride = mw | 1;  // odd: a thread per row, no bank conflicts
+    uint2* pairs = reinterpret_cast<uint2*>(smem);  // K x mw: (word, bits) of each column's nonzero words
+    int* cnt = reinterpret_cast<int*>(pairs + (size_t)K * mw);  // K: their number
+    uint32_t* tiles = reinterpret_cast<uint32_t*>(cnt + K);     // 2 x rows x stride staged P rows
     const int a = blockIdx.x, tid = threadIdx.x;
-    const int s0 = blockIdx.y * Y_ROWS;
-    const int rows = min(Y_ROWS, scur - s0);
-    const size_t lane = (size_t)lanes[a];
+    const int lid = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+    const int t0 = blockIdx.y * per;
+    const int t1 = min((scur + rows - 1) / rows, t0 + per);
+    const uint32_t* Pl = P + (size_t)lanes[a] * s_max * mw;
 
-    const uint32_t* col = Hc + (size_t)ids[(size_t)a * K + tid] * mw;  // tid < K
-    for (int w = 0; w < mw; ++w) Ht[w * K + tid] = col[w];
-    const uint32_t* src = P + (lane * s_max + s0) * mw;
-    for (int i = tid; i < rows * mw; i += Y_ROWS) {
-        const int r = i / mw;
-        Ps[r * stride + (i - r * mw)] = src[i];
-    }
-    __syncthreads();
-    if (tid >= rows) return;
+    auto stage = [&](int t) {
+        uint32_t* dst = tiles + (size_t)((t - t0) & 1) * rows * stride;
+        const uint32_t* src = Pl + (size_t)t * rows * mw;
+        const int nr = min(rows, scur - t * rows);
+        for (int i = tid; i < nr * mw; i += blockDim.x) {
+            const int r = i / mw;
+            cp_async(dst + r * stride + (i - r * mw), src + i, 4);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    stage(t0);
 
-    const uint32_t* row = Ps + tid * stride;
-    uint32_t* out = Y + ((size_t)a * scur + s0 + tid) * KW;
-    for (int q = 0; q < KW; ++q) {
-        uint32_t x[32];
+    // the supports: a warp reads a column's words coalesced, four columns'
+    // loads in flight, and compacts the nonzero ones by ballot
+    for (int k0 = warp; k0 < K; k0 += 4 * nwarps) {
+        const uint32_t* col[4];
+        int c[4];
 #pragma unroll
-        for (int kk = 0; kk < 32; ++kk) x[kk] = 0u;
-        for (int w = 0; w < mw; ++w) {
-            const uint32_t pw = row[w];
-            const uint4* h4 = reinterpret_cast<const uint4*>(Ht + w * K + q * 32);
+        for (int u = 0; u < 4; ++u) {
+            const int k = k0 + u * nwarps;
+            col[u] = k < K ? Hc + (size_t)ids[(size_t)a * K + k] * mw : nullptr;
+            c[u] = 0;
+        }
+        for (int w0 = 0; w0 < mw; w0 += 32) {
+            const int w = w0 + lid;
+            uint32_t v[4];
 #pragma unroll
-            for (int v = 0; v < 8; ++v) {
-                const uint4 h = h4[v];
-                x[4 * v] ^= pw & h.x;
-                x[4 * v + 1] ^= pw & h.y;
-                x[4 * v + 2] ^= pw & h.z;
-                x[4 * v + 3] ^= pw & h.w;
+            for (int u = 0; u < 4; ++u) v[u] = col[u] && w < mw ? col[u][w] : 0u;
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const uint32_t bal = __ballot_sync(FULL, v[u] != 0u);
+                if (v[u])
+                    pairs[(size_t)(k0 + u * nwarps) * mw + c[u] + __popc(bal & ((1u << lid) - 1u))] =
+                        make_uint2((uint32_t)w, v[u]);
+                c[u] += __popc(bal);
             }
         }
-        uint32_t word = 0u;
 #pragma unroll
-        for (int kk = 0; kk < 32; ++kk) word |= (uint32_t)(__popc(x[kk]) & 1) << kk;
-        out[q] = word;
+        for (int u = 0; u < 4; ++u)
+            if (lid == 0 && col[u]) cnt[k0 + u * nwarps] = c[u];
+    }
+
+    const int q = tid / rows, r = tid - q * rows;  // rows is a multiple of 32: q is a warp's
+    for (int t = t0; t < t1; ++t) {
+        if (t + 1 < t1) {
+            stage(t + 1);
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        }
+        __syncthreads();
+        const int s = t * rows + r;
+        if (s < scur) {
+            const uint32_t* row = tiles + (size_t)((t - t0) & 1) * rows * stride + (size_t)r * stride;
+            uint32_t word = 0u;
+            for (int kk = 0; kk < 32; ++kk) {
+                const int k = q * 32 + kk;
+                const uint2* pk = pairs + (size_t)k * mw;
+                uint32_t x = 0u;
+#pragma unroll 4
+                for (int i = 0; i < cnt[k]; ++i) {
+                    const uint2 pr = pk[i];  // the same for the whole warp: a broadcast
+                    x ^= row[pr.x] & pr.y;
+                }
+                word |= (uint32_t)(__popc(x) & 1) << kk;
+            }
+            Y[((size_t)a * scur + s) * KW + q] = word;
+        }
+        __syncthreads();  // the buffer is restaged two tiles on
     }
 }
 
@@ -172,92 +249,171 @@ __global__ void factored_w_kernel(
 
 // K5c: the block's K columns eliminated in order on [W | b] with implicit
 // pivots. b, piv (packed by row) and C's block columns are updated for the
-// sample; prow gets each column's pivot row, m_pad where none.
+// sample; prow gets each column's pivot row, m_pad where none. A group of
+// `group` warps a sample: together they transpose W in and C out, and the
+// group's first warp runs the columns, lane l owning words w = l + 32 t
+// (t < NT, w < mw) of every column. Only the columns after j are updated at
+// column j: W is not an output.
+__device__ __forceinline__ void group_sync(int slot, int group)
+{
+    if (group > 1)  // named barrier slot + 1: the sample's warps alone
+        asm volatile("bar.sync %0, %1;\n" :: "r"(slot + 1), "r"(32 * group) : "memory");
+}
+
+template <int NT>
 __global__ void factored_elim_kernel(
     const uint32_t* __restrict__ W, uint32_t* __restrict__ b,
     uint32_t* __restrict__ piv, uint32_t* __restrict__ C,
     const int* __restrict__ lanes, const int* __restrict__ ids,
-    int* __restrict__ prow_out, int m_pad, int cw, int n, int blk)
+    int* __restrict__ prow_out, int A, int m_pad, int cw, int n, int blk, int group)
 {
     extern __shared__ __align__(16) uint32_t smem[];
-    __shared__ int s_warp[32];
-    __shared__ int s_min;
-    __shared__ int prow_s[K];
-    uint32_t* Ws = smem;                                   // KW x m_pad
-    uint32_t* cn = Ws + (size_t)KW * m_pad;                // KW x m_pad
-    uint8_t* bs = reinterpret_cast<uint8_t*>(cn + (size_t)KW * m_pad);  // m_pad
-    uint8_t* pv = bs + m_pad;                              // m_pad
-    const int a = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+    const int mw = m_pad >> 5, stride = mw | 1;  // odd: a lane a column, no bank conflicts
+    const int lid = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int slot = warp / group, gw = warp - slot * group;
+    const int a = blockIdx.x * (blockDim.x >> 5) / group + slot;
+    if (a >= A) return;  // the whole group: no barrier waits on it
+    uint32_t* col = smem + (size_t)slot * K * stride;  // column j's rows at col + j * stride
     const size_t lane = (size_t)lanes[a];
-    const int mw = m_pad >> 5;
+
+    // W row-major in: word group g of rows, word q of columns, one transpose
+    // each; eight groups' loads in flight a warp
     const uint4* Wa = reinterpret_cast<const uint4*>(W) + (size_t)a * m_pad;
-    uint32_t* b_l = b + lane * mw;
-    uint32_t* piv_l = piv + lane * mw;
-
-    for (int r = tid; r < m_pad; r += nt) {
-        const uint4 v = Wa[r];
-        Ws[r] = v.x;
-        Ws[m_pad + r] = v.y;
-        Ws[2 * m_pad + r] = v.z;
-        Ws[3 * m_pad + r] = v.w;
-        for (int w = 0; w < KW; ++w) cn[w * m_pad + r] = 0u;
-        bs[r] = (b_l[r >> 5] >> (r & 31)) & 1u;
-        pv[r] = (piv_l[r >> 5] >> (r & 31)) & 1u;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < K; ++j) {
-        const int w = j >> 5, i = j & 31;
-        const uint32_t* col = Ws + w * m_pad;
-        int first = m_pad;
-        if (ids[(size_t)a * K + j] < n) {
-            for (int r = tid; r < m_pad; r += nt)
-                if (((col[r] >> i) & 1u) && !pv[r]) { first = r; break; }
+    for (int g0 = 8 * gw; g0 < mw; g0 += 8 * group) {
+        uint4 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+            if (g0 + u < mw) v[u] = Wa[(g0 + u) * 32 + lid];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            if (g0 + u >= mw) break;
+            const int g = g0 + u;
+            col[(size_t)lid * stride + g] = transpose32(v[u].x, lid);
+            col[(size_t)(32 + lid) * stride + g] = transpose32(v[u].y, lid);
+            col[(size_t)(64 + lid) * stride + g] = transpose32(v[u].z, lid);
+            col[(size_t)(96 + lid) * stride + g] = transpose32(v[u].w, lid);
         }
-        const int p = block_min(first, s_warp, &s_min);
-        if (p < m_pad) {
-            // row p is read by all and written by none in this step
-            const uint32_t w0 = Ws[p], w1 = Ws[m_pad + p];
-            const uint32_t w2 = Ws[2 * m_pad + p], w3 = Ws[3 * m_pad + p];
-            const uint8_t bp = bs[p];
-            for (int r = tid; r < m_pad; r += nt) {
-                if (r == p || !((col[r] >> i) & 1u)) continue;
-                Ws[r] ^= w0;
-                Ws[m_pad + r] ^= w1;
-                Ws[2 * m_pad + r] ^= w2;
-                Ws[3 * m_pad + r] ^= w3;
-                bs[r] ^= bp;
-                cn[w * m_pad + r] |= 1u << i;
+    }
+    group_sync(slot, group);
+
+    if (gw == 0) {
+        uint32_t* b_l = b + lane * mw;
+        uint32_t* piv_l = piv + lane * mw;
+        uint32_t bw[NT], pw[NT];
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+            const int w = lid + 32 * t;
+            bw[t] = w < mw ? b_l[w] : 0u;
+            pw[t] = w < mw ? piv_l[w] : 0u;
+        }
+        uint32_t real[KW];  // bit i of word q: column 32 q + i is not a sentinel
+        int prq[KW];
+#pragma unroll
+        for (int q = 0; q < KW; ++q) {
+            real[q] = __ballot_sync(FULL, ids[(size_t)a * K + 32 * q + lid] < n);
+            prq[q] = m_pad;
+        }
+
+#pragma unroll
+        for (int q = 0; q < KW; ++q) {
+            for (int i = 0; i < 32; ++i) {
+                __syncwarp();  // the last column's writes before this one's reads of other lanes' words
+                uint32_t* cj = col + (size_t)(32 * q + i) * stride;
+                uint32_t c[NT];
+#pragma unroll
+                for (int t = 0; t < NT; ++t) c[t] = lid + 32 * t < mw ? cj[lid + 32 * t] : 0u;
+                // the pivot: the lowest set bit of col_j & ~piv, a sentinel column none
+                int p = m_pad;
+                if ((real[q] >> i) & 1u) {
+#pragma unroll
+                    for (int t = 0; t < NT; ++t) {
+                        const uint32_t cand = c[t] & ~pw[t];
+                        const uint32_t bal = __ballot_sync(FULL, cand != 0u);
+                        if (p == m_pad && bal) {
+                            const int src = __ffs(bal) - 1;
+                            p = ((32 * t + src) << 5) + __ffs(__shfl_sync(FULL, cand, src)) - 1;
+                        }
+                    }
+                }
+                if (lid == i) prq[q] = p;
+                if (p == m_pad) {
+#pragma unroll
+                    for (int t = 0; t < NT; ++t)
+                        if (lid + 32 * t < mw) cj[lid + 32 * t] = 0u;
+                    continue;
+                }
+                const int pwi = p >> 5, pb = p & 31;
+                // row p's bits in the block's columns: bit p of each column
+                uint32_t rowp[KW];
+#pragma unroll
+                for (int qq = q; qq < KW; ++qq)
+                    rowp[qq] = __ballot_sync(FULL, (col[(size_t)(32 * qq + lid) * stride + pwi] >> pb) & 1u);
+                __syncwarp();  // those reads before any lane's writes
+                uint32_t bsel = 0u;
+#pragma unroll
+                for (int t = 0; t < NT; ++t)
+                    if (t == (pwi >> 5)) bsel = bw[t];
+                const bool bp = (__shfl_sync(FULL, bsel, pwi & 31) >> pb) & 1u;
+                uint32_t M[NT];  // the rows column j eliminates: C's new column j
+#pragma unroll
+                for (int t = 0; t < NT; ++t) {
+                    const int w = lid + 32 * t;
+                    const uint32_t e = w == pwi ? 1u << pb : 0u;
+                    M[t] = c[t] ^ e;
+                    if (bp) bw[t] ^= M[t];
+                    pw[t] |= e;
+                    if (w < mw) cj[w] = M[t];
+                }
+#pragma unroll
+                for (int qq = q; qq < KW; ++qq) {
+                    uint32_t later = qq == q ? rowp[qq] & ~((2u << i) - 1u) : rowp[qq];
+                    while (later) {
+                        // two columns at a time: both loads before either store
+                        uint32_t* c1 = col + (size_t)(32 * qq + __ffs(later) - 1) * stride;
+                        later &= later - 1u;
+                        uint32_t* c2 = later ? col + (size_t)(32 * qq + __ffs(later) - 1) * stride : nullptr;
+                        later &= later - 1u;
+                        uint32_t v1[NT], v2[NT];
+#pragma unroll
+                        for (int t = 0; t < NT; ++t) {
+                            const int w = lid + 32 * t;
+                            v1[t] = w < mw ? c1[w] : 0u;
+                            v2[t] = c2 && w < mw ? c2[w] : 0u;
+                        }
+#pragma unroll
+                        for (int t = 0; t < NT; ++t) {
+                            const int w = lid + 32 * t;
+                            if (w < mw) c1[w] = v1[t] ^ M[t];
+                            if (c2 && w < mw) c2[w] = v2[t] ^ M[t];
+                        }
+                    }
+                }
             }
-            if (tid == 0) pv[p] = 1;
         }
-        if (tid == 0) prow_s[j] = p;
-        __syncthreads();
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+            const int w = lid + 32 * t;
+            if (w < mw) {
+                b_l[w] = bw[t];
+                piv_l[w] = pw[t];
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < KW; ++q) prow_out[(size_t)a * K + 32 * q + lid] = prq[q];
     }
+    group_sync(slot, group);
 
+    // C out: the masks M transposed back into row words, split as W came in
     uint32_t* Cb = C + (lane * cw + (size_t)blk * KW) * m_pad;
-    for (int r = tid; r < m_pad; r += nt) {
-        // a warp holds 32 consecutive rows: one packed word each
-        const uint32_t bw = __ballot_sync(0xffffffffu, bs[r]);
-        const uint32_t pw = __ballot_sync(0xffffffffu, pv[r]);
-        if ((tid & 31) == 0) {
-            b_l[r >> 5] = bw;
-            piv_l[r >> 5] = pw;
+    for (int g0 = 2 * gw; g0 < mw; g0 += 2 * group)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int g = g0 + u;
+            if (g >= mw) break;
+#pragma unroll
+            for (int q = 0; q < KW; ++q)
+                Cb[(size_t)q * m_pad + g * 32 + lid] = transpose32(col[(size_t)(32 * q + lid) * stride + g], lid);
         }
-        for (int w = 0; w < KW; ++w) Cb[(size_t)w * m_pad + r] = cn[w * m_pad + r];
-    }
-    for (int j = tid; j < K; j += nt) prow_out[(size_t)a * K + j] = prow_s[j];
-}
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes)
-{
-    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-    if (bytes == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
-    else if (bytes == 8)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(d), "l"(src) : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
 }
 
 // P rows [r0, r0 + nr) of the used-row list into a staging buffer, as one
@@ -449,18 +605,38 @@ static int launch_check(const void* kernel, size_t smem)
     return (int)err;
 }
 
+static int sm_count()
+{
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms > 0 ? sms : 1;
+}
+
 extern "C" int factored_y_launch(
     const void* P, const void* lanes, const void* ids, const void* Hc, void* Y,
     int A, int s_max, int mw, int scur, void* stream)
 {
     if (A <= 0 || scur <= 0) return (int)cudaSuccess;
-    const size_t smem = sizeof(uint32_t) * ((size_t)mw * K + (size_t)Y_ROWS * (mw | 1));
+    // the largest tile of rows whose two buffers fit beside the supports
+    int rows = Y_TILE_MAX;
+    size_t smem = 0;
+    for (;; rows >>= 1) {
+        smem = sizeof(uint2) * (size_t)K * mw + sizeof(int) * K
+             + sizeof(uint32_t) * 2 * (size_t)rows * (mw | 1);
+        if (smem <= SMEM_MAX || rows == 32) break;
+    }
     int err = launch_check((const void*)factored_y_kernel, smem);
     if (err) return err;
-    const dim3 grid(A, (scur + Y_ROWS - 1) / Y_ROWS);
-    factored_y_kernel<<<grid, Y_ROWS, smem, (cudaStream_t)stream>>>(
+    // split a sample's tiles over blocks only as far as it takes to give
+    // every SM two blocks: each block lists the supports once
+    const int n_tiles = (scur + rows - 1) / rows;
+    const int split = std::min(n_tiles, std::max(1, (2 * sm_count() + A - 1) / A));
+    const int per = (n_tiles + split - 1) / split;
+    const dim3 grid(A, (n_tiles + per - 1) / per);
+    factored_y_kernel<<<grid, 4 * rows, smem, (cudaStream_t)stream>>>(
         (const uint32_t*)P, (const int*)lanes, (const int*)ids, (const uint32_t*)Hc,
-        (uint32_t*)Y, s_max, mw, scur);
+        (uint32_t*)Y, s_max, mw, scur, rows, per);
     return (int)cudaGetLastError();
 }
 
@@ -482,18 +658,34 @@ extern "C" int factored_w_launch(
 
 extern "C" int factored_elim_launch(
     const void* W, void* b, void* piv, void* C, const void* lanes, const void* ids,
-    void* prow, int A, int m_pad, int cw, int n, int blk, int threads, void* stream)
+    void* prow, int A, int m_pad, int cw, int n, int blk, void* stream)
 {
     if (A <= 0) return (int)cudaSuccess;
-    if (m_pad % 32 || threads < 32 || threads > 1024 || threads % 32)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(uint32_t) * 2 * KW * (size_t)m_pad + 2 * (size_t)m_pad;
-    int err = launch_check((const void*)factored_elim_kernel, smem);
+    const int mw = m_pad / 32, nt = (mw + 31) / 32, sms = sm_count();
+    if (m_pad % 32 || nt > 8) return (int)cudaErrorInvalidValue;
+    // four warps a sample while the samples leave the SMs idle (W in and C
+    // out, a serial chain of loads and shuffles for one warp, split four
+    // ways); one warp where they fill the card, whose issue the extra warps
+    // would only share, and their registers cost a wave
+    const int group = A <= 2 * sms ? ELIM_GROUP : 1;
+    const size_t per_sample = sizeof(uint32_t) * K * (size_t)(mw | 1);
+    // samples a block: spread over the SMs first, then stacked up to what
+    // the shared memory holds (at least one: mw <= 256), at most 16 warps
+    // and 8 samples (named barriers 1-8)
+    const int fit = (int)std::min((size_t)std::min(ELIM_SAMPLES_MAX, 16 / group),
+                                  (size_t)SMEM_MAX / per_sample);
+    const int samples = std::min(fit, (A + sms - 1) / sms);
+    const size_t smem = per_sample * samples;
+    const void* kernel = nt == 1 ? (const void*)factored_elim_kernel<1>
+                       : nt == 2 ? (const void*)factored_elim_kernel<2>
+                       : nt <= 4 ? (const void*)factored_elim_kernel<4>
+                                 : (const void*)factored_elim_kernel<8>;
+    int err = launch_check(kernel, smem);
     if (err) return err;
-    factored_elim_kernel<<<A, threads, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)W, (uint32_t*)b, (uint32_t*)piv, (uint32_t*)C,
-        (const int*)lanes, (const int*)ids, (int*)prow, m_pad, cw, n, blk);
-    return (int)cudaGetLastError();
+    void* args[] = {(void*)&W, &b, &piv, &C, (void*)&lanes, (void*)&ids, &prow,
+                    &A, &m_pad, &cw, &n, &blk, (void*)&group};
+    return (int)cudaLaunchKernel(kernel, dim3((A + samples - 1) / samples),
+                                 dim3(32 * group * samples), args, smem, (cudaStream_t)stream);
 }
 
 extern "C" int factored_resolve_launch(

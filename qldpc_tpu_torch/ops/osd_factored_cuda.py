@@ -82,14 +82,13 @@ BLOCK_COLS = 128  # K: columns per block, the JAX eliminator's at this scale
 _KW = BLOCK_COLS // WORD
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
-_THREADS_ELIM = 512  # K5c: one block per sample, rows strided over it
 _LIB = KernelLibrary(
     "gf2_factored.cu",
     {
         "factored_y_launch": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
         "factored_w_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
         "factored_elim_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                                 _i, _i, _i, _i, _i, _i, _vp],
+                                 _i, _i, _i, _i, _i, _vp],
         "factored_resolve_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
     },
 )
@@ -270,7 +269,7 @@ def factored_panel_elim_cuda(W, b, piv, C, lanes, ids, n: int, blk: int) -> torc
     prow = torch.empty((A, BLOCK_COLS), dtype=torch.int32, device=dev)
     _LIB.call("factored_elim_launch", W.data_ptr(), b.data_ptr(), piv.data_ptr(),
               C.data_ptr(), lanes.data_ptr(), ids.data_ptr(), prow.data_ptr(),
-              A, m_pad, cw, n, blk, _THREADS_ELIM, _stream(dev))
+              A, m_pad, cw, n, blk, _stream(dev))
     factored_panel_elim_cuda.launches += 1
     return prow
 

@@ -10,8 +10,11 @@ under sum-product are held to K1's rule (at least 1 lane allowed); K1, K3,
 K6 and K7 propagate a NaN message as the plain versions do. K3's summary
 path (the one-pass check rule) equals its message path bit for bit. K5d is
 also held on synthetic edge blocks (block 0, no pivot, dense G) at four row
-widths; K6 at cluster widths 1 and above, rounds that do not divide evenly
-and a width above T, where every width gives the default width's bits.
+widths, K5c (block 0, no pivot, dense W, each launch geometry) at four and
+K5a (empty, heavy and sentinel columns; scur 128, a ragged tile and 2,176)
+at four (row tiles of 128, 64 and 32 rows); K6 at cluster widths 1 and
+above, rounds that do not divide evenly and a width above T, where every
+width gives the default width's bits.
 ``test_k6_geometry_follows_the_state_size`` needs no card.
 """
 
@@ -449,6 +452,104 @@ def test_k5d_matches_plain_on_edge_blocks(cuda, mw, blk, case):
     ofc.factored_resolve_plain(ref, C, lanes, prow, blk)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def _u32(rng, *shape):
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _i32(x):
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+K5C_N = 1000  # column ids below it are real, K5C_N is the sentinel
+
+
+def _elim_state(mw: int, case: str, seed: int, A: int):
+    """A K5c input on A of B = A + 19 samples: W (A, m_pad, 4) of rows half
+    set ("dense": 7 in 8), b and pivoted flags (a quarter pivoted), C with
+    room for blocks 0-2, ids with a sentinel now and then ("no-pivot": all
+    sentinels)."""
+    rng = np.random.default_rng(seed)
+    K, m_pad, B = ofc.BLOCK_COLS, 32 * mw, A + 19
+    W = _u32(rng, A, m_pad, K // 32)
+    if case == "dense":
+        W |= _u32(rng, *W.shape) | _u32(rng, *W.shape)
+    b = _u32(rng, B, mw)
+    piv = _u32(rng, B, mw) & _u32(rng, B, mw)
+    C = _u32(rng, B, 3 * K // 32, m_pad)
+    ids = rng.integers(0, K5C_N + 1, size=(A, K)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.05] = K5C_N
+    if case == "no-pivot":
+        ids[:] = K5C_N
+    lanes = np.sort(rng.choice(B, A, replace=False)).astype(np.int32)
+    return tuple(_i32(x) for x in (W, b, piv, C, lanes, ids))
+
+
+# the samples each case runs, from the card's SM count: the launcher gives
+# a sample four warps up to 2 x SMs samples, one warp beyond, and stacks
+# samples in a block only past one a SM (on 132 SMs: 29, 198 and 1,017)
+K5C_SAMPLES = {"block-0": lambda sms: 29, "no-pivot": lambda sms: 29, "dense": lambda sms: 29,
+               "pairs": lambda sms: sms + sms // 2, "stacked": lambda sms: 8 * sms - 39}
+
+
+@pytest.mark.parametrize("mw", [5, 54, 100, 200])  # one, two, four and eight words a lane
+@pytest.mark.parametrize("blk,case", [(0, "block-0"), (1, "no-pivot"), (2, "dense"), (1, "pairs"),
+                                      (2, "stacked")])
+def test_k5c_matches_plain_on_edge_blocks(cuda, mw, blk, case):
+    """Block 0, a block where no column has a pivot, dense W rows, two
+    samples of four warps in a block, and up to eight samples of one warp
+    in a block (the last block part-full), each at the sample count that
+    makes the launcher choose that geometry: b, the pivoted flags, C and
+    the pivot rows bit for bit."""
+    A = K5C_SAMPLES[case](torch.cuda.get_device_properties(cuda).multi_processor_count)
+    state = [t.to(cuda) for t in _elim_state(mw, case, seed=70 + 3 * blk + mw, A=A)]
+    got, ref = [t.clone() for t in state], [t.clone() for t in state]
+    prow = ofc.factored_panel_elim_cuda(*got[:4], *got[4:], K5C_N, blk)
+    prow_ref = ofc.factored_panel_elim_plain(*ref[:4], *ref[4:], K5C_N, blk)
+    torch.cuda.synchronize()
+    assert torch.equal(prow, prow_ref)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    pivots = int((prow < 32 * mw).sum())
+    assert (pivots == 0) == (case == "no-pivot")
+
+
+def _y_state(mw: int, s_max: int, seed: int, B: int = 24, A: int = 17):
+    """A K5a input: P (B, s_max, mw) random, H's packed columns with about
+    7 bits each (the [[144]] DEM's mean), an empty column 0, a heavy column
+    1 (every bit set) and the zero sentinel column n; ids over all of them,
+    the empty, heavy and sentinel columns in every sample."""
+    rng = np.random.default_rng(seed)
+    n, K, m_pad = 600, ofc.BLOCK_COLS, 32 * mw
+    H = np.zeros((n + 1, m_pad), np.uint8)
+    for c in range(2, n):
+        H[c, rng.choice(m_pad, min(7, m_pad), replace=False)] = 1
+    H[1] = 1
+    Hc = np.packbits(H.reshape(n + 1, mw, 32), axis=-1, bitorder="little").view(np.uint32)[..., 0]
+    ids = rng.integers(0, n + 1, size=(A, K)).astype(np.int32)
+    ids[:, :3] = [0, 1, n]
+    ids[:, 64:67] = [n, 1, 0]
+    lanes = np.sort(rng.choice(B, A, replace=False)).astype(np.int32)
+    return tuple(_i32(x) for x in (_u32(rng, B, s_max, mw), lanes, ids, Hc))
+
+
+# row tiles of 128 (mw 5 and 54), 64 (mw 128) and 32 rows (mw 162): the
+# largest whose two buffers fit beside the supports; scur: the first block
+# K5a runs, a ragged tile, the [[144]] budget's last
+@pytest.mark.parametrize("mw", [5, 54, 128, 162])
+@pytest.mark.parametrize("scur", [128, 200, 2176])
+def test_k5a_matches_plain_on_edge_blocks(cuda, mw, scur):
+    """Empty, heavy and sentinel columns in every sample, at the first
+    block, at a scur that ends inside a tile and at the largest scur of the
+    [[144]] DEM's budget (2,304 columns)."""
+    P, lanes, ids, Hc = (t.to(cuda) for t in _y_state(mw, s_max=2304, seed=90 + mw))
+    got = ofc.factored_y_cuda(P, lanes, ids, Hc, scur)
+    ref = ofc.factored_y_plain(P, lanes, ids, Hc, scur)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    bits = ofc._unpack(got)
+    assert not bits[..., [0, 2, 64, 66]].any() and bool(bits[..., 1].any())
 
 
 def test_factored_osd_solutions_match_transform(cuda):

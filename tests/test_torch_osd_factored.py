@@ -8,7 +8,10 @@ consistent and inconsistent syndromes and nonzero BP hard decisions. Every
 comparison is bit for bit:
 
   * each plain kernel function (K5a-d) against the JAX Pallas program it
-    replaces, on the same state over a 128-lane slab;
+    replaces, on the same state over a 128-lane slab, and torch renderings
+    of the kernels' own decompositions (K5a's sparse product over column
+    supports, K5c's column-major elimination with its bit transposes, K5d's
+    L^-1 (E ^ G.P)) against both;
   * ``(b, pivoted, piv_col, overflow)`` against the JAX eliminator run one
     sample at a time, so that its slab's loop ends on that sample's own exit
     as the port's per-sample exit does;
@@ -369,6 +372,204 @@ def test_resolve_decomposition_matches_plain_and_pallas(slab, panel, case):
     new = got.numpy().view(np.uint32)[lanes.numpy(), scur: scur + K]
     assert np.array_equal(new, _jax_resolve(s, C, lanes, prow, blk))
     assert bool(new.any()) == (case != "no-pivot")
+
+
+# ------------------------------------- K5c's column-major form, K5a's supports
+_LO = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
+_U32 = 0xFFFFFFFF
+
+
+def _u(words: torch.Tensor) -> torch.Tensor:
+    """int32 words holding uint32 patterns -> int64 in [0, 2**32)."""
+    return words.to(torch.int64) & _U32
+
+
+def _i32(words: torch.Tensor) -> torch.Tensor:
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _transpose32(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' five-step butterfly over the lane axis (last, 32 long):
+    step s swaps lane-index bit s with bit-index bit s, each lane taking
+    its partner's word as __shfl_xor_sync gives it."""
+    lane = torch.arange(WORD)
+    for k, lo in enumerate(_LO):
+        s, hi = 16 >> k, lo ^ _U32
+        y = x[..., lane ^ s]
+        x = torch.where((lane & s) != 0, (x & hi) | ((y & hi) >> s),
+                        (x & lo) | (((y & lo) << s) & _U32))
+    return x
+
+
+def _panel_elim_decomposed(W, b, piv, C, lanes, ids, n: int, blk: int) -> torch.Tensor:
+    """K5c as its kernel computes it, in plain torch: W transposed into
+    column masks over rows (one 32 x 32 butterfly per word group); per
+    column j the pivot is the lowest set bit of col_j & ~piv, row p's bits
+    are bit p of every column, M = col_j ^ e_p goes to every later column
+    holding bit p (earlier ones are never read again) and to b where b_p is
+    set, and overwrites col_j as C's new column j; the masks are transposed
+    back into C's row words. Same contract as ``factored_panel_elim_plain``."""
+    lanes_l = lanes.long()
+    A, m_pad, kw = W.shape
+    mw = m_pad // WORD
+    aidx, cols_after = torch.arange(A), torch.arange(K)
+    # lane l of word group g holds row 32 g + l; after it, lane i column 32 q + i
+    x = _u(W).reshape(A, mw, WORD, kw).permute(0, 3, 1, 2)  # (A, q, g, lane)
+    cols = _transpose32(x).permute(0, 1, 3, 2).reshape(A, K, mw)  # (A, j, g)
+    bw, pw = _u(b[lanes_l]), _u(piv[lanes_l])
+    prow = torch.full((A, K), m_pad, dtype=torch.int32)
+    for j in range(K):
+        c = cols[:, j]
+        cand = c & ~pw & _U32
+        has = (cand != 0).any(1) & (ids[:, j] < n)
+        g = (cand != 0).to(torch.int8).argmax(1)  # the first word holding a candidate
+        low = cand[aidx, g] & -cand[aidx, g]
+        bit = torch.log2(low.clamp(min=1).double()).round().long()
+        e = torch.zeros_like(c)
+        e[aidx, g] = torch.where(has, low, 0)
+        M = torch.where(has[:, None], c ^ e, 0)
+        rowp = (cols[aidx, :, g] >> bit[:, None]) & 1  # bit p of every column
+        upd = (rowp == 1) & (cols_after > j)[None, :] & has[:, None]
+        cols = torch.where(upd[:, :, None], cols ^ M[:, None, :], cols)
+        bp = ((bw[aidx, g] >> bit) & 1) == 1
+        bw = torch.where((has & bp)[:, None], bw ^ M, bw)
+        pw = pw | e
+        cols[:, j] = M
+        prow[:, j] = torch.where(has, g * WORD + bit, m_pad).to(torch.int32)
+    # lane i holds column 32 q + i's word g; after it, lane l row 32 g + l's word q
+    y = cols.reshape(A, kw, WORD, mw).permute(0, 1, 3, 2)  # (A, q, g, lane)
+    C[lanes_l, blk * kw: (blk + 1) * kw] = _i32(_transpose32(y).reshape(A, kw, m_pad))
+    b[lanes_l], piv[lanes_l] = _i32(bw), _i32(pw)
+    return prow
+
+
+def test_butterfly_is_the_bit_transpose():
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 2**32, size=(3, WORD)))
+    got = ofc._unpack(_i32(_transpose32(x)))  # (3, lane i, bit l)
+    ref = ofc._unpack(_i32(x)).reshape(3, WORD, WORD).transpose(1, 2).reshape(3, -1)
+    assert torch.equal(got, ref)
+
+
+def _panel_case(s, case: str):
+    """W, b, pivoted flags and column ids of all the slab's lanes for one
+    K5c case: "random" (the slab's ids, a sentinel now and then),
+    "sentinel" (every other column a sentinel), "no-candidate" (column 0
+    held by pivoted rows alone, every eighth column from 4 empty), "all-pivoted"
+    (every row of the system pivoted) and "dense" (W rows 90% set)."""
+    rng = np.random.default_rng(61 + sorted(PANEL_CASES).index(case))
+    B, m, m_pad, mw, n = (s[k] for k in ("B", "m", "m_pad", "mw", "n"))
+    in_rows = np.arange(m_pad) < m
+    W = rng.integers(0, 2**32, size=(B, m_pad, K // WORD), dtype=np.uint64).astype(np.uint32)
+    if case == "dense":
+        W |= rng.integers(0, 2**32, size=W.shape, dtype=np.uint64).astype(np.uint32)
+        W |= rng.integers(0, 2**32, size=W.shape, dtype=np.uint64).astype(np.uint32)
+    W[:, ~in_rows] = 0
+    b_bits = (rng.random((B, m_pad)) < 0.5) & in_rows
+    piv_bits = ((rng.random((B, m_pad)) < 0.3) | (case == "all-pivoted")) & in_rows
+    ids = s["ids"].copy()
+    if case == "sentinel":
+        ids[:, ::2] = n
+    if case == "no-candidate":
+        W[:, :, 0] = np.where(piv_bits, W[:, :, 0], W[:, :, 0] & ~np.uint32(1))
+        for j in range(4, K, 8):
+            W[:, :, j // WORD] &= ~np.uint32(1 << (j % WORD))
+    pack = lambda x: np.packbits(x.reshape(B, mw, WORD), axis=-1, bitorder="little").view(np.uint32)[..., 0]
+    return W, pack(b_bits), pack(piv_bits), ids
+
+
+PANEL_CASES = ("random", "sentinel", "no-candidate", "all-pivoted", "dense")
+
+
+@pytest.mark.parametrize("case", PANEL_CASES)
+def test_panel_elim_decomposition_matches_plain_and_pallas(slab, case):
+    """K5c's column-major elimination bit for bit against
+    ``factored_panel_elim_plain`` and the JAX ``_elim_kernel`` (interpret
+    mode) on 48 lanes of the slab."""
+    s = slab
+    W, b0, piv0, ids = _panel_case(s, case)
+    mj, m_pad, blk, B = s["elim"].m_pad, s["m_pad"], s["blk"], s["B"]
+    W_j = np.zeros((mj, K // WORD, B), np.uint32)
+    W_j[:m_pad] = W.transpose(1, 2, 0)
+    b_j, piv_j, cnew_j, prow_j = map(np.asarray, s["progs"][2](
+        jnp.asarray(ids.T), W_j, _jax_rows(b0, mj).T, _jax_rows(piv0, mj).T))
+    lanes = _lanes(s)
+    ln = lanes.numpy()
+    outs = []
+    for fn in (_panel_elim_decomposed, ofc.factored_panel_elim_plain):
+        b_t, piv_t, C_t = _t(b0.copy()), _t(piv0.copy()), _t(s["C"].copy())
+        prow = fn(_t(W[ln]), b_t, piv_t, C_t, lanes, _t(ids[ln]), s["n"], blk)
+        outs.append((prow, b_t, piv_t, C_t))
+    for got, ref in zip(*outs):
+        assert torch.equal(got, ref)
+    prow, b_t, piv_t, C_t = outs[0]
+    assert np.array_equal(np.where(prow.numpy() == m_pad, mj, prow.numpy()), prow_j.T[ln])
+    assert np.array_equal(b_t.numpy().view(np.uint32)[ln], b_j.T[ln, : s["mw"]])
+    assert np.array_equal(piv_t.numpy().view(np.uint32)[ln], piv_j.T[ln, : s["mw"]])
+    cnew = C_t.numpy().view(np.uint32)[ln, blk * 4: blk * 4 + 4]
+    assert np.array_equal(cnew, cnew_j[:m_pad].transpose(2, 1, 0)[ln])
+    pivots = int((prow < m_pad).sum())
+    if case == "all-pivoted":
+        assert pivots == 0 and not cnew.any()
+    else:
+        assert pivots > 0
+    if case == "no-candidate":
+        assert (prow[:, 4::8] == m_pad).all() and (prow[:, 0] == m_pad).all()
+    if case == "sentinel":
+        assert (prow[:, ::2] == m_pad).all()
+
+
+def _y_decomposed(P, lanes, ids, Hc, scur: int) -> torch.Tensor:
+    """K5a as its kernel computes it, in plain torch: each block column's
+    support as a compact list of its nonzero words (index and mask, in
+    ascending order, a sentinel column's list empty), then bit k of Y[s]
+    the parity of the XOR of P[s][w] & mask over column k's list. Same
+    contract as ``factored_y_plain``."""
+    cols = _u(Hc[ids.long()])  # (A, K, mw)
+    nz = cols != 0
+    cnt = nz.sum(2)
+    L = max(int(cnt.max()), 1)
+    widx = torch.sort(nz.to(torch.int8), dim=2, descending=True, stable=True).indices[..., :L]
+    mask = torch.gather(cols, 2, widx) * (torch.arange(L) < cnt[..., None])
+    Pl = _u(P[lanes.long(), :scur])  # (A, scur, mw)
+    x = torch.zeros((Pl.shape[0], scur, K), dtype=torch.int64)
+    for i in range(L):
+        x ^= torch.gather(Pl, 2, widx[:, None, :, i].expand(-1, scur, -1)) & mask[:, None, :, i]
+    for sh in (16, 8, 4, 2, 1):
+        x ^= x >> sh
+    return ofc._pack(x & 1)
+
+
+@pytest.mark.parametrize("case", ["slab", "sentinel", "heavy", "first-block"])
+def test_y_decomposition_matches_plain_and_pallas(slab, case):
+    """K5a's sparse product over column supports bit for bit against
+    ``factored_y_plain`` and the JAX ``_y_kernel`` (interpret mode): the
+    slab's state, every other column a sentinel (empty support), a heavy
+    column (every row of the system) and scur = 128, the first block K5a
+    runs."""
+    s = slab
+    ids, Hc, scur = s["ids"].copy(), s["Hc"].copy(), s["scur"]
+    if case == "sentinel":
+        ids[:, ::2] = s["n"]
+    if case == "heavy":
+        heavy = 7  # a column of H set on every row of the system
+        ids[:, [5, 77]] = heavy
+        Hc[heavy, 0] = -1  # rows 0-31
+        Hc[heavy, 1] = (1 << (s["m"] - WORD)) - 1  # rows 32 .. m - 1
+    if case == "first-block":
+        scur = K
+    mj, B = s["elim"].m_pad, s["B"]
+    hblk = _jax_rows(Hc.view(np.uint32)[ids], mj).transpose(1, 2, 0)  # (K, mw_jax, B)
+    P_j = _jax_rows(s["P"], mj).transpose(1, 2, 0)
+    Y_j = np.asarray(s["progs"][0](jnp.array([scur], jnp.int32), P_j, hblk))
+    lanes = _lanes(s)
+    ln = lanes.numpy()
+    args = (_t(s["P"]), lanes, _t(ids[ln]), _t(Hc), scur)
+    got, ref = _y_decomposed(*args), ofc.factored_y_plain(*args)
+    assert torch.equal(got, ref)
+    assert np.array_equal(got.numpy().view(np.uint32), Y_j[:scur].transpose(2, 0, 1)[ln])
+    assert got.shape == (48, scur, K // WORD) and bool(got.ne(0).any())
+    if case == "sentinel":
+        assert not (ofc._unpack(got)[..., ::2]).any()
 
 
 def test_elimination_choice_follows_the_shape(case, monkeypatch):
