@@ -9,19 +9,22 @@ Phases (any failure raises and the script exits non-zero):
      K6 (structured space-time BP) and K7 (layered BP) with nvcc from
      qldpc_tpu_torch/ops/csrc/, one nvcc per source, all at once;
   code capacity, [[144,12,12]]:
-  3. K1 against its plain torch version;
+  3. K1 (one warp a sample, samples from a work counter; warps a block and
+     grid logged) against its plain torch version;
   4. K2 against its plain torch version on the BP failures of phase 3;
   5. the Monte-Carlo engine's sweep on the card, with the kernel launch
      counts of that sweep, its LER held against the reference archive, and
      its counters held against the CPU engine on a small input;
   6. BP(50) throughput of K1 and of the plain torch version, at the
-     engine's batch of 65,536 syndromes and at 262,144;
+     engine's batch of 65,536 syndromes and at 262,144, p = 0.01, and at
+     65,536 at p = 0.050119, where samples iterate (6.9 on average);
   circuit level, the [[72,12,6]] memory-experiment DEM (432 x 15765):
   7. K3 against its plain torch version, B = 1024, sum-product and min-sum,
      and its summary path (no stored R) against its message path: bit for
      bit, both timed in turns, their peak memory, the summary path's device
      time per iteration by pass and the bytes each streams per iteration;
-  8. K4 against its plain torch version on the BP failures of phase 7;
+  8. K4 against its plain torch version on the BP failures of phase 7
+     (threads a block, blocks an SM and panels of 32 columns walked logged);
   9. the DEM engine's sweep at p = 0.001 and 0.002, with the kernel launch
      counts of that sweep, its observable error and OSD invocation rates
      held against docs/circuit_ler.md, and its counters held against the
@@ -46,8 +49,9 @@ Phases (any failure raises and the script exits non-zero):
       version, sum-product and min-sum, p = 0.008, and K6 timed on the batch,
       on its non-converging lanes alone and on one of them alone (the ms per
       iteration of one sample);
-  16. K4 against its plain version on the BP failures of phase 15, and the
-      OSD-0 solutions against the plain row elimination's;
+  16. K4 against its plain version on the BP failures of phase 15, timed
+      there (its geometry logged), and the OSD-0 solutions against the
+      plain row elimination's;
   17. the space-time engine's sweep at p = 0.004 and 0.008 (launches K6 and
       K4, never K2), its counters held against the CPU engine on small
       inputs and against the JAX engine's recorded ones (min-sum identical,
@@ -68,7 +72,8 @@ of the bytes it must move over 3.35 TB/s and the operations it must do
 over 67 T/s, the card's non-tensor 32-bit peak, which also bounds its
 integer issue rate); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
-prints no result.
+prints no result. K1's row in the kernels line also holds its record at
+p = 0.050119, and K4's its record on the space-time failures.
 """
 
 from __future__ import annotations
@@ -283,7 +288,7 @@ def sample(H: np.ndarray, p: float, B: int, seed: int):
 def phase_k1(H: np.ndarray, dev) -> tuple[float, dict]:
     """K1 against the plain version; returns (max_abs_err, BP failures at p=0.05)."""
     from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
-    from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
+    from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain, launch_grid
 
     B = K1_BATCH
     cases = [
@@ -312,6 +317,10 @@ def phase_k1(H: np.ndarray, dev) -> tuple[float, dict]:
         close = torch.allclose(kv[agree], rv[agree], rtol=VALUE_TOL, atol=VALUE_TOL)
         s_hat = (kh.float() @ torch.from_numpy(H.astype(np.float32)).to(dev).T).remainder(2)
         reproduces = bool((s_hat[kc] == syn[kc].float()).all())
+        if name == "sum-product p=0.01":
+            warps, blocks = launch_grid(B, dec.tables(), shared_priors=True)
+            log(f"K1 geometry: one warp a sample, {warps} warps a block, a persistent grid of "
+                f"{blocks} blocks ({warps * blocks} warps) taking samples from a work counter")
         log(f"K1 {name}: B={B} converged {int(kc.sum())} lanes differing in decision "
             f"{n_diff} (limit {DECISION_TOL * B:.1f}) max |dvalues| {err:.3g} "
             f"mean iterations {ki.float().mean().item():.3f}")
@@ -435,16 +444,18 @@ def phase_engine_vs_cpu(dev) -> None:
 
 def phase_throughput(H: np.ndarray, dev, card_line: str) -> dict:
     """K1 and its plain version at the engine's batch and at
-    THROUGHPUT_BATCH; returns the record at the engine's batch."""
+    THROUGHPUT_BATCH, p = 0.01, and at the engine's batch at p = 0.050119;
+    returns the record at the engine's batch, p = 0.01, with the one at p =
+    0.050119 under ``at_p_0_050119``."""
     from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
     from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
 
-    p = 0.01
     cfg = BPConfig(max_iter=50)
     dec = BPDecoder(H, cfg).to(dev)
-    prior = torch.full((H.shape[1],), math.log((1 - p) / p), dtype=torch.float32, device=dev)
-    rec = None
-    for B in (ENGINE_BATCH, THROUGHPUT_BATCH):
+    recs = {}
+    for p, B in ((0.01, ENGINE_BATCH), (0.01, THROUGHPUT_BATCH), (REF_P, ENGINE_BATCH)):
+        prior = torch.full((H.shape[1],), math.log((1 - p) / p), dtype=torch.float32,
+                           device=dev)
         _, syn_np = sample(H, p, B, seed=2)
         syn = torch.from_numpy(syn_np).to(dev)
         args = (syn, prior, dec.tables(), cfg)
@@ -456,10 +467,11 @@ def phase_throughput(H: np.ndarray, dev, card_line: str) -> dict:
         log(f"BP(50) {CODE} p={p} B={B}: K1 {ms:.3f} ms = {B / ms * 1e3:.0f} syndromes/s "
             f"({dev_ms:.3f} ms on the device); plain torch {plain_ms:.3f} ms = "
             f"{B / plain_ms * 1e3:.0f} syndromes/s; bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}) on {card_line}")
-        if rec is None:
-            rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **b)
-    return rec
+            f"({b['bound_by']}); mean iterations {iters.float().mean().item():.3f} on "
+            f"{card_line}")
+        recs.setdefault(p, dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **b))
+    return dict(recs[0.01], at_p_0_050119=dict(
+        recs[REF_P], syndromes=ENGINE_BATCH, p=REF_P))
 
 
 def binomial_limit(x: float, n: int, ref: float, n_ref: int) -> float:
@@ -616,6 +628,21 @@ def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum"))
     return rec, failures
 
 
+def k4_geometry(m: int, piv: torch.Tensor) -> str:
+    """K4's launch geometry for these samples, and the panels of 32 columns
+    each walked (a sample leaves at the boundary after its last pivot)."""
+    from qldpc_tpu_torch.ops import osd_transform_cuda as otc
+
+    B = piv.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, per_sm, waves = otc.launch_shape(m, B, sms)
+    last = piv.max(dim=1).values.to(torch.int64)
+    panels = torch.where(last >= 0, last // 32 + 1, 0).float()
+    return (f"a block a sample of {threads} threads ({otc.smem_bytes(m)} B of shared memory), "
+            f"{per_sm} blocks an SM, {waves} wave(s) on {sms} SMs; panels walked "
+            f"{panels.mean().item():.2f} mean, {int(panels.max())} max")
+
+
 def phase_k4(eng, failures: dict) -> dict:
     """K4 against the plain version on the BP failures, with and without
     the b-exit; bit-identical. Returns its record with the b-exit, as OSD-0
@@ -651,6 +678,7 @@ def phase_k4(eng, failures: dict) -> dict:
     log(f"K4 time {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms "
         f"({lanes} lanes, b-exit on)")
     T, b, rank, piv = eliminate_transform_cuda(*args)
+    log(f"K4 geometry: {k4_geometry(osd.m, piv)}")
     # reads order, resid and the packed columns, writes T, b, rank, piv; for
     # each column up to a sample's last pivot, one AND and one XOR per word
     # of every row of T
@@ -1027,9 +1055,10 @@ def phase_k6(dev) -> tuple[dict, dict]:
     return rec, failures
 
 
-def phase_st_osd(dev, failures: dict) -> None:
-    """K4 on the space-time BP failures, against its plain version, and the
-    OSD-0 solutions against the plain row elimination's (run on the card)."""
+def phase_st_osd(dev, failures: dict) -> dict:
+    """K4 on the space-time BP failures, against its plain version, timed
+    there, and the OSD-0 solutions against the plain row elimination's (run
+    on the card). Returns K4's record on these failures."""
     from qldpc_tpu_torch.codes import get_code
     from qldpc_tpu_torch.decoders import OSDDecoder
     from qldpc_tpu_torch.noise.spacetime import space_time_matrix
@@ -1055,6 +1084,17 @@ def phase_st_osd(dev, failures: dict) -> None:
         f"b-exit): mean rank reached {got[2].float().mean().item():.1f}, bit-identical {same}")
     if not same:
         raise AssertionError("K4 disagrees with its plain version on H_st")
+    T, b, rank, piv = got
+    log(f"K4 geometry on H_st: {k4_geometry(osd.m, piv)}")
+    ms = cuda_ms(lambda: eliminate_transform_cuda(*args), reps=5)
+    dev_ms = device_ms(lambda: eliminate_transform_cuda(*args), reps=5)
+    plain_ms = cuda_ms(lambda: eliminate_transform_plain(*args), reps=1)
+    cols = float((piv.max(dim=1).values.to(torch.int64) + 1).sum())
+    moved = nbytes(order.to(torch.int32), resid, osd.Hc, T, b, rank, piv)
+    rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, lanes=lanes,
+               **bound(moved, cols * osd.m * osd.m_words * 2))
+    log(f"K4 on H_st: {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; {lanes} lanes, b-exit on)")
     k, n = min(SOLUTION_LANES, lanes), osd.n
     sol = osd(failures["syn"][:k], failures["llrs"][:k], failures["hard"][:k]).to(torch.int32)
     H = torch.from_numpy(Hst).to(dev)
@@ -1070,6 +1110,7 @@ def phase_st_osd(dev, failures: dict) -> None:
         f"elimination's: identical {same}")
     if not same:
         raise AssertionError("the OSD-0 solutions on H_st differ from the row elimination's")
+    return rec
 
 
 def st_engine(dev, bp_cfg=None, code: str = ST_CODE, rounds: int = ST_ROUNDS,
@@ -1308,7 +1349,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     k6, st_failures = timed(phase_k6, dev)
-    timed(phase_st_osd, dev, st_failures)
+    k4["h_st"] = timed(phase_st_osd, dev, st_failures)
     st_launches = timed(phase_st_engine, dev, card_line)
     timed(phase_st_engine_checks, dev)
     timed(phase_st_throughput, dev, card_line)
@@ -1340,12 +1381,13 @@ def main() -> int:
         ("bp_layered", "bp_layered.cu", "qldpc_tpu/ops/bp_pallas.py:123",
          layered_launches["bp_layered"], k7),
     ]
+    extra = ("at_p_0_050119", "h_st")  # K1 where samples iterate, K4 on the space-time failures
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],
              ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
              bound_ms=rec["bound_ms"],
-             bound_by=rec["bound_by"], library_ms=None)
+             bound_by=rec["bound_by"], library_ms=None, **{k: rec[k] for k in extra if k in rec})
         for name, src, replaces, count, rec in rows
     ]
     log(card_line)

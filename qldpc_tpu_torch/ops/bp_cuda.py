@@ -1,7 +1,9 @@
 """Fused flooding BP: the CUDA kernel K1 and its plain torch version.
 
 K1 (``csrc/bp_flooding.cu``) replaces qldpc_tpu/ops/bp_pallas.py::_bp_kernel;
-its header says what bounds it on the card and how the design answers.
+its header says what bounds it on the card and how the design answers (one
+warp a sample, samples from a work counter; ``launch_warps`` picks the warps
+a block from what the shared memory holds).
 ``bp_flooding_plain`` is the flooding path of qldpc_tpu/decoders/bp.py
 (``_check_messages`` and ``_step``) written in torch with the same
 floating-point order: the leave-one-out tanh product is an exclusive prefix
@@ -28,15 +30,16 @@ if TYPE_CHECKING:
 __all__ = [
     "BPTables",
     "check_rule",
+    "launch_warps",
+    "launch_grid",
     "bp_flooding",
     "bp_flooding_plain",
     "bp_flooding_cuda",
 ]
 
 TANH_CLIP = 0.9999999
-_THREADS = 256
-_SMEM_BUDGET = 48 * 1024
-_MAX_SAMPLES_PER_BLOCK = 64
+_WARPS_PER_BLOCK = 8
+_SMEM_PER_BLOCK = 227 * 1024  # what one block may have on the H100
 _MAX_DC = 32
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -44,11 +47,12 @@ _LIB = KernelLibrary(
     "bp_flooding.cu",
     {
         "bp_flooding_launch": [
-            _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
+            _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp,
             _i, _i, _i, _i, _i, _i,
             _f, _i, _f, _i, _f, _f, _i, _f, _i, _i,
-            _i, _i, _vp,
-        ]
+            _i, _vp,
+        ],
+        "bp_flooding_grid": [_i] * 7,
     },
 )
 
@@ -196,10 +200,34 @@ def bp_flooding_plain(
     return values, conv, iters, hard
 
 
-def _samples_per_block(tables: BPTables) -> int:
-    m, n, dc = tables.m, tables.n, tables.dc
-    per_sample = 4 * (2 * m * dc + 2 * n) + n + m
-    return max(1, min(_MAX_SAMPLES_PER_BLOCK, _SMEM_BUDGET // per_sample))
+def launch_warps(m: int, n: int, dc: int, shared_priors: bool) -> int:
+    """K1's warps a block, one sample each: eight, or what a block's shared
+    memory holds of the warps' slices (Q, R, the posteriors, the priors
+    unless every sample shares them, the syndrome bytes) beside what shared
+    priors add once a block (the priors, and the first iteration's check
+    messages for either syndrome bit, 2 m dc floats). Raises when not one
+    slice fits."""
+    def pad(x):
+        return (x + 3) & ~3
+
+    per_warp = 4 * pad(2 * m * dc + n + (0 if shared_priors else n) + (m + 3) // 4)
+    room = _SMEM_PER_BLOCK - (4 * (pad(n) + 2 * m * dc) if shared_priors else 0)
+    warps = min(_WARPS_PER_BLOCK, room // per_warp)
+    if warps < 1:
+        raise ValueError(f"one sample's state ({per_warp} bytes) exceeds a block's shared memory")
+    return warps
+
+
+def launch_grid(B: int, tables: BPTables, shared_priors: bool) -> tuple[int, int]:
+    """(warps a block, blocks) of K1's persistent grid for B samples on the
+    current CUDA device: the blocks the samples need, at most what its SMs
+    hold at once."""
+    warps = launch_warps(tables.m, tables.n, tables.dc, shared_priors)
+    blocks = _LIB.lib.bp_flooding_grid(B, tables.m, tables.n, tables.dc, tables.dv,
+                                       int(shared_priors), warps)
+    if blocks < 0:
+        raise RuntimeError(f"bp_flooding.cu::bp_flooding_grid failed with cudaError {-blocks}")
+    return warps, blocks
 
 
 def bp_flooding_cuda(
@@ -235,25 +263,28 @@ def bp_flooding_cuda(
             raise ValueError("all BP operands must be on one device")
     if tables.check_var.dtype != torch.int32 or tables.var_edge.dtype != torch.int32:
         raise TypeError("BP tables must be int32")
+    warps = launch_warps(m, n, tables.dc, prior_stride == 0)
+    # contiguous operands bound to names: each must outlive the launch
     syn = syndromes.to(torch.uint8).contiguous()
     priors = priors.contiguous()
+    check_var, var_edge = tables.check_var.contiguous(), tables.var_edge.contiguous()
     values = torch.empty((B, n), dtype=torch.float32, device=dev)
     conv = torch.empty(B, dtype=torch.uint8, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     alpha32 = float(alpha)
     _LIB.call(
         "bp_flooding_launch",
         syn.data_ptr(), priors.data_ptr(), prior_stride,
-        tables.check_var.contiguous().data_ptr(),
-        tables.var_edge.contiguous().data_ptr(),
-        values.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+        check_var.data_ptr(), var_edge.data_ptr(),
+        values.data_ptr(), conv.data_ptr(), iters.data_ptr(), counter.data_ptr(),
         B, m, n, tables.dc, tables.dv,
         0 if cfg.method == "sum-product" else 1,
         alpha32, int(alpha32 != 1.0),
         float(cfg.offset), int(bool(cfg.offset)),
         float(cfg.damping), float(1.0 - cfg.damping), int(cfg.damping != 1.0),
         float(cfg.clip_llr or 0.0), int(cfg.clip_llr is not None),
-        cfg.max_iter, _samples_per_block(tables), _THREADS,
+        cfg.max_iter, warps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     bp_flooding_cuda.launches += 1

@@ -3,7 +3,11 @@ plain torch version.
 
 K4 (``csrc/gf2_transform_elim.cu``) replaces
 qldpc_tpu/ops/osd_transform_pallas.py::_kernel; its header says what bounds
-it on the card and how the design answers. ``eliminate_transform_plain`` is
+it on the card and how the design answers (panels of 32 columns, each
+eliminated by one warp on one word per row, only the rows holding a panel
+bit and the 32 from the rank, transposed to a column a lane, then applied to
+T once). ``launch_shape`` gives its threads a block, blocks an SM and waves.
+``eliminate_transform_plain`` is
 qldpc_tpu/decoders/osd.py::_eliminate_lanes_T in torch, sample-major: each
 sample carries the packed m x m row transform T instead of its permuted
 system, and the RREF bit of (row r, permuted column c) is
@@ -34,15 +38,20 @@ from qldpc_tpu_torch.ops.osd_cuda import WORD
 __all__ = [
     "pack_columns",
     "smem_bytes",
+    "launch_shape",
     "eliminate_transform",
     "eliminate_transform_plain",
     "eliminate_transform_cuda",
 ]
 
 # dynamic shared memory one block may opt in to on sm_90 (227 KB), less the
-# kernel's static reduction scratch
-SMEM_LIMIT = 227 * 1024 - 256
+# kernel's static scratch
+_STATIC_SMEM = 336  # the kernel's static shared memory: two panel tables, two scalars
+SMEM_LIMIT = 227 * 1024 - _STATIC_SMEM
 _COL_BLOCK = 32
+_SM_SMEM = 228 * 1024  # shared memory of one SM, 1 KB of it reserved per block
+_SM_THREADS = 2048  # threads one SM holds
+_SM_BLOCKS = 32  # blocks one SM holds
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _LIB = KernelLibrary(
@@ -67,10 +76,32 @@ def pack_columns(H: np.ndarray) -> np.ndarray:
 
 
 def smem_bytes(m: int) -> int:
-    """Shared memory of one K4 block: T at an odd row stride, the column,
-    and b, piv_col and the column bits per row."""
+    """Dynamic shared memory of one K4 block: T at an odd row stride, the
+    staged panel columns (the same stride) and their word lists, and per
+    row (padded to 32) the panel word, the pivot mask, piv_col, the slot,
+    the list's logical row and b."""
     mw = -(-m // WORD)
-    return 4 * (m * (mw | 1) + mw) + 12 * m
+    m_pad = mw * WORD
+    return 4 * (m * (mw | 1) + _COL_BLOCK * (mw | 1) + _COL_BLOCK * mw + 3 * m_pad) \
+        + 4 * m_pad + m_pad
+
+
+def launch_shape(m: int, B: int, sms: int) -> tuple[int, int, int]:
+    """K4's (threads a block, blocks an SM, waves) for B samples of m rows
+    on ``sms`` SMs. A block per sample; the kernel instance for m's row
+    groups fixes the threads: 256 up to 512 rows (its registers bounded for
+    six blocks an SM), 512 beyond (two, or one past 1,024 rows), never more
+    than a thread a row. Blocks an SM: what the shared memory and the
+    threads allow (registers may allow fewer where m is small)."""
+    groups = -(-m // WORD)
+    threads = min(256 if groups <= 16 else 512, groups * WORD)
+    fit = max(1, min(_SM_SMEM // (smem_bytes(m) + _STATIC_SMEM + 1024),
+                     _SM_THREADS // threads, _SM_BLOCKS))
+    return threads, max(1, min(fit, -(-B // sms))), -(-B // (sms * fit))
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _identity(B: int, m: int, mw: int, device) -> torch.Tensor:
@@ -178,7 +209,7 @@ def eliminate_transform_cuda(order: torch.Tensor, b: torch.Tensor,
     T = torch.empty((B, m, mw), dtype=torch.int32, device=dev)
     rank = torch.empty(B, dtype=torch.int32, device=dev)
     piv = torch.empty((B, m), dtype=torch.int32, device=dev)
-    threads = min(1024, -(-m // 32) * 32)
+    threads = launch_shape(m, B, _sm_count(dev))[0]
     _LIB.call(
         "gf2_transform_elim_launch",
         order32.data_ptr(), Hc.data_ptr(), T.data_ptr(),

@@ -98,7 +98,7 @@ def main() -> int:
         bp_kernels = ("st_bp_kernel",)
     else:
         eng = MonteCarloEngine(code, EngineConfig(**kw), device="cuda")
-        bp_kernels = ("bp_layered_",) if args.schedule == "layered" else ("bp_flooding_kernel",)
+        bp_kernels = ("bp_layered_",) if args.schedule == "layered" else ("bp_flooding_",)
     eng.run_rate(args.p[0], args.batch)  # build the kernels, warm the allocator
     report = []
     for p in args.p:

@@ -151,3 +151,28 @@ def test_out_of_slice_features_raise():
     assert dec.slot_layout
     r = dec(torch.tensor([[1, 0, 1]], dtype=torch.int8), torch.full((3,), 2.0))
     assert r.converged.all() and r.hard.tolist() == [[1, 0, 0]]
+
+
+@pytest.mark.parametrize("shared_priors", [True, False])
+@pytest.mark.parametrize("code_name", ["steane", "[[72, 12, 6]]", "[[144, 12, 12]]",
+                                       "[[288, 12, 18]]"])
+def test_k1_launch_warps_follow_the_shared_memory(code_name, shared_priors):
+    """K1 runs a sample a warp: eight warps a block for every code the card
+    tests cover, [[288,12,18]] included; larger graphs get what a block's
+    shared memory holds, and a graph whose one sample does not fit raises."""
+    from qldpc_tpu_torch.ops.bp_cuda import launch_warps
+
+    H = get_code(code_name).Hx
+    m, n = H.shape
+    dc = int(H.sum(axis=1).max())
+    warps = launch_warps(m, n, dc, shared_priors)
+    assert warps == 8
+    per_warp = 4 * (2 * m * dc + n * (1 if shared_priors else 2)) + m
+    once = 4 * (n + 2 * m * dc) if shared_priors else 0  # priors, first-iteration table
+    assert warps * per_warp + once <= 227 * 1024
+    # samples with their own priors: two of 106,200 bytes; shared priors: one
+    # of 101,400 beside the block's 100,800 (priors and table)
+    assert launch_warps(600, 1200, 20, shared_priors) == (1 if shared_priors else 2)
+    assert launch_warps(1000, 2000, 20, False) == 1  # 177,000 bytes a sample
+    with pytest.raises(ValueError, match="exceeds a block's shared memory"):
+        launch_warps(2000, 4000, 20, shared_priors)

@@ -811,3 +811,135 @@ def test_new_paths_on_card_match_cpu_engine(cuda, case):
     assert ref["BPs_fault"] > 0
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def _k4_wide_system(m: int, B: int, seed: int):
+    """A random wide system of m rows (columns of weight 1-3, n = 4 m + 13:
+    a last partial panel), per-sample column orders, and residuals: half a
+    few columns early in the sample's order (the b-exit takes them at a
+    panel boundary), half a random error's."""
+    rng = np.random.default_rng(seed)
+    n = 4 * m + 13
+    H = np.zeros((m, n), np.uint8)
+    for j in range(n):
+        H[rng.choice(m, size=rng.integers(1, 4), replace=False), j] = 1
+    order = np.argsort(rng.random((B, n)), axis=1)
+    e = (rng.random((B, n)) < 0.01).astype(np.int64)
+    for s in range(0, B, 2):
+        e[s] = 0
+        e[s, order[s, rng.choice(64, size=rng.integers(1, 4), replace=False)]] = 1
+    resid = (e @ H.T) % 2
+    resid[resid.sum(1) == 0, 0] = 1
+    return H, order, resid
+
+
+# (m, B): m_words 5, 14 (the [[72]] DEM's 432) and 27 (H_st's 864), and m =
+# 256, a multiple of 32; one sample, one wave of the [[72]] DEM's failures
+# and several waves
+K4_SHAPES = [(160, 1), (160, 716), (432, 1), (432, 716), (432, 4096), (864, 1), (864, 716),
+             (256, 33), (256, 716)]
+
+
+@pytest.mark.parametrize("b_exit", [False, True])
+@pytest.mark.parametrize("m,B", K4_SHAPES)
+def test_k4_matches_plain_at_every_geometry(cuda, m, B, b_exit):
+    """K4's panels bit for bit against the plain version at each launch
+    geometry its launcher picks from m and B."""
+    H, order_np, resid_np = _k4_wide_system(m, B, seed=31 + m + B)
+    h_rank = OSDDecoder(H).h_rank  # (OSD-0 would take K2's rows for some of these)
+    Hc = torch.from_numpy(osd_transform_cuda.pack_columns(H)).to(cuda)
+    order = torch.from_numpy(order_np).to(cuda)
+    resid = torch.from_numpy(resid_np.astype(np.int32)).to(cuda)
+    got = eliminate_transform_cuda(order, resid, Hc, h_rank, b_exit)
+    ref = eliminate_transform_plain(order, resid, Hc, h_rank, b_exit)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if b_exit and B > 1:
+        assert bool((got[2] < h_rank).any())
+
+
+@pytest.mark.parametrize("b_exit", [False, True])
+def test_k4_matches_plain_on_the_full_rank_space_time_matrix(cuda, b_exit):
+    """H_st of [[144,12,12]] at T = 12 has rank m = 864: the rank row is
+    clamped at m - 1 once every row holds a pivot."""
+    Hst = space_time_matrix(get_code("[[144, 12, 12]]").Hx, 12)
+    osd = OSDDecoder(Hst).to(cuda)
+    assert osd.elimination == "transform" and osd.h_rank == Hst.shape[0]
+    rng = np.random.default_rng(32)
+    B = 48
+    e = (rng.random((B, Hst.shape[1])) < 0.01).astype(np.int64)
+    resid = torch.from_numpy(((e @ Hst.T) % 2).astype(np.int32)).to(cuda)
+    order = torch.from_numpy(np.argsort(rng.random((B, Hst.shape[1])), axis=1)).to(cuda)
+    got = eliminate_transform_cuda(order, resid, osd.Hc, osd.h_rank, b_exit)
+    ref = eliminate_transform_plain(order, resid, osd.Hc, osd.h_rank, b_exit)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if not b_exit:
+        assert bool((got[2] == Hst.shape[0]).all())
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_k1_mixed_batch_of_early_and_late_samples(cuda, method):
+    """Samples that converge at iteration 0 (zero syndromes), 1 or 2 (light
+    errors) and samples that run all iterations (heavy errors), shuffled, in
+    a batch that is no multiple of the warps a block."""
+    cfg = BPConfig(max_iter=30, method=method)
+    H = get_code("[[144, 12, 12]]").Hx
+    rng = np.random.default_rng(24)
+    B = 8191
+    p = rng.choice([0.0, 0.01, 0.25], size=B, p=[0.3, 0.4, 0.3])
+    errors = (rng.random((B, H.shape[1])) < p[:, None]).astype(np.int64)
+    syn = torch.from_numpy(((errors @ H.T) % 2).astype(np.uint8)).to(cuda)
+    dec = BPDecoder(H, cfg).to(cuda)
+    prior = torch.full((H.shape[1],), math.log(99.0), dtype=torch.float32, device=cuda)
+    got = bp_flooding_cuda(syn, prior, dec.tables(), cfg)
+    ref = bp_flooding_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _hold_bp(got, ref, method, B)
+    iters = got[2].cpu().numpy()
+    for it in (0, 1, 2, 29):
+        assert (iters == it).sum() > 10, f"no samples stop at iteration {it}"
+    assert int((~got[1]).sum()) > 100
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 50_001])  # 50,001: no multiple of any grid
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_k1_batch_sizes(cuda, B, method):
+    """Fewer samples than warps on one SM, one warp short of and one past a
+    warp's 32 lanes of samples, and more samples than the persistent grid's
+    warps, every sample taken once from the work counter; the counter starts
+    at 0 on every call (two calls on one stream agree)."""
+    cfg = BPConfig(max_iter=50, method=method)
+    H, syn_np = _syndromes("[[144, 12, 12]]", 0.05, B, seed=25)
+    dec = BPDecoder(H, cfg).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    prior = torch.full((H.shape[1],), math.log(19.0), dtype=torch.float32, device=cuda)
+    got = bp_flooding_cuda(syn, prior, dec.tables(), cfg)
+    again = bp_flooding_cuda(syn, prior, dec.tables(), cfg)
+    ref = bp_flooding_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _assert_same(got, again)
+    _hold_bp(got, ref, method, B)
+
+
+@pytest.mark.parametrize("code_name", ["steane", "[[72, 12, 6]]", "[[144, 12, 12]]",
+                                       "[[288, 12, 18]]"])
+@pytest.mark.parametrize("case", list(BP_CASES))
+def test_k1_per_sample_priors(cuda, code_name, case):
+    """Priors (B, n), a slice of the warp's shared memory each, and priors
+    (n,) that differ by variable, shared once a block with the first
+    iteration's table, against the plain version in every configuration."""
+    cfg = BP_CASES[case]
+    B = 4099
+    H, syn_np = _syndromes(code_name, 0.04, B, seed=26)
+    dec = BPDecoder(H, cfg).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    rng = np.random.default_rng(27)
+    priors = torch.from_numpy(rng.uniform(1.5, 4.5, (B, H.shape[1])).astype(np.float32)).to(cuda)
+    for pr in (priors, priors[0]):
+        got = bp_flooding_cuda(syn, pr, dec.tables(), cfg)
+        ref = bp_flooding_plain(syn, pr, dec.tables(), cfg)
+        torch.cuda.synchronize()
+        _hold_bp(got, ref, cfg.method, B)
