@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
   code capacity, [[144,12,12]]:
   3. K1 (one warp a sample, samples from a work counter; warps a block and
      grid logged) against its plain torch version;
-  4. K2 against its plain torch version on the BP failures of phase 3;
+  4. K2 against its plain torch version on the BP failures of phase 3: its
+     packed-rows entry and its ordered loader (H's packed columns in each
+     sample's order, the OSD decoder's path), each timed;
   5. the Monte-Carlo engine's sweep on the card, with the kernel launch
      counts of that sweep, its LER held against the reference archive, and
      its counters held against the CPU engine on a small input;
@@ -73,7 +75,8 @@ over 67 T/s, the card's non-tensor 32-bit peak, which also bounds its
 integer issue rate); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result. K1's row in the kernels line also holds its record at
-p = 0.050119, and K4's its record on the space-time failures.
+p = 0.050119, K2's (its ordered loader's, the path's) its packed-rows
+entry's, and K4's its record on the space-time failures.
 """
 
 from __future__ import annotations
@@ -338,12 +341,18 @@ def phase_k1(H: np.ndarray, dev) -> tuple[float, dict]:
 
 
 def phase_k2(H: np.ndarray, dev, failures: dict) -> dict:
-    """K2 against the plain version on the BP failures; bit-identical.
-    Returns its kernel record: (kernel, plain) ms per call and the bound."""
+    """K2 against its plain version on the BP failures, bit-identical: its
+    packed-rows entry (A, b and piv_col) and its ordered loader (b and
+    piv_col, from H's packed columns in each sample's order: the OSD
+    decoder's path), each timed. Returns the ordered loader's kernel record
+    with the packed-rows entry's under ``rows``."""
     from qldpc_tpu_torch.decoders import OSDDecoder
     from qldpc_tpu_torch.ops.osd_cuda import (
+        eliminate_ordered_cuda,
+        eliminate_ordered_plain,
         eliminate_rows_cuda,
         eliminate_rows_plain,
+        launch_instance,
         pack_rows,
     )
 
@@ -352,27 +361,41 @@ def phase_k2(H: np.ndarray, dev, failures: dict) -> dict:
     resid = (failures["syn"].to(torch.int32)
              + torch.remainder(hard.float() @ osd.Hf.T, 2.0).to(torch.int32)) % 2
     order = torch.argsort(failures["llrs"].abs(), dim=1, stable=True)
-    A = pack_rows(osd.H[:, order].permute(1, 0, 2))
-    n, lanes = osd.n, A.shape[0]
+    A = pack_rows(torch.from_numpy(H).to(dev)[:, order].permute(1, 0, 2))
+    n, m, lanes, nw = osd.n, osd.m, A.shape[0], A.shape[2]
     ka, kb, kp = eliminate_rows_cuda(A, resid, n, osd.h_rank)
     torch.cuda.synchronize()
     ra, rb, rp = eliminate_rows_plain(A, resid, n, osd.h_rank)
     torch.cuda.synchronize()
     same = torch.equal(ka, ra) and torch.equal(kb, rb) and torch.equal(kp, rp)
-    log(f"K2 on {lanes} BP failures (m={osd.m}, n={n}, {A.shape[2]} words, "
-        f"rank {osd.h_rank}): bit-identical {same}")
-    if not same:
+    ob, op = eliminate_ordered_cuda(order, resid, osd.Hc, osd.h_rank)
+    torch.cuda.synchronize()
+    pb, pp = eliminate_ordered_plain(order, resid, osd.Hc, osd.h_rank)
+    same_ordered = (torch.equal(ob, rb) and torch.equal(op, rp) and torch.equal(pb, rb)
+                    and torch.equal(pp, rp))
+    log(f"K2 on {lanes} BP failures (m={m}, n={n}, {nw} words, rank {osd.h_rank}, register "
+        f"instance {launch_instance(m, nw)}): packed rows bit-identical {same}; ordered "
+        f"loader (b, piv) bit-identical to the plain versions' {same_ordered}")
+    if not (same and same_ordered):
         raise AssertionError("K2 disagrees with its plain version")
-    ms = cuda_ms(lambda: eliminate_rows_cuda(A, resid, n, osd.h_rank), reps=5)
-    dev_ms = device_ms(lambda: eliminate_rows_cuda(A, resid, n, osd.h_rank), reps=5)
-    plain_ms = cuda_ms(lambda: eliminate_rows_plain(A, resid, n, osd.h_rank), reps=1)
-    log(f"K2 time {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms "
-        f"({lanes} lanes)")
-    # reads A and b, writes A, b and piv; each pivot touches every word of
-    # every row once
-    pivots = int((kp >= 0).sum())
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0,
-                **bound(2 * nbytes(A, resid) + nbytes(kp), pivots * A.shape[1] * A.shape[2]))
+    # the dense count: a word operation per row, word and pivot
+    ops = int((kp >= 0).sum()) * m * nw
+    recs = {}
+    for name, kernel, plain, args, moved in (
+            ("rows", eliminate_rows_cuda, eliminate_rows_plain, (A, resid, n, osd.h_rank),
+             2 * nbytes(A, resid) + nbytes(kp)),
+            # reads H's packed columns once, order and resid; writes b and piv
+            ("ordered", eliminate_ordered_cuda, eliminate_ordered_plain,
+             (order, resid, osd.Hc, osd.h_rank),
+             nbytes(osd.Hc, order.to(torch.int32), resid, ob, op))):
+        ms = cuda_ms(lambda: kernel(*args), reps=5)
+        dev_ms = device_ms(lambda: kernel(*args), reps=5)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=1)
+        recs[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0,
+                          **bound(moved, ops))
+        log(f"K2 {name}: {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
+            f"bound {recs[name]['bound_ms']:.5f} ms ({recs[name]['bound_by']}; {lanes} lanes)")
+    return dict(recs["ordered"], rows=recs["rows"])
 
 
 def phase_engine(dev, card_line: str) -> dict:
@@ -391,12 +414,12 @@ def phase_engine(dev, card_line: str) -> dict:
     rates = [0.01, REF_P]
     torch.cuda.synchronize()
     bp_cuda.bp_flooding_cuda.launches = 0
-    osd_cuda.eliminate_rows_cuda.launches = 0
+    osd_cuda.eliminate_ordered_cuda.launches = 0
     res = eng.sweep(rates, trials=trials)
     torch.cuda.synchronize()
     launches = {
         "bp_flooding": bp_cuda.bp_flooding_cuda.launches,
-        "gf2_elim": osd_cuda.eliminate_rows_cuda.launches,
+        "gf2_elim": osd_cuda.eliminate_ordered_cuda.launches,
     }
     for p, d in zip(rates, res.per_rate):
         scalars = {k: v for k, v in d.items() if not isinstance(v, np.ndarray)}
@@ -1140,7 +1163,7 @@ def phase_st_engine(dev, card_line: str) -> dict:
     eng = st_engine(dev)
     wrappers = {"st_bp": spacetime_bp_cuda.st_bp_cuda,
                 "gf2_transform_elim": osd_transform_cuda.eliminate_transform_cuda,
-                "gf2_elim": osd_cuda.eliminate_rows_cuda}
+                "gf2_elim": osd_cuda.eliminate_ordered_cuda}
     torch.cuda.synchronize()
     for fn in wrappers.values():
         fn.launches = 0
@@ -1257,7 +1280,7 @@ def phase_layered_engine(dev, card_line: str) -> dict:
         bp=BPConfig(max_iter=50, schedule="layered"), osd=OSDConfig(order=0),
         batch_size=LAYERED_BATCH), device=dev)
     wrappers = {"bp_layered": bp_layered_cuda.bp_layered_cuda,
-                "gf2_elim": osd_cuda.eliminate_rows_cuda,
+                "gf2_elim": osd_cuda.eliminate_ordered_cuda,
                 "bp_flooding": bp_cuda.bp_flooding_cuda}
     torch.cuda.synchronize()
     for fn in wrappers.values():
@@ -1381,7 +1404,8 @@ def main() -> int:
         ("bp_layered", "bp_layered.cu", "qldpc_tpu/ops/bp_pallas.py:123",
          layered_launches["bp_layered"], k7),
     ]
-    extra = ("at_p_0_050119", "h_st")  # K1 where samples iterate, K4 on the space-time failures
+    # K1 where samples iterate, K2's packed-rows entry, K4 on the space-time failures
+    extra = ("at_p_0_050119", "rows", "h_st")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

@@ -3,8 +3,10 @@
 Each kernel source under ``qldpc_tpu_torch/ops/csrc/`` is compiled with
 ``nvcc`` at first use into a shared library with a plain C interface and
 loaded with ctypes. Libraries land in ``qldpc_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is never served a stale library.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is never
+served a stale library. A source outside ``csrc/`` (an edited copy) finds
+the shared headers there too.
 
 The flags pin the numerics: ``-fmad=false`` keeps nvcc from contracting
 ``a*b + c`` into one fused multiply-add, which torch's separate elementwise
@@ -58,8 +60,9 @@ class KernelLibrary:
         self.build_log = ""
 
     def _library_path(self) -> Path:
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
 
@@ -71,7 +74,7 @@ class KernelLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(self.source)],
             capture_output=True, text=True,
         )
         self.build_log = proc.stdout + proc.stderr

@@ -11,8 +11,10 @@ Three eliminations, chosen from the shape of H alone before any launch, so
 that the card and the CPU choose alike and their counters can be compared:
 
   * narrow systems whose packed rows fit one warp's shared memory in K2:
-    each sample's permuted H bit-packed by rows and fully row-reduced
-    (``ops.osd_cuda.eliminate_rows``: plain torch on CPU, K2 on CUDA);
+    the full row reduction of each sample's [H[:, order] | resid], read from
+    H's packed columns in the sample's order, with (b, piv_col) alone
+    returned (``ops.osd_cuda.eliminate_ordered``: plain torch on CPU, K2 on
+    CUDA);
   * wide systems (``n_words > 4 * m_words``: circuit-level DEMs), and narrow
     ones too large for K2 (the space-time matrix of [[144,12,12]] at T = 12,
     864 x 2,592), whose transform fits one block's shared memory: the
@@ -48,8 +50,7 @@ from qldpc_tpu_torch.ops.tanner import parity_tables
 from qldpc_tpu_torch.ops.osd_cuda import (
     ROWS_SMEM_LIMIT,
     WORD,
-    eliminate_rows,
-    pack_rows,
+    eliminate_ordered,
     rows_smem_bytes,
 )
 from qldpc_tpu_torch.ops.osd_factored_cuda import eliminate_factored, factored_columns
@@ -131,7 +132,7 @@ class OSDDecoder(nn.Module):
                 self.max_cols = max(config.max_elim_cols, min(self.n, self.h_rank + 512))
         else:
             self.elimination = "rows"
-            self.register_buffer("H", torch.from_numpy(H))
+            self.register_buffer("Hc", torch.from_numpy(pack_columns(H)))
             self.register_buffer("Hf", torch.from_numpy(H.astype(np.float32)))
 
     def _residual(self, syndromes, hard):
@@ -147,7 +148,7 @@ class OSDDecoder(nn.Module):
     def forward(self, syndromes: torch.Tensor, llrs: torch.Tensor,
                 hard: torch.Tensor) -> torch.Tensor:
         """OSD-0 solutions (B, n) int8."""
-        dev = (self.H if self.elimination == "rows" else self.Hc).device
+        dev = self.Hc.device
         syndromes = torch.as_tensor(syndromes, device=dev)
         llrs = torch.as_tensor(llrs, device=dev)
         hard = torch.as_tensor(hard, device=dev).to(torch.int32)
@@ -163,13 +164,13 @@ class OSDDecoder(nn.Module):
             corr[bidx, torch.where(piv >= 0, piv, n).long()] = b
             sol = hard ^ corr[:, :n]
             return torch.where(overflow[:, None], hard, sol).to(torch.int8)
+        # OSD-0 reads only (b, piv_col): the transform elimination's b-exit
+        # leaves them exact, and the row elimination returns nothing else
         if self.elimination == "transform":
-            # OSD-0 reads only (b, piv_col), which the b-exit leaves exact
             _, b, _, piv = eliminate_transform(order, resid, self.Hc, self.h_rank,
                                                b_exit=True)
         else:
-            Hp = self.H[:, order].permute(1, 0, 2)  # (B, m, n) per-sample permuted
-            _, b, piv = eliminate_rows(pack_rows(Hp), resid, n, self.h_rank)
+            b, piv = eliminate_ordered(order, resid, self.Hc, self.h_rank)
         tgt = torch.where(piv >= 0, piv, n).long()
         e_perm = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
         e_perm[bidx, tgt] = b

@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_util.cuh"
+
 #define MAX_DC 32
 #define TANH_CLIP 0.9999999f
 #define FULL_MASK 0xffffffffu
@@ -58,24 +60,6 @@ __device__ __forceinline__ float clamp_nan(float x, float lo, float hi)
 __device__ __forceinline__ float max_nan(float x, float lo)
 {
     return isnan(x) ? x : fmaxf(x, lo);
-}
-
-// A compile-time index that converts to int on the device.
-template <int I>
-struct Index {
-    static constexpr int value = I;
-    __host__ __device__ constexpr operator int() const { return I; }
-};
-
-// f(0), f(1), ..., f(N - 1) as N statements, each index a compile-time
-// constant: arrays indexed by it stay in registers however large f is.
-template <int N, int I = 0, class F>
-__device__ __forceinline__ void unrolled(F&& f)
-{
-    if constexpr (I < N) {
-        f(Index<I>{});
-        unrolled<N, I + 1>(f);
-    }
 }
 
 // One check's rule on its dc messages q (Q, or at the first iteration the

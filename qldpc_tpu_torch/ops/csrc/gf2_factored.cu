@@ -25,10 +25,20 @@
 //        parities, each an XOR of P[s][w] & mask over its column's list (one
 //        term per nonzero word, not one per word of the row); a warp shares
 //        q, so the lists are broadcast and the walk does not diverge;
-//   K5b  one thread per row r: the block's Y (up to 37 KB) in shared memory,
-//        read as warp broadcasts; C is word-major with the rows minor, so a
-//        warp reads 32 rows' coefficient words in one transaction, and a
-//        word that is zero for the whole warp is skipped;
+//   K5b  a block of 512 threads a sample and tile of rows: the tile is the
+//        whole sample (up to 2,048 rows, four a thread) while the samples
+//        give two blocks an SM, and shrinks to 32 rows as they thin out, so
+//        Y (up to 37 KB) is staged once a sample by cp.async where it is
+//        read most. The H bits come from the block columns' words over the
+//        tile, each read once (a warp eight columns at a time, a lane a
+//        word), set bit by bit into the tile's W rows in shared memory. C
+//        is word-major with the rows minor: the tile's coefficient words
+//        come in by cp.async in chunks of up to 32 KB (the whole tile at the
+//        [[144]] DEM; double-buffered beyond), the first with Y while H is
+//        listed, and each thread XORs in the Y rows of its words' set bits
+//        (C is under 0.3% set: 1.6 bits a nonzero word). A small tile
+//        splits each row's words into slices (16 at 32 rows), whose sums
+//        meet by atomicXor in the tile's rows;
 //   K5c  one warp runs a sample's 128 columns, several samples a block,
 //        no barrier per column: W sits column-major in shared memory
 //        (column j a mask over rows, mw words; 28 KB a sample at the
@@ -66,9 +76,13 @@
 
 #include <algorithm>
 
+#include "warp_util.cuh"
+
 #define K 128
 #define KW 4
-#define W_ROWS 256
+#define W_THREADS 512  // K5b: threads a block
+#define W_CHUNK_WORDS 8192  // K5b: C words a staged chunk (32 KB)
+#define W_H_COLS 8  // K5b: H's block columns a warp reads at a time
 #define RESOLVE_THREADS 512
 #define RESOLVE_WARPS (RESOLVE_THREADS / 32)
 #define TILE_ROWS 64  // staged P rows a buffer; two buffers hold K rows
@@ -87,27 +101,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes)
         asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(d), "l"(src) : "memory");
     else
         asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
-}
-
-// The 32 x 32 bit transpose across a warp: lane l holds row l on entry and
-// column l on exit (bit i of lane l's word goes to bit l of lane i's). Step
-// s swaps the lane-index bit s with the bit-index bit s: a lane keeps the
-// half of its bits whose index bit s equals its lane bit s and takes the
-// other half from its partner, rotated by s (the bits a rotation wraps land
-// in the kept half): a shuffle, a funnel shift and one LOP3 a step.
-__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lid)
-{
-    const uint32_t lo[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u, 0x55555555u};
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-        const int s = 16 >> k;
-        const bool up = lid & s;
-        const uint32_t keep = up ? ~lo[k] : lo[k];
-        const uint32_t y = __shfl_xor_sync(FULL, x, s);
-        const uint32_t t = __funnelshift_l(y, y, up ? 32 - s : s);  // rotate left
-        x = (x & keep) | (t & ~keep);
-    }
-    return x;
 }
 
 // K5a: Y[a][s][q] bit kk = parity(P[lane][s] & Hc[ids[a][32 q + kk]]), s < scur.
@@ -202,49 +195,118 @@ __global__ void factored_y_kernel(
 }
 
 // K5b: W[a][r] = (H bits of row r in the block's columns) ^ XOR_{s < scur,
-// C[lane][s / 32][r] bit s % 32} Y[a][s].
-__global__ void factored_w_kernel(
+// C[lane][s / 32][r] bit s % 32} Y[a][s]. Block (a, y) takes rows [y *
+// rows, (y + 1) * rows) of sample a. A thread takes R rows and one slice of
+// C's words (slices = threads x R / rows); C's words come in chunks of
+// cwords words of every row of the tile. Every term goes into the tile's
+// rows in shared memory by atomicXor (H's bits are distinct, so XOR sets
+// them as OR would), in any order.
+template <int R>
+__global__ void __launch_bounds__(W_THREADS) factored_w_kernel(
     const uint32_t* __restrict__ C, const int* __restrict__ lanes,
     const int* __restrict__ ids, const uint32_t* __restrict__ Hc,
     const uint32_t* __restrict__ Y, uint32_t* __restrict__ W,
-    int cw, int m_pad, int mw, int scur)
+    int cw, int m_pad, int mw, int scur, int rows, int cwords)
 {
     extern __shared__ __align__(16) uint32_t smem[];
-    uint32_t* Ys = smem;                                  // scur x KW
-    int* ids_s = reinterpret_cast<int*>(Ys + (size_t)scur * KW);  // K
-    const int a = blockIdx.x, tid = threadIdx.x;
-    const size_t lane = (size_t)lanes[a];
-    const uint32_t* Ya = Y + (size_t)a * scur * KW;
-    for (int i = tid; i < scur * KW; i += blockDim.x) Ys[i] = Ya[i];
-    for (int k = tid; k < K; k += blockDim.x) ids_s[k] = ids[(size_t)a * K + k];
-    __syncthreads();
-    const int r = blockIdx.y * W_ROWS + tid;
-    if (r >= m_pad) return;  // m_pad is a multiple of 32: whole warps leave
+    const int nt = blockDim.x, tid = threadIdx.x, G = rows / R, S = nt / G;
+    const int sw_n = scur >> 5, n_chunks = (sw_n + cwords - 1) / cwords;
+    uint4* Ys = reinterpret_cast<uint4*>(smem);                   // scur
+    uint32_t* Cs = smem + (size_t)scur * KW;                       // 1-2 x cwords x rows
+    uint32_t* Ws = Cs + (size_t)(n_chunks > 1 ? 2 : 1) * cwords * rows;  // rows x KW
+    int* ids_s = reinterpret_cast<int*>(Ws + (size_t)rows * KW);  // K
+    const int a = blockIdx.x, r0 = blockIdx.y * rows;
+    const int nr = min(rows, m_pad - r0);  // a multiple of 32
+    const uint32_t* Cl = C + (size_t)lanes[a] * cw * m_pad + r0;  // word sw, row r: Cl[sw m_pad + r]
 
-    const int rw = r >> 5, rb = r & 31;
-    uint32_t acc[KW];
-    for (int q = 0; q < KW; ++q) {
-        uint32_t word = 0u;
-        for (int kk = 0; kk < 32; ++kk)
-            word |= ((Hc[(size_t)ids_s[q * 32 + kk] * mw + rw] >> rb) & 1u) << kk;
-        acc[q] = word;
-    }
-    const uint32_t* Cr = C + lane * cw * m_pad + r;  // word sw at Cr[sw * m_pad]
-    for (int sw = 0; sw < (scur >> 5); ++sw) {
-        const uint32_t c = Cr[(size_t)sw * m_pad];
-        if (!__any_sync(0xffffffffu, c != 0u)) continue;
-        const uint4* y4 = reinterpret_cast<const uint4*>(Ys + (size_t)sw * 32 * KW);
+    // chunk ch of C: word u of tile row r at Cs[buffer][u rows + r], four rows
+    // a copy: thread t copies rows 4 (t % (rows / 4)) of words t / (rows / 4),
+    // + nt / (rows / 4), ... (rows and nt are powers of two, rows / 4 <= nt)
+    const int lg4 = __ffs(rows) - 3, r4 = 4 * (tid & ((rows >> 2) - 1)), u0 = tid >> lg4;
+    auto stage = [&](int ch) {
+        uint32_t* dst = Cs + (size_t)(ch & 1) * cwords * rows;
+        const int s0 = ch * cwords, nu = min(cwords, sw_n - s0);
+        if (r4 < nr)
+            for (int u = u0; u < nu; u += nt >> lg4)
+                cp_async(dst + (size_t)u * rows + r4, Cl + (size_t)(s0 + u) * m_pad + r4, 16);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    // Y and C's first chunk in flight while H is listed
+    const uint4* Ya = reinterpret_cast<const uint4*>(Y) + (size_t)a * scur;
+    for (int i = tid; i < scur; i += nt) cp_async(Ys + i, Ya + i, 16);
+    if (n_chunks) stage(0);
+    else asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int i = tid; i < nr * KW; i += nt) Ws[i] = 0u;
+    for (int k = tid; k < K; k += nt) ids_s[k] = ids[(size_t)a * K + k];
+    __syncthreads();
+
+    // the H bits: each (block column, word) of the tile read once, a warp
+    // W_H_COLS columns at a time, a lane a word of each; bit k of W set in
+    // the rows of each word's set bits (a [[144]] DEM column sets ~7 of its
+    // 1,728 bits)
+    const int w0 = r0 >> 5, nwr = nr >> 5, warp = tid >> 5, lid = tid & 31, nwarps = nt >> 5;
+    for (int k0 = warp; k0 < K; k0 += W_H_COLS * nwarps)
+        for (int w = lid; w < nwr; w += 32) {
+            uint32_t h[W_H_COLS];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-            const uint32_t mask = 0u - ((c >> i) & 1u);
-            const uint4 v = y4[i];
-            acc[0] ^= v.x & mask;
-            acc[1] ^= v.y & mask;
-            acc[2] ^= v.z & mask;
-            acc[3] ^= v.w & mask;
+            for (int q = 0; q < W_H_COLS; ++q) {
+                const int k = k0 + q * nwarps;
+                h[q] = k < K ? Hc[(size_t)ids_s[k] * mw + w0 + w] : 0u;
+            }
+#pragma unroll
+            for (int q = 0; q < W_H_COLS; ++q) {
+                const int k = k0 + q * nwarps;
+                uint32_t* dst = Ws + (size_t)(32 * w) * KW + (k >> 5);
+                for (uint32_t x = h[q]; x; x &= x - 1u)
+                    atomicXor(dst + (__ffs(x) - 1) * KW, 1u << (k & 31));
+            }
+        }
+
+    // C . Y: C is under 0.3% set at the [[144]] DEM (a nonzero thread word
+    // holds 1.6 bits), so each thread walks its words' set bits
+    const int g = tid % G, slice = tid / G;
+    uint4 acc[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) acc[k] = make_uint4(0u, 0u, 0u, 0u);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+        if (ch + 1 < n_chunks) {
+            stage(ch + 1);
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        }
+        __syncthreads();
+        const uint32_t* cs = Cs + (size_t)(ch & 1) * cwords * rows;
+        const int s0 = ch * cwords, nu = min(cwords, sw_n - s0);
+        for (int u = slice; u < nu; u += S) {
+            const uint4* ys = Ys + (size_t)(s0 + u) * 32;
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+                const int r = g + k * G;
+                for (uint32_t x = r < nr ? cs[(size_t)u * rows + r] : 0u; x; x &= x - 1u) {
+                    const uint4 v = ys[__ffs(x) - 1];
+                    acc[k].x ^= v.x;
+                    acc[k].y ^= v.y;
+                    acc[k].z ^= v.z;
+                    acc[k].w ^= v.w;
+                }
+            }
+        }
+        __syncthreads();  // the buffer is restaged two chunks on
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        const int r = g + k * G;
+        if (r < nr && (acc[k].x | acc[k].y | acc[k].z | acc[k].w)) {
+            atomicXor(Ws + (size_t)r * KW, acc[k].x);
+            atomicXor(Ws + (size_t)r * KW + 1, acc[k].y);
+            atomicXor(Ws + (size_t)r * KW + 2, acc[k].z);
+            atomicXor(Ws + (size_t)r * KW + 3, acc[k].w);
         }
     }
-    reinterpret_cast<uint4*>(W)[(size_t)a * m_pad + r] = make_uint4(acc[0], acc[1], acc[2], acc[3]);
+    __syncthreads();
+    uint4* Wa = reinterpret_cast<uint4*>(W) + (size_t)a * m_pad + r0;
+    for (int r = tid; r < nr; r += nt) Wa[r] = reinterpret_cast<const uint4*>(Ws)[r];
 }
 
 // K5c: the block's K columns eliminated in order on [W | b] with implicit
@@ -642,18 +704,30 @@ extern "C" int factored_y_launch(
 
 extern "C" int factored_w_launch(
     const void* C, const void* lanes, const void* ids, const void* Hc,
-    const void* Y, void* W, int A, int cw, int m_pad, int mw, int scur, void* stream)
+    const void* Y, void* W, int A, int cw, int m_pad, int mw, int scur, int rows, void* stream)
 {
     if (A <= 0) return (int)cudaSuccess;
-    if (m_pad % 32) return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(uint32_t) * ((size_t)scur * KW + K);
-    int err = launch_check((const void*)factored_w_kernel, smem);
+    if (m_pad % 32 || rows < 32 || rows > W_THREADS * 4 || (rows & (rows - 1)))
+        return (int)cudaErrorInvalidValue;  // a power of two from 32 to 2,048
+    if ((uintptr_t)C % 16 || (uintptr_t)Y % 16)  // 16-byte cp.async of C's and Y's rows
+        return (int)cudaErrorMisalignedAddress;
+    // W_THREADS threads: R = rows / W_THREADS rows a thread for large tiles,
+    // W_THREADS / rows slices of C's words for small ones
+    const int threads = W_THREADS, R = std::max(1, rows / W_THREADS);
+    // C in chunks of whole words over the tile, two buffers when it takes more than one
+    const int sw_n = scur / 32, cwords = std::max(1, std::min(sw_n, W_CHUNK_WORDS / rows));
+    const int buffers = sw_n > cwords ? 2 : 1;
+    const size_t smem = sizeof(uint32_t) * ((size_t)scur * KW + (size_t)buffers * cwords * rows
+                                            + (size_t)rows * KW + K);
+    const void* kernel = R == 1 ? (const void*)factored_w_kernel<1>
+                       : R == 2 ? (const void*)factored_w_kernel<2>
+                                : (const void*)factored_w_kernel<4>;
+    int err = launch_check(kernel, smem);
     if (err) return err;
-    const dim3 grid(A, (m_pad + W_ROWS - 1) / W_ROWS);
-    factored_w_kernel<<<grid, W_ROWS, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)C, (const int*)lanes, (const int*)ids, (const uint32_t*)Hc,
-        (const uint32_t*)Y, (uint32_t*)W, cw, m_pad, mw, scur);
-    return (int)cudaGetLastError();
+    void* args[] = {(void*)&C, (void*)&lanes, (void*)&ids, (void*)&Hc, (void*)&Y, &W,
+                    &cw, &m_pad, &mw, &scur, &rows, (void*)&cwords};
+    return (int)cudaLaunchKernel(kernel, dim3(A, (m_pad + rows - 1) / rows), dim3(threads), args,
+                                 smem, (cudaStream_t)stream);
 }
 
 extern "C" int factored_elim_launch(

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_util.cuh"
+
 #define PANEL 32
 #define FULL 0xffffffffu
 #define MAX_GROUPS 48  // rows in groups of 32: m <= 1536
@@ -71,22 +73,6 @@ __device__ __forceinline__ void stage_panel(
     const uint32_t* src = Hc + (size_t)__ldg(ord + c) * mw;
     uint32_t* dst = hc + lane * stride;
     for (int w = 0; w < mw; ++w) cp_async4(dst + w, src + w);
-}
-
-// The 32 x 32 bit transpose across a warp: lane l holds row l (bit c: entry
-// (l, c)) and gets column l (bit r: entry (r, l)). Five butterfly stages,
-// each swapping the off-diagonal blocks of size s.
-__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane)
-{
-    const uint32_t keep[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u, 0x55555555u};
-#pragma unroll
-    for (int t = 0; t < 5; ++t) {
-        const int s = 16 >> t;
-        const uint32_t k = keep[t];
-        const uint32_t y = __shfl_xor_sync(FULL, x, s);
-        x = (lane & s) ? (x & ~k) | ((y & ~k) >> s) : (x & k) | ((y & k) << s);
-    }
-    return x;
 }
 
 // Step 3: one warp eliminates the panel's columns on W alone.

@@ -18,7 +18,8 @@ block, for the samples still running:
        for every frozen pivot s < scur and block column (qldpc_tpu/ops/
        osd_factored.py:84 ``_y_kernel``);
   K5b  ``factored_w_*``: W = H_blk ^ C . Y, the block's current RREF bits of
-       every row (:111 ``_w_kernel``);
+       every row (:111 ``_w_kernel``), a block a sample and tile of rows
+       (``w_tile_rows``);
   K5c  ``factored_panel_elim_*``: the K-column elimination on [W | b] with
        implicit pivots (the first un-pivoted row holding the bit, no row
        swaps), which updates b and the pivoted-row flags, writes the block's
@@ -72,6 +73,7 @@ __all__ = [
     "factored_y_cuda",
     "factored_w_plain",
     "factored_w_cuda",
+    "w_tile_rows",
     "factored_panel_elim_plain",
     "factored_panel_elim_cuda",
     "factored_resolve_plain",
@@ -86,7 +88,7 @@ _LIB = KernelLibrary(
     "gf2_factored.cu",
     {
         "factored_y_launch": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
-        "factored_w_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+        "factored_w_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
         "factored_elim_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                  _i, _i, _i, _i, _i, _vp],
         "factored_resolve_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
@@ -242,6 +244,24 @@ def factored_y_cuda(P, lanes, ids, Hc, scur: int) -> torch.Tensor:
     return Y
 
 
+# K5b's row tiles, largest first: a block a sample and tile, R = rows / 512
+# rows a thread from 1,024 rows on
+W_TILE_ROWS = (2048, 1024, 512, 256, 128, 64, 32)
+
+
+def w_tile_rows(A: int, m_pad: int, sms: int) -> int:
+    """K5b's rows a block of 512 threads: the largest tile, no larger than
+    the smallest that holds a sample's m_pad rows, that still gives the
+    card 2 blocks an SM (Y is staged once a block: the larger the tile, the
+    fewer copies); 32 when none does."""
+    fits = [r for r in W_TILE_ROWS if r >= m_pad]
+    cap = fits[-1] if fits else W_TILE_ROWS[0]
+    for rows in W_TILE_ROWS:
+        if rows <= cap and A * -(-m_pad // rows) >= 2 * sms:
+            return rows
+    return W_TILE_ROWS[-1]
+
+
 def factored_w_cuda(C, lanes, ids, Hc, Y, scur: int) -> torch.Tensor:
     """Launch K5b. Same contract as ``factored_w_plain``."""
     dev = _check_cuda(C, lanes, ids, Hc, Y)
@@ -251,9 +271,12 @@ def factored_w_cuda(C, lanes, ids, Hc, Y, scur: int) -> torch.Tensor:
     if ids.shape != (A, BLOCK_COLS) or Y.shape != (A, scur, _KW) or m_pad != mw * WORD \
             or scur > cw * WORD:
         raise ValueError("factored_w: shapes do not fit")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = w_tile_rows(A, m_pad, sms)
     W = torch.empty((A, m_pad, _KW), dtype=torch.int32, device=dev)
     _LIB.call("factored_w_launch", C.data_ptr(), lanes.data_ptr(), ids.data_ptr(),
-              Hc.data_ptr(), Y.data_ptr(), W.data_ptr(), A, cw, m_pad, mw, scur, _stream(dev))
+              Hc.data_ptr(), Y.data_ptr(), W.data_ptr(), A, cw, m_pad, mw, scur, rows,
+              _stream(dev))
     factored_w_cuda.launches += 1
     return W
 

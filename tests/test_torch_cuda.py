@@ -12,7 +12,11 @@ path (the one-pass check rule) equals its message path bit for bit. K5d is
 also held on synthetic edge blocks (block 0, no pivot, dense G) at four row
 widths, K5c (block 0, no pivot, dense W, each launch geometry) at four and
 K5a (empty, heavy and sentinel columns; scur 128, a ragged tile and 2,176)
-at four (row tiles of 128, 64 and 32 rows); K6 at cluster widths 1 and
+at four (row tiles of 128, 64 and 32 rows), K5b (C zero, one bit, sparse
+and dense; scur 0, 128 and 2,176; empty, heavy and sentinel columns) at
+m_pad 32, 1,728 and 5,184 and at every tile of rows, and K2's two
+instances and two loaders from Steane to a 673 x 2,656 system, with
+rank-deficient systems and an early stop; K6 at cluster widths 1 and
 above, rounds that do not divide evenly and a width above T, where every
 width gives the default width's bits.
 ``test_k6_geometry_follows_the_state_size`` needs no card.
@@ -25,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from qldpc_tpu_torch.codes import get_code
+from qldpc_tpu_torch.codes import get_code, gf2
 from qldpc_tpu_torch.decoders import BPConfig, BPDecoder, OSDConfig, OSDDecoder
 from qldpc_tpu_torch.mc import (
     DEMEngine,
@@ -105,7 +109,7 @@ def test_k2_matches_plain(cuda, code_name):
     osd = OSDDecoder(H).to(cuda)
     rng = np.random.default_rng(2)
     order = torch.from_numpy(np.stack([rng.permutation(osd.n) for _ in range(B)])).to(cuda)
-    A = pack_rows(osd.H[:, order].permute(1, 0, 2))
+    A = pack_rows(torch.from_numpy(H).to(cuda)[:, order].permute(1, 0, 2))
     b = torch.from_numpy(syn_np.astype(np.int32)).to(cuda)
     for max_rank in (None, osd.h_rank):
         got = eliminate_rows_cuda(A, b, osd.n, max_rank)
@@ -113,6 +117,83 @@ def test_k2_matches_plain(cuda, code_name):
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
+
+
+def _k2_system(case: str, B: int, seed: int):
+    """(H, order (B, n), b (B, m)) for a K2 case: a code's Hx, the [[144]]
+    code with every row doubled (rank-deficient, m = 144), random systems
+    of the shared instance (m = 300 x n = 600, and 673 x 2,656, the widest
+    whose column store would not fit a block), each with random column
+    orders and a random b."""
+    rng = np.random.default_rng(seed)
+    if case == "[[144]] doubled rows":
+        Hx = get_code("[[144, 12, 12]]").Hx
+        H = np.concatenate([Hx, Hx[::-1]])
+    elif case.startswith("random"):
+        m, n = map(int, case.split()[1].split("x"))
+        H = (rng.random((m, n)) < 0.05).astype(np.uint8)
+        H[m // 2] = H[0] ^ H[1]  # a dependent row
+    else:
+        H = get_code(case).Hx
+    m, n = H.shape
+    order = np.stack([rng.permutation(n) for _ in range(B)])
+    b = (rng.random((B, m)) < 0.5).astype(np.int32)
+    return H, torch.from_numpy(order), torch.from_numpy(b)
+
+
+K2_CASES = {  # case: (samples, instance: index of REG_INSTANCES or -1, the shared one)
+    "steane": (4096, 0), "[[72, 12, 6]]": (4096, 1), "[[90, 8, 10]]": (2048, 1),
+    "[[144, 12, 12]]": (4583, 2), "[[288, 12, 18]]": (1024, 3),
+    "[[144]] doubled rows": (1024, 3), "random 300x600": (257, -1), "random 673x2656": (9, -1),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_instances_and_loaders_match_plain(cuda, case):
+    """Both K2 instances and both loaders: the packed-rows entry's A, b and
+    piv_col against the plain version, the ordered loader's (b, piv_col)
+    against the packed-rows entry's and its own plain version, at rank(H)
+    and at an early stop below it; nonzero bits beyond column n in the
+    packed rows are carried along as the plain version carries them."""
+    B, instance = K2_CASES[case]
+    H, order, b = _k2_system(case, B, seed=40 + len(case))
+    m, n = H.shape
+    nw = -(-n // 32)
+    assert osd_cuda.launch_instance(m, nw) == instance
+    Hc = torch.from_numpy(osd_transform_cuda.pack_columns(H)).to(cuda)
+    order, b = order.to(cuda), b.to(cuda)
+    A = pack_rows(torch.from_numpy(H).to(cuda)[:, order].permute(1, 0, 2))
+    if n % 32:
+        A[:, :, -1] |= torch.randint(0, 2, A.shape[:2], device=cuda, dtype=torch.int32) << 31
+    rank = int(gf2.rank(H))
+    for max_rank in (rank, rank // 2):
+        got = eliminate_rows_cuda(A, b, n, max_rank)
+        ref = eliminate_rows_plain(A, b, n, max_rank)
+        ordered = osd_cuda.eliminate_ordered_cuda(order, b, Hc, max_rank)
+        ordered_ref = osd_cuda.eliminate_ordered_plain(order, b, Hc, max_rank)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        assert torch.equal(ordered[0], got[1]) and torch.equal(ordered[1], got[2])
+        for g, r in zip(ordered, ordered_ref):
+            assert torch.equal(g, r)
+        assert int((got[2] >= 0).sum(1).max()) == max_rank
+
+
+def test_osd_rows_path_launches_the_ordered_loader(cuda):
+    """The OSD decoder's rows path runs K2 through its ordered loader alone,
+    and its solutions equal the CPU decoder's."""
+    H, syn_np = _syndromes("[[144, 12, 12]]", 0.06, 512, seed=5)
+    rng = np.random.default_rng(6)
+    llrs = np.round(rng.normal(size=(512, H.shape[1])), 1).astype(np.float32)
+    hard = (rng.random((512, H.shape[1])) < 0.05).astype(np.int8)
+    osd_cuda.eliminate_rows_cuda.launches = osd_cuda.eliminate_ordered_cuda.launches = 0
+    args = [torch.from_numpy(x) for x in (syn_np, llrs, hard)]
+    got = OSDDecoder(H).to(cuda)(*[x.to(cuda) for x in args])
+    ref = OSDDecoder(H)(*args)
+    assert osd_cuda.eliminate_ordered_cuda.launches == 1
+    assert osd_cuda.eliminate_rows_cuda.launches == 0
+    assert torch.equal(got.cpu(), ref)
 
 
 MIN_SUM = BPConfig(max_iter=30, method="min-sum")
@@ -550,6 +631,74 @@ def test_k5a_matches_plain_on_edge_blocks(cuda, mw, scur):
     assert torch.equal(got, ref)
     bits = ofc._unpack(got)
     assert not bits[..., [0, 2, 64, 66]].any() and bool(bits[..., 1].any())
+
+
+def _w_state(mw: int, scur: int, c_case: str, seed: int, B: int = 24, A: int = 17):
+    """A K5b input on A of B samples: C (B, cw, 32 mw) with room for scur
+    columns, all zero, one set bit a sample, dense (half the bits) or
+    sparse (0.2%, the [[144]] DEM's); Y (A, scur, 4) random; the block
+    columns of ``_y_state`` (empty, heavy and sentinel columns in every
+    sample)."""
+    rng = np.random.default_rng(seed)
+    m_pad = 32 * mw
+    cw = max(scur // 32, 1) + 2
+    _, lanes, ids, Hc = _y_state(mw, s_max=32, seed=seed, B=B, A=A)
+    C = np.zeros((B, cw, m_pad), np.uint32)
+    sw = scur // 32
+    if sw and c_case == "dense":
+        C[:, :sw] = _u32(rng, B, sw, m_pad)
+    elif sw and c_case == "sparse":  # a sample at a time: the draws of one (B, ...) call
+        for s in range(B):
+            bits = rng.random((sw, m_pad, 32)) < 0.002
+            C[s, :sw] = np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)[..., 0]
+    elif sw and c_case == "one-bit":
+        for s in range(B):
+            C[s, rng.integers(sw), rng.integers(m_pad)] = np.uint32(1) << np.uint32(rng.integers(32))
+    C[:, sw:] = _u32(rng, B, cw - sw, m_pad)  # words past scur are never read
+    Y = _u32(rng, A, scur, ofc.BLOCK_COLS // 32)
+    return _i32(C), lanes, ids, Hc, _i32(Y)
+
+
+@pytest.mark.parametrize("mw", [1, 54, 162])  # m_pad 32, 1,728 ([[144]] DEM), 5,184 ([[288]])
+@pytest.mark.parametrize("scur", [0, 128, 2176])
+@pytest.mark.parametrize("c_case", ["zero", "one-bit", "sparse", "dense"])
+def test_k5b_matches_plain_on_edge_blocks(cuda, mw, scur, c_case):
+    """K5b bit for bit against its plain version on 17 of 24 samples:
+    C all zero, one bit, sparse and dense, at the first block, the second
+    and the [[144]] budget's last, with empty, heavy and sentinel block
+    columns in every sample, at the tile the launcher picks."""
+    C, lanes, ids, Hc, Y = (t.to(cuda) for t in _w_state(mw, scur, c_case, seed=110 + mw + scur))
+    got = ofc.factored_w_cuda(C, lanes, ids, Hc, Y, scur)
+    ref = ofc.factored_w_plain(C, lanes, ids, Hc, Y, scur)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if scur == 0 or c_case == "zero":  # W is H's bits: column 0 empty, column 1 heavy
+        assert not bool((got[..., 0] & 1).any()) and bool(((got[..., 0] >> 1) & 1).all())
+
+
+def _k5b_samples(rows: int, m_pad: int, sms: int) -> int:
+    """The fewest running samples for which the launcher picks ``rows``:
+    ``w_tile_rows`` takes the largest tile that still gives 2 blocks an SM
+    (on 132 SMs at m_pad 1,728: 264, 132, 66, 38, 19, 10 and 5 samples)."""
+    return -(-2 * sms // -(-m_pad // rows))
+
+
+@pytest.mark.parametrize("rows", ofc.W_TILE_ROWS)
+@pytest.mark.parametrize("mw", [54, 162])
+def test_k5b_matches_plain_at_every_tile(cuda, rows, mw):
+    """Every tile of rows K5b can take (R = 1, 2 and 4 rows a thread from
+    512 rows, slices of C's words below; tiles ending inside the sample),
+    each at the sample count that makes the launcher choose it, on sparse C
+    at the [[144]] budget's last block."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    A = _k5b_samples(rows, 32 * mw, sms)
+    assert ofc.w_tile_rows(A, 32 * mw, sms) == rows
+    C, lanes, ids, Hc, Y = (t.to(cuda) for t in _w_state(mw, 2176, "sparse", seed=150 + mw,
+                                                         B=A + 7, A=A))
+    got = ofc.factored_w_cuda(C, lanes, ids, Hc, Y, 2176)
+    ref = ofc.factored_w_plain(C, lanes, ids, Hc, Y, 2176)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def test_factored_osd_solutions_match_transform(cuda):

@@ -572,6 +572,91 @@ def test_y_decomposition_matches_plain_and_pallas(slab, case):
         assert not (ofc._unpack(got)[..., ::2]).any()
 
 
+def _w_decomposed(C, lanes, ids, Hc, Y, scur: int, rows: int) -> torch.Tensor:
+    """K5b as its kernel computes it, in plain torch, tile by tile of
+    ``rows`` rows: bit k of W set in the rows of the set bits of block
+    column k's words over the tile (each word read once), then each row's
+    coefficient words walked bit by bit, lowest first, XORing in the Y row
+    of each set bit. Same contract as ``factored_w_plain``."""
+    A, m_pad = lanes.shape[0], C.shape[2]
+    cols = _u(Hc[ids.long()])  # (A, K, mw)
+    Cl = _u(C[lanes.long(), : scur // WORD])  # (A, sw, m_pad)
+    Yl = _u(Y)  # (A, scur, 4)
+    aidx = torch.arange(A)[:, None]
+    tiles = []
+    for r0 in range(0, m_pad, rows):
+        nr = min(rows, m_pad - r0)
+        H = torch.zeros((A, nr, K // WORD), dtype=torch.int64)
+        words = cols[:, :, r0 // WORD: (r0 + nr) // WORD]  # (A, K, nr / 32)
+        for b in range(WORD):  # the walk over each word's set bits, in any order
+            hit = ((words >> b) & 1).transpose(1, 2)  # (A, nr / 32, K): row 32 w + b
+            for q in range(K // WORD):
+                H[:, b::WORD, q] |= (hit[:, :, WORD * q: WORD * (q + 1)]
+                                     << torch.arange(WORD)).sum(-1)
+        acc = torch.zeros((A, nr, K // WORD), dtype=torch.int64)
+        for sw in range(scur // WORD):
+            x = Cl[:, sw, r0: r0 + nr].clone()
+            while bool(x.any()):
+                low = x & -x
+                s = torch.log2(low.clamp(min=1).double()).round().long()
+                y = Yl[aidx, WORD * sw + s]  # (A, nr, 4)
+                acc ^= torch.where((x != 0)[..., None], y, 0)
+                x &= x - 1
+        tiles.append(acc ^ H)
+    return _i32(torch.cat(tiles, dim=1))
+
+
+@pytest.mark.parametrize("case", ["slab", "sparse", "zero", "sentinel-heavy"])
+@pytest.mark.parametrize("rows", [32, 2048])
+def test_w_decomposition_matches_plain_and_pallas(slab, case, rows):
+    """K5b's H bits from the block columns' words and its set-bit walk of C
+    bit for bit against ``factored_w_plain`` and the JAX ``_w_kernel``
+    (interpret mode) on 48 lanes of the slab: the slab's C (half its bits
+    set), C as sparse as the [[144]] DEM's (0.2%), C zero, and every other
+    column a sentinel with two heavy columns, at the smallest and the
+    largest tile."""
+    s = slab
+    scur, B, m = s["scur"], s["B"], s["m"]
+    rng = np.random.default_rng(81 + len(case))
+    C, ids, Hc = s["C"].copy(), s["ids"].copy(), s["Hc"].copy()
+    if case == "sparse":
+        C &= np.where(rng.random(C.shape) < 0.06, rng.integers(0, 2**32, C.shape, dtype=np.uint64)
+                      & rng.integers(0, 2**32, C.shape, dtype=np.uint64)
+                      & rng.integers(0, 2**32, C.shape, dtype=np.uint64), 0).astype(np.uint32)
+    if case == "zero":
+        C[:] = 0
+    if case == "sentinel-heavy":
+        ids[:, ::2] = s["n"]
+        ids[:, [5, 77]] = 7
+        Hc[7, 0] = -1
+        Hc[7, 1] = (1 << (m - WORD)) - 1
+    Y_p = rng.integers(0, 2**32, size=(B, scur, K // WORD), dtype=np.uint64).astype(np.uint32)
+    Y_j = np.zeros((s["elim"].s_max, K // WORD, B), np.uint32)
+    Y_j[:scur] = Y_p.transpose(1, 2, 0)
+    C_j = np.zeros((s["elim"].m_pad, s["elim"].cw, B), np.uint32)
+    C_j[: s["m_pad"]] = C.transpose(2, 1, 0)
+    hblk_t = _jax_rows(Hc.view(np.uint32)[ids], s["elim"].m_pad).transpose(2, 1, 0)
+    W_j = np.asarray(s["progs"][1](jnp.array([scur], jnp.int32), C_j, Y_j, hblk_t))
+    lanes = _lanes(s)
+    ln = lanes.numpy()
+    args = (_t(C), lanes, _t(ids[ln]), _t(Hc), _t(Y_p[ln]), scur)
+    got, ref = _w_decomposed(*args, rows=rows), ofc.factored_w_plain(*args)
+    assert torch.equal(got, ref)
+    assert np.array_equal(got.numpy().view(np.uint32), W_j[: s["m_pad"]].transpose(2, 0, 1)[ln])
+    if case == "zero":  # W is the block columns' bits of H
+        assert torch.equal(got, ofc.factored_w_plain(*args[:5], 0))
+
+
+@pytest.mark.parametrize("A,m_pad,rows", [
+    (1017, 1728, 2048), (720, 1728, 2048), (384, 1728, 2048), (172, 1728, 1024),
+    (75, 1728, 512), (28, 1728, 128), (13, 1728, 64), (1, 1728, 32), (1017, 5184, 2048),
+    (20, 32, 32), (300, 96, 128)])
+def test_w_tile_follows_the_samples(A, m_pad, rows):
+    """K5b's tile on 132 SMs: the whole sample while the samples give two
+    blocks an SM, then smaller tiles, never larger than a sample needs."""
+    assert ofc.w_tile_rows(A, m_pad, 132) == rows
+
+
 def test_elimination_choice_follows_the_shape(case, monkeypatch):
     H = case["H"]
     assert OSDDecoder(H).elimination == "transform"  # its transform fits K4
