@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's five paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -64,7 +64,32 @@ Phases (any failure raises and the script exits non-zero):
       torch version, B = 65,536, p = 0.050119, and both per-call times;
   20. the layered engine at p = 0.050119 (launches K7 and K2), its LER held
       against the JAX layered engine's and its counters against the CPU
-      engine on a small input.
+      engine on a small input;
+  the experiments CLI and the rest of the circuit-level family:
+  21. ``python -m qldpc_tpu_torch.experiments.cli run complete-bposd`` on the
+      [[90,8,10]] and [[108,8,10]] DEMs at p = 0.001 and 0.002, 10,240
+      trials, float32 streams (launches K3 and K4, never K5), read back from
+      its npz: obs-err and OSD rate within 4 sigma of docs/circuit_ler.md;
+      then K4 against its plain version on each DEM's BP failures, with and
+      without the b-exit (900 and 1,080 rows); each code's K4 geometry and
+      trials/s logged;
+  22. checkpointed runs on the card: the [[144]] code-capacity engine and the
+      [[72]] DEM engine interrupted after 2 batches and resumed, equal to an
+      uninterrupted run and to the same rate run through the CLI;
+  23. the [[288,12,18]] DEM (5,184 x 204,765): one batch of 1,024 at p =
+      0.003 through run_experiment (obs-err, OSD rate, peak memory, stage
+      times), K3 against its plain version on 256 samples of a batch
+      (sum-product and min-sum), K5a-d against their plain versions at
+      blocks 0 and 1 of one
+      OSD call, and K5's device ms over a whole OSD call (``at_288`` in K5's
+      rows of the kernels line);
+  24. [[288,12,18]] space-time at T = 18 (H_st 2,592 x 7,776): the card
+      engine's min-sum counters against the CPU engine's on 16 trials, K5a-d
+      at blocks 0 and 1 on H_st, the OSD-0 solutions against the plain row
+      elimination's, and the LER and OSD rate at p = 0.004 and 0.008 on
+      1,024 trials each (K6 and K5);
+  25. rescue_iters = 10 on the [[144]] code-capacity engine: counters equal
+      to a single BP(50) run's, both timed.
 Before the last it prints the card's name and power limit and the kernels'
 JSON record (each kernel's launches on its path; its time between CUDA
 events around its calls, ``ms``, which holds the host's launch work where a
@@ -76,15 +101,19 @@ integer issue rate); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result. K1's row in the kernels line also holds its record at
 p = 0.050119, K2's (its ordered loader's, the path's) its packed-rows
-entry's, and K4's its record on the space-time failures.
+entry's, K4's its record on the space-time failures, and K5a-d's their
+device ms over one OSD call at the [[288]] DEM (phase 23).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -113,6 +142,7 @@ DEM_REF_TRIALS = 10_000
 DEM_BATCH, DEM_TRIALS = 1024, 10_240  # per error rate
 K3_DECISION_TOL = 1  # lanes in 1024 allowed to differ in decision (K3)
 K5_CHECK_LANES, SOLUTION_LANES = 128, 32
+K4_NO_EXIT_LANES = 128  # BP failures K4 is held on without the b-exit
 
 # the space-time preset (qldpc_tpu/experiments/configs.py:184-188) at its
 # central code, rounds = distance
@@ -597,13 +627,45 @@ def k3_paths(name: str, args, cfg, tables, B: int) -> dict:
     return dict(ms=ms[0], message_ms=ms[1], device_ms=device_ms(summ, reps=2))
 
 
+def k3_held(eng, syn, llr, cfg, label: str):
+    """K3 against its plain version on the same syndromes and priors:
+    min-sum bit for bit; sum-product with at most K3_DECISION_TOL lanes in
+    1,024 differing in decision (converged flag, iterations or hard
+    decision) and the agreeing lanes' posteriors within VALUE_TOL. Returns
+    K3's outputs and the largest posterior difference."""
+    from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain
+
+    B, tables = syn.shape[0], eng.bp.tables()
+    kv, kc, ki, kh = dem_bp_cuda(syn, llr, tables, cfg)
+    torch.cuda.synchronize()
+    rv, rc, ri, rh = dem_bp_plain(syn, llr, tables, cfg)
+    torch.cuda.synchronize()
+    differ = (kc != rc) | (ki != ri) | (kh != rh).any(1)
+    n_diff, agree = int(differ.sum()), ~differ
+    err = float((kv[agree] - rv[agree]).abs().max()) if bool(agree.any()) else 0.0
+    exact = all(torch.equal(a, b) for a, b in ((kv, rv), (kc, rc), (ki, ri), (kh, rh)))
+    log(f"K3 {label} {cfg.method}: B={B} converged {int(kc.sum())} mean "
+        f"iterations {ki.float().mean().item():.3f} lanes differing in decision "
+        f"{n_diff} max |dvalues| {err:.3g} bit-identical {exact}")
+    if cfg.method == "min-sum" and not exact:
+        raise AssertionError(f"K3 {label} min-sum is not bit-identical to the plain version")
+    if n_diff > K3_DECISION_TOL * B / 1024:
+        raise AssertionError(f"K3 {label} {cfg.method}: {n_diff} lanes differ in decision")
+    if not torch.allclose(kv[agree], rv[agree], rtol=VALUE_TOL, atol=VALUE_TOL):
+        raise AssertionError(f"K3 {label} {cfg.method}: posteriors differ beyond {VALUE_TOL}")
+    s_hat = eng._syndrome(kh)
+    if not bool((s_hat[kc] == syn[kc]).all()):
+        raise AssertionError(f"K3 {label} {cfg.method}: a converged lane misses its syndrome")
+    return (kv, kc, ki, kh), err
+
+
 def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum")):
     """K3 against the plain version on one DEM, and its summary path against
     its message path. Returns its record at the first rate, sum-product
     (max_abs_err over every case, ms, plain ms, the bound) and the BP
     failures at p = 0.002, sum-product."""
     from qldpc_tpu_torch.decoders import BPConfig
-    from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain
+    from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_plain
 
     B, tables = DEM_BATCH, eng.bp.tables()
     worst, failures, rec = 0.0, None, None
@@ -614,26 +676,7 @@ def phase_k3(eng, dev, rates=tuple(DEM_REF), methods=("sum-product", "min-sum"))
         syn = eng._syndrome(torch.from_numpy(mech.astype(np.int8)).to(dev))
         for method in methods:
             cfg = BPConfig(max_iter=50, method=method)
-            kv, kc, ki, kh = dem_bp_cuda(syn, llr, tables, cfg)
-            torch.cuda.synchronize()
-            rv, rc, ri, rh = dem_bp_plain(syn, llr, tables, cfg)
-            torch.cuda.synchronize()
-            differ = (kc != rc) | (ki != ri) | (kh != rh).any(1)
-            n_diff, agree = int(differ.sum()), ~differ
-            err = float((kv[agree] - rv[agree]).abs().max()) if bool(agree.any()) else 0.0
-            exact = all(torch.equal(a, b) for a, b in ((kv, rv), (kc, rc), (ki, ri), (kh, rh)))
-            log(f"K3 {eng.code.name} {method} p={p}: B={B} converged {int(kc.sum())} mean "
-                f"iterations {ki.float().mean().item():.3f} lanes differing in decision "
-                f"{n_diff} max |dvalues| {err:.3g} bit-identical {exact}")
-            if method == "min-sum" and not exact:
-                raise AssertionError(f"K3 min-sum p={p} is not bit-identical to the plain version")
-            if n_diff > K3_DECISION_TOL * B / 1024:
-                raise AssertionError(f"K3 {method} p={p}: {n_diff} lanes differ in decision")
-            if not torch.allclose(kv[agree], rv[agree], rtol=VALUE_TOL, atol=VALUE_TOL):
-                raise AssertionError(f"K3 {method} p={p}: posteriors differ beyond {VALUE_TOL}")
-            s_hat = eng._syndrome(kh)
-            if not bool((s_hat[kc] == syn[kc]).all()):
-                raise AssertionError(f"K3 {method} p={p}: a converged lane misses its syndrome")
+            (kv, kc, ki, kh), err = k3_held(eng, syn, llr, cfg, f"{eng.code.name} p={p}")
             worst = max(worst, err)
             args = (syn, llr, tables, cfg)
             paths = k3_paths(f"{eng.code.name} BP(50) {method} p={p} B={B}", args, cfg, tables, B)
@@ -666,6 +709,38 @@ def k4_geometry(m: int, piv: torch.Tensor) -> str:
             f"{panels.mean().item():.2f} mean, {int(panels.max())} max")
 
 
+def k4_held(osd, syn, llrs, hard, label: str):
+    """K4 against its plain version on BP failures (syndromes, posterior
+    LLRs, hard decisions), with and without the b-exit, bit for bit; the
+    OSD decoder's residual and stable column order are its inputs. Returns
+    (order, resid)."""
+    from qldpc_tpu_torch.ops.osd_transform_cuda import (
+        eliminate_transform_cuda,
+        eliminate_transform_plain,
+    )
+
+    resid = osd._residual(syn, hard.to(torch.int32))
+    order = torch.argsort(llrs.abs(), dim=1, stable=True)
+    lanes = order.shape[0]
+    for b_exit in (True, False):
+        # without the b-exit every sample runs to rank(H): the plain version
+        # takes seconds per hundred samples there, so it checks the first
+        # K4_NO_EXIT_LANES
+        keep = lanes if b_exit else K4_NO_EXIT_LANES
+        args = (order[:keep], resid[:keep], osd.Hc, osd.h_rank, b_exit)
+        got = eliminate_transform_cuda(*args)
+        torch.cuda.synchronize()
+        ref = eliminate_transform_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        log(f"K4 {label} b_exit={b_exit} on {min(keep, lanes)} BP failures (m={osd.m}, "
+            f"n={osd.n}, {osd.m_words} words, rank {osd.h_rank}): mean rank reached "
+            f"{got[2].float().mean().item():.1f}, bit-identical {same}")
+        if not same:
+            raise AssertionError(f"K4 {label} (b_exit={b_exit}) disagrees with its plain version")
+    return order, resid
+
+
 def phase_k4(eng, failures: dict) -> dict:
     """K4 against the plain version on the BP failures, with and without
     the b-exit; bit-identical. Returns its record with the b-exit, as OSD-0
@@ -676,24 +751,9 @@ def phase_k4(eng, failures: dict) -> dict:
     )
 
     osd = eng.osd
-    resid = osd._residual(failures["syn"], failures["hard"].to(torch.int32))
-    order = torch.argsort(failures["llrs"].abs(), dim=1, stable=True)
+    order, resid = k4_held(osd, failures["syn"], failures["llrs"], failures["hard"],
+                           eng.code.name)
     lanes = order.shape[0]
-    for b_exit in (True, False):
-        # without the b-exit every sample runs to rank(H): the plain version
-        # takes seconds per hundred samples there, so it checks the first 128
-        keep = lanes if b_exit else 128
-        args = (order[:keep], resid[:keep], osd.Hc, osd.h_rank, b_exit)
-        got = eliminate_transform_cuda(*args)
-        torch.cuda.synchronize()
-        ref = eliminate_transform_plain(*args)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        log(f"K4 b_exit={b_exit} on {min(keep, lanes)} BP failures (m={osd.m}, n={osd.n}, "
-            f"{osd.m_words} words, rank {osd.h_rank}): mean rank reached "
-            f"{got[2].float().mean().item():.1f}, bit-identical {same}")
-        if not same:
-            raise AssertionError(f"K4 (b_exit={b_exit}) disagrees with its plain version")
     args = (order, resid, osd.Hc, osd.h_rank, True)
     ms = cuda_ms(lambda: eliminate_transform_cuda(*args), reps=5)
     dev_ms = device_ms(lambda: eliminate_transform_cuda(*args), reps=5)
@@ -1316,6 +1376,430 @@ def phase_layered_engine(dev, card_line: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ the CLI and the rest of the family
+# docs/circuit_ler.md:50-70, float32 streams, 10,000 trials: p -> (obs-err, OSD rate)
+CLI_CODES = {"[[90, 8, 10]]": {0.001: (0.0049, 0.694), 0.002: (0.0514, 0.928)},
+             "[[108, 8, 10]]": {0.001: (0.0025, 0.749), 0.002: (0.0280, 0.954)}}
+CLI_TRIALS = 10_240
+CKPT_INTERRUPT = 2  # batches before the interruption
+DEM288_CODE, DEM288_P, DEM288_BATCH = "[[288, 12, 18]]", 0.003, 1024
+K5_CHECK_BLOCKS, K5_CHECK_FAILURES = 2, 64
+K3_288_LANES = 256  # samples of a [[288]] DEM batch K3 is held on
+ST288_ROUNDS, ST288_RATES, ST288_TRIALS, ST288_CPU_TRIALS = 18, (0.004, 0.008), 1024, 16
+
+
+class Interrupted(Exception):
+    pass
+
+
+def capture_engines():
+    """Patch ``runners.build_engine`` so that every engine run_experiment
+    builds is kept (its run_rate timed per call); returns (patch, engines,
+    rates) with rates a list of (code, p, trials, seconds)."""
+    from qldpc_tpu_torch.experiments import runners
+
+    engines, rates = [], []
+    build = runners.build_engine
+
+    def keep(*a, **kw):
+        eng = build(*a, **kw)
+        run_rate = eng.run_rate
+
+        def timed(p, trials, **kw2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_rate(p, trials, **kw2)
+            rates.append((eng.code.name, p, trials, time.perf_counter() - t0))
+            return out
+
+        eng.run_rate = timed
+        engines.append(eng)
+        return eng
+
+    return mock.patch.object(runners, "build_engine", keep), engines, rates
+
+
+def phase_cli_dems(dev, card_line: str, out_dir: str) -> dict:
+    """The experiments CLI on the card: complete-bposd on the [[90]] and
+    [[108]] DEMs (float32 streams), read back from its npz; obs-err and OSD
+    rate within 4 sigma of docs/circuit_ler.md. Both DEMs take K3 and K4
+    (never K5): the counts are zeroed before the CLI runs and read after.
+    Then K4 is held to its plain version on each DEM's BP failures, with and
+    without the b-exit (the [[108]] DEM's 1,080 rows take K4's instance for
+    more than 1,024 rows, which no earlier phase runs)."""
+    from qldpc_tpu_torch.experiments.cli import main as cli_main
+    from qldpc_tpu_torch.experiments.results_io import load_results
+    from qldpc_tpu_torch.ops import dem_bp_cuda, osd_factored_cuda, osd_transform_cuda
+
+    wrappers = {"dem_bp": dem_bp_cuda.dem_bp_cuda,
+                "gf2_transform_elim": osd_transform_cuda.eliminate_transform_cuda,
+                **{name: getattr(osd_factored_cuda, f"{name}_cuda") for name in K5_NAMES}}
+    patch, engines, rates = capture_engines()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with patch:
+        code = cli_main(["run", "complete-bposd", "--codes", *CLI_CODES, "--error-rates",
+                         "0.001", "0.002", "--trials", str(CLI_TRIALS), "--set",
+                         "bp_stream_dtype=float32", "--out", out_dir, "--no-checkpoint"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"CLI complete-bposd on {list(CLI_CODES)}: exit {code}, {wall:.1f} s (DEM builds "
+        f"included), kernel launches {json.dumps(launches)} on {card_line}")
+    if code != 0:
+        raise AssertionError(f"the CLI exited {code}")
+    if launches["dem_bp"] < 1 or launches["gf2_transform_elim"] < 1:
+        raise AssertionError("the CLI's run did not launch K3 and K4")
+    if any(launches[name] for name in K5_NAMES):
+        raise AssertionError("the CLI's run launched K5 on the [[90]] or [[108]] DEM")
+    for name, p, trials, secs in rates:
+        log(f"  {name} p={p}: {trials / secs:.1f} trials/s")
+    res = load_results(f"{out_dir}/complete-bposd.npz")
+    for eng in engines:
+        refs = CLI_CODES[eng.code.name]
+        if eng.osd.elimination != "transform":
+            raise AssertionError(f"{eng.code.name}: OSD took {eng.osd.elimination}, not K4")
+        syn, llrs, hard = dem_failures(eng, 0.002, seed=5)
+        order, resid = k4_held(eng.osd, syn, llrs, hard, f"{eng.code.name} DEM")
+        piv = osd_transform_cuda.eliminate_transform_cuda(order, resid, eng.osd.Hc,
+                                                          eng.osd.h_rank, True)[3]
+        log(f"{eng.code.name} DEM {eng.m_checks} x {eng.n_vars}, rank {eng.osd.h_rank}: K4 "
+            f"geometry on {order.shape[0]} BP failures: {k4_geometry(eng.osd.m, piv)}")
+        for p, (ref_err, ref_osd) in refs.items():
+            d = res[eng.code.name][p]
+            log(f"  {eng.code.name} p={p}: {json.dumps(scalars(d))}")
+            for what, got, ref in (("obs-err", d["ler"], ref_err), ("OSD rate", d["osd"], ref_osd)):
+                lim = binomial_limit(got, d["trials"], ref, DEM_REF_TRIALS)
+                log(f"    {what} {got:.5f} against {ref} (limit +-{lim:.5f})")
+                if abs(got - ref) > lim or d["trials"] != CLI_TRIALS:
+                    raise AssertionError(f"{eng.code.name} {what} at p={p}: {got} is outside "
+                                         f"4 sigma of {ref}")
+    return launches
+
+
+def dem_failures(eng, p: float, seed: int):
+    """One batch of the engine at p: the BP failures' syndromes, LLRs and
+    hard decisions."""
+    from qldpc_tpu_torch.utils import rng
+
+    _, syn, priors = eng._sample(rng.key(seed), p)
+    res = eng.bp(syn, priors)
+    fail = ~res.converged
+    return syn[fail], res.llrs[fail], res.hard[fail]
+
+
+def interrupted_then_resumed(eng, p: float, trials: int, seed: int, path) -> dict:
+    """A CheckpointManager run stopped after CKPT_INTERRUPT batches, then
+    resumed; returns the resumed run's counters."""
+    from qldpc_tpu_torch.mc import CheckpointManager, counters_to_dict
+
+    mgr = CheckpointManager(path)
+    save = mgr.save
+
+    def save_then_stop(engine, p_, seed_, counters, next_batch):
+        save(engine, p_, seed_, counters, next_batch)
+        if next_batch == CKPT_INTERRUPT:
+            raise Interrupted
+
+    mgr.save = save_then_stop
+    try:
+        mgr.run_rate(eng, p, trials, seed)
+        raise AssertionError("the interrupted run was not interrupted")
+    except Interrupted:
+        pass
+    fresh = CheckpointManager(path)
+    if fresh.load(eng, p, seed)[1] != CKPT_INTERRUPT:
+        raise AssertionError("the checkpoint does not hold the interrupted batches")
+    return counters_to_dict(fresh.run_rate(eng, p, trials, seed))
+
+
+def phase_checkpoints(dev, out_dir: str) -> None:
+    """On the card: the [[144]] code-capacity engine and the [[72]] DEM
+    engine interrupted after CKPT_INTERRUPT batches and resumed, against an
+    uninterrupted run_rate and the same rate run through the CLI."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
+    from qldpc_tpu_torch.experiments.cli import main as cli_main
+    from qldpc_tpu_torch.experiments.results_io import load_results
+    from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine, counters_to_dict
+
+    cc = MonteCarloEngine(get_code(CODE), EngineConfig(bp=BPConfig(max_iter=50),
+                          osd=OSDConfig(order=0), batch_size=ENGINE_BATCH), device=dev)
+    cases = (
+        ("code capacity", cc, REF_P, 4 * ENGINE_BATCH, 11,
+         ["study", "--codes", CODE, "--batch-size", str(ENGINE_BATCH)]),
+        ("DEM", dem_engine(dev), 0.002, 4 * DEM_BATCH, 12,
+         ["complete-bposd", "--codes", DEM_CODE, "--batch-size", str(DEM_BATCH),
+          "--set", "bp_stream_dtype=float32"]),
+    )
+    for name, eng, p, trials, seed, cli_args in cases:
+        whole = counters_to_dict(eng.run_rate(p, trials, seed=seed))
+        resumed = interrupted_then_resumed(eng, p, trials, seed, f"{out_dir}/ckpt-{seed}")
+        out = f"{out_dir}/cli-{seed}"
+        if cli_main(["run", *cli_args, "--error-rates", str(p), "--trials", str(trials),
+                     "--seed", str(seed), "--out", out, "--no-checkpoint", "--quiet"]):
+            raise AssertionError("the CLI run failed")
+        preset = cli_args[0]
+        cli = load_results(f"{out}/{preset}.npz")[cli_args[2]][p]
+        same = {k: np.array_equal(resumed[k], whole[k]) and np.array_equal(cli[k], whole[k])
+                for k in whole}
+        log(f"checkpointed {name} run on the card ({eng.code.name}, p={p}, {trials} trials, "
+            f"interrupted after {CKPT_INTERRUPT} batches, resumed): equal to the "
+            f"uninterrupted run and to the CLI's {all(same.values())} (ler {whole['ler']:.5f}, "
+            f"BP faults {whole['BPs_fault']})")
+        if not all(same.values()):
+            raise AssertionError(f"{name}: resumed or CLI counters differ: "
+                                 f"{[k for k, v in same.items() if not v]}")
+
+
+def k5_checked_blocks(osd, syn, llrs, hard, label: str) -> None:
+    """K5a-d against their plain versions at the first K5_CHECK_BLOCKS
+    blocks of one OSD call on the first K5_CHECK_FAILURES BP failures (each
+    launch on a copy of its inputs, the outputs and in-place state compared
+    bit for bit); the later blocks run the kernels alone."""
+    from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
+
+    k = min(K5_CHECK_FAILURES, syn.shape[0])
+    if k < 8:
+        raise AssertionError(f"{label}: only {k} BP failures to hold K5 on")
+    resid = osd._residual(syn[:k], hard[:k].to(torch.int32))
+    order = torch.argsort(llrs[:k].abs(), dim=1, stable=True)
+    calls = dict.fromkeys(K5_NAMES, 0)
+
+    def checked(name, kernel, plain):
+        def run(*a):
+            if calls[name] < K5_CHECK_BLOCKS:
+                kargs = [x.clone() if torch.is_tensor(x) else x for x in a]
+                pargs = [x.clone() if torch.is_tensor(x) else x for x in a]
+                kout, pout = kernel(*kargs), plain(*pargs)
+                torch.cuda.synchronize()
+                outs = [(kout, pout)] if kout is not None else []
+                outs += [(x, y) for x, y in zip(kargs, pargs) if torch.is_tensor(x)]
+                if not all(torch.equal(x, y) for x, y in outs):
+                    raise AssertionError(f"{label}: {name} disagrees with its plain version "
+                                         f"at block {calls[name]}")
+            calls[name] += 1
+            return kernel(*a)
+
+        run.launches = 0  # the wrapper counts under its module name: here
+        return run
+
+    patches = [mock.patch.object(ofc, f"{name}_cuda", checked(
+        name, getattr(ofc, f"{name}_cuda"), getattr(ofc, f"{name}_plain"))) for name in K5_NAMES]
+    for patch in patches:
+        patch.start()
+    try:
+        ofc.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank, osd.max_cols)
+    finally:
+        for patch in patches:
+            patch.stop()
+    torch.cuda.synchronize()
+    log(f"{label}: K5a-d bit-identical to their plain versions at blocks 0-"
+        f"{K5_CHECK_BLOCKS - 1} of one OSD call on {k} BP failures (m={osd.m}, n={osd.n}, "
+        f"rank {osd.h_rank}; launches a kernel in that call {json.dumps(calls)})")
+
+
+def k5_device_ms(osd, syn, llrs, hard) -> dict:
+    """Each K5 kernel's device ms summed over the launches of one OSD call
+    on these failures (each launch timed by ``launch_ms``)."""
+    from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
+
+    resid = osd._residual(syn, hard.to(torch.int32))
+    order = torch.argsort(llrs.abs(), dim=1, stable=True)
+    recs = {name: dict(device_ms=0.0, launches=0, lanes=order.shape[0]) for name in K5_NAMES}
+
+    def timed(name, kernel):
+        def run(*a):
+            ms, out = launch_ms(lambda: kernel(*a))
+            recs[name]["device_ms"] += ms
+            recs[name]["launches"] += 1
+            return out
+
+        run.launches = 0  # the wrapper counts under its module name: here
+        return run
+
+    patches = [mock.patch.object(ofc, f"{name}_cuda", timed(name, getattr(ofc, f"{name}_cuda")))
+               for name in K5_NAMES]
+    for patch in patches:
+        patch.start()
+    try:
+        t0 = time.perf_counter()
+        ofc.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank, osd.max_cols)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for patch in patches:
+            patch.stop()
+    ms = cuda_ms(lambda: ofc.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank,
+                                                      osd.max_cols), reps=1)
+    log(f"K5 over one OSD call on {order.shape[0]} BP failures (m={osd.m}): " + ", ".join(
+        f"{n} {r['device_ms']:.3f} ms on the device in {r['launches']} launches"
+        for n, r in recs.items()) + f"; the call {ms:.3f} ms with its host syncs "
+        f"({wall * 1e3:.1f} ms with each launch timed)")
+    return recs
+
+
+def phase_dem288(dev, card_line: str, out_dir: str) -> dict:
+    """The [[288]] DEM: one batch of 1,024 at p = 0.003 through
+    run_experiment (obs-err, OSD rate, peak memory, stage times), K3 held to
+    its plain version on K3_288_LANES samples of a batch (the preset's
+    BP(50), sum-product and min-sum), K5a-d held to their plain versions at
+    blocks 0 and 1 of one OSD call, and K5's device ms over a whole OSD
+    call. Returns K5's records at [[288]]."""
+    from qldpc_tpu_torch.experiments import get_preset, run_experiment
+    from qldpc_tpu_torch.utils import rng
+
+    spec = get_preset("complete-bposd").replace(
+        codes=[DEM288_CODE], error_rates=[DEM288_P], trials=DEM288_BATCH,
+        batch_size=DEM288_BATCH, bp_stream_dtype="float32", output_dir=out_dir)
+    patch, engines, _ = capture_engines()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patch:
+        res = run_experiment(spec, device=dev, checkpoint=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    d = res[DEM288_CODE][DEM288_P]
+    eng = engines[0]
+    log(f"[[288]] DEM {eng.m_checks} x {eng.n_vars}, rank {eng.osd.h_rank}, elimination "
+        f"{eng.osd.elimination}, column budget {eng.osd.max_cols}: one batch of "
+        f"{DEM288_BATCH} at p={DEM288_P} through run_experiment in {wall:.1f} s (the host's "
+        f"DEM and engine build included), peak device memory {peak / 2**30:.2f} GiB, on "
+        f"{card_line}")
+    log(f"  {json.dumps(scalars(d))}")
+    log(f"  obs-err {d['ler']:.5f}, OSD rate {d['osd']:.5f} (docs/circuit_ler.md:34: "
+        f"0.0384 obs-err at 10,000 trials, float32)")
+    if d["trials"] != DEM288_BATCH or d["BPs_fault"] != round(d["osd"] * DEM288_BATCH):
+        raise AssertionError("[[288]] DEM counters are inconsistent")
+    stages = eng.stage_times(DEM288_P, reps=2)
+    log(f"  [[288]] DEM batch stages (ms, median of 2 after a warm one, each ending in a "
+        f"synchronize): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+        + f"; total {sum(stages.values()):.1f}")
+    _, syn, llr = eng._sample(rng.key(7), DEM288_P)
+    for method in ("sum-product", "min-sum"):
+        k3_held(eng, syn[:K3_288_LANES], llr, dataclasses.replace(eng.bp.config, method=method),
+                f"[[288]] DEM p={DEM288_P}, {K3_288_LANES} of the batch's {DEM288_BATCH} samples")
+    syn, llrs, hard = dem_failures(eng, DEM288_P, seed=7)
+    k5_checked_blocks(eng.osd, syn, llrs, hard, "[[288]] DEM")
+    recs = k5_device_ms(eng.osd, syn, llrs, hard)
+    del engines[:], eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_st288(dev, card_line: str) -> dict:
+    """[[288]] space-time at T = 18 (H_st 2,592 x 7,776): the card engine's
+    min-sum counters against the CPU engine's, K5a-d against their plain
+    versions at blocks 0 and 1 of one OSD call on H_st, the card's OSD-0
+    solutions against the plain row elimination's, and the LER and OSD rate
+    at p = 0.004 and 0.008 (K6 and K5 launch, K4 and K2 never)."""
+    from qldpc_tpu_torch.decoders import BPConfig
+    from qldpc_tpu_torch.mc import counters_to_dict
+    from qldpc_tpu_torch.ops import osd_cuda, osd_factored_cuda, osd_transform_cuda
+    from qldpc_tpu_torch.ops import spacetime_bp_cuda
+    from qldpc_tpu_torch.ops.osd_cuda import eliminate_rows_plain, pack_rows
+    from qldpc_tpu_torch.noise.spacetime import space_time_matrix
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.utils import rng
+
+    code, T = DEM288_CODE, ST288_ROUNDS
+    ms = BPConfig(max_iter=ST_ITERS, method="min-sum")
+    card_eng = st_engine(dev, ms, code=code, rounds=T, batch=ST288_CPU_TRIALS)
+    cpu_eng = st_engine("cpu", ms, code=code, rounds=T, batch=ST288_CPU_TRIALS)
+    if card_eng.osd.elimination != cpu_eng.osd.elimination:
+        raise AssertionError("the card and the CPU picked different eliminations")
+    got = counters_to_dict(card_eng.run_rate(0.008, ST288_CPU_TRIALS, seed=1))
+    ref = counters_to_dict(cpu_eng.run_rate(0.008, ST288_CPU_TRIALS, seed=1))
+    same = all(np.array_equal(got[k], ref[k]) for k in ref)
+    log(f"space-time engine on the card vs the CPU engine, {code} T={T} (H_st "
+        f"{card_eng.m_checks} x {card_eng.n_vars}, {card_eng.osd.elimination} elimination), "
+        f"min-sum p=0.008, {ST288_CPU_TRIALS} trials: identical {same} (ler {got['ler']:.5f}, "
+        f"BP faults {got['BPs_fault']})")
+    if not same:
+        raise AssertionError("the card's [[288]] space-time engine disagrees with the CPU's")
+
+    eng = st_engine(dev, code=code, rounds=T)
+    _, syn, priors = eng._sample(rng.key(3), 0.008)
+    res = eng.bp(syn, priors)
+    fail = ~res.converged
+    syn_f, llrs_f, hard_f = syn[fail], res.llrs[fail], res.hard[fail]
+    k5_checked_blocks(eng.osd, syn_f, llrs_f, hard_f, f"{code} H_st T={T}")
+    k = min(SOLUTION_LANES, syn_f.shape[0])
+    sol = eng.osd(syn_f[:k], llrs_f[:k], hard_f[:k]).to(torch.int32)
+    hard = hard_f[:k].to(torch.int32)
+    resid = eng.osd._residual(syn_f[:k], hard)
+    order = torch.argsort(llrs_f[:k].abs(), dim=1, stable=True)
+    n = eng.osd.n
+    Hst = torch.from_numpy(space_time_matrix(get_code(code).Hx, T)).to(dev)
+    _, b, piv = eliminate_rows_plain(pack_rows(Hst[:, order].permute(1, 0, 2)), resid, n,
+                                     eng.osd.h_rank)
+    bidx = torch.arange(k, device=dev)[:, None]
+    e_perm = torch.zeros((k, n + 1), dtype=torch.int32, device=dev)
+    e_perm[bidx, torch.where(piv >= 0, piv, n).long()] = b
+    corr = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    corr[bidx, order] = e_perm[:, :n]
+    same = torch.equal(sol, hard ^ corr)
+    log(f"OSD-0 solutions (K5) on {k} of {syn_f.shape[0]} {code} T={T} space-time BP failures "
+        f"against the plain row elimination's: identical {same}")
+    if not same:
+        raise AssertionError("the [[288]] H_st OSD-0 solutions differ from the row elimination's")
+
+    wrappers = {"st_bp": spacetime_bp_cuda.st_bp_cuda,
+                "gf2_transform_elim": osd_transform_cuda.eliminate_transform_cuda,
+                "gf2_elim": osd_cuda.eliminate_ordered_cuda,
+                **{name: getattr(osd_factored_cuda, f"{name}_cuda") for name in K5_NAMES}}
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = eng.sweep(list(ST288_RATES), trials=ST288_TRIALS, seed=ST_SEED)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"space-time sweep {code} T={T} BP({ST_ITERS})+OSD-0, {ST288_TRIALS} trials per rate, "
+        f"batch {ST_BATCH}: wall {res.wall_time_s:.3f} s, {res.throughput:.1f} trials/s (first "
+        f"use included), launches {json.dumps(launches)} on {card_line}")
+    if launches["st_bp"] < 1 or any(launches[name] < 1 for name in K5_NAMES) or \
+            launches["gf2_transform_elim"] or launches["gf2_elim"]:
+        raise AssertionError("the [[288]] space-time sweep did not launch K6 and K5 alone")
+    for p, d in zip(ST288_RATES, res.per_rate):
+        log(f"  p={p}: LER {d['ler']:.5f}, OSD rate {d['osd']:.5f}, mean BP iterations "
+            f"{d['average_iterations']:.3f}; {json.dumps(scalars(d))}")
+        if d["trials"] != ST288_TRIALS or d["BPs_fault"] != round(d["osd"] * ST288_TRIALS):
+            raise AssertionError("[[288]] space-time counters are inconsistent")
+    return launches
+
+
+def phase_rescue(dev, card_line: str) -> None:
+    """rescue_iters on the card: the [[144]] code-capacity counters with
+    rescue_iters = 10 equal those without it at the same seed; both timed."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
+    from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine, counters_to_dict
+
+    cfg = EngineConfig(bp=BPConfig(max_iter=50), osd=OSDConfig(order=0),
+                       batch_size=ENGINE_BATCH)
+    out = {}
+    for rescue in (0, 10):
+        eng = MonteCarloEngine(get_code(CODE), dataclasses.replace(cfg, rescue_iters=rescue),
+                               device=dev)
+        eng.run_rate(REF_P, ENGINE_BATCH, seed=9)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[rescue] = counters_to_dict(eng.run_rate(REF_P, 4 * ENGINE_BATCH, seed=9))
+        torch.cuda.synchronize()
+        log(f"{CODE} code capacity p={REF_P}, rescue_iters={rescue}: "
+            f"{4 * ENGINE_BATCH / (time.perf_counter() - t0):.1f} trials/s on {card_line}")
+    same = all(np.array_equal(out[0][k], out[10][k]) for k in out[0])
+    log(f"rescue_iters=10 counters equal to a single BP(50) run's: {same} "
+        f"(ler {out[10]['ler']:.5f}, BP faults {out[10]['BPs_fault']})")
+    if not same:
+        raise AssertionError("rescue_iters changed the counters")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1380,6 +1864,15 @@ def main() -> int:
     k7 = timed(phase_k7, H, dev)
     layered_launches = timed(phase_layered_engine, dev, card_line)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        timed(phase_cli_dems, dev, card_line, f"{tmp}/cli")
+        timed(phase_checkpoints, dev, tmp)
+        k5_288 = timed(phase_dem288, dev, card_line, f"{tmp}/dem288")
+    timed(phase_st288, dev, card_line)
+    timed(phase_rescue, dev, card_line)
+    for name in K5_NAMES:
+        k5[name]["at_288"] = k5_288[name]
+
     k1.update(max_abs_err=k1_err)
     rows = [
         ("bp_flooding", "bp_flooding.cu", "qldpc_tpu/ops/bp_pallas.py:256",
@@ -1404,8 +1897,9 @@ def main() -> int:
         ("bp_layered", "bp_layered.cu", "qldpc_tpu/ops/bp_pallas.py:123",
          layered_launches["bp_layered"], k7),
     ]
-    # K1 where samples iterate, K2's packed-rows entry, K4 on the space-time failures
-    extra = ("at_p_0_050119", "rows", "h_st")
+    # K1 where samples iterate, K2's packed-rows entry, K4 on the space-time
+    # failures, K5 at the [[288]] DEM
+    extra = ("at_p_0_050119", "rows", "h_st", "at_288")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

@@ -1,10 +1,11 @@
 """qldpc_tpu_torch — the PyTorch/CUDA port of qldpc_tpu for one NVIDIA H100.
 
-Four slices: the code-capacity Monte-Carlo loop (counter-mode RNG, noise
-channels, flooding BP and OSD-0, the single-device engine), circuit-level
-decoding of detector error models (BP on irregular graphs, wide-system
-OSD-0, the DEM engine), space-time decoding (structured BP over T rounds)
-and the layered BP schedule. Plain torch runs everywhere; on CUDA tensors BP
+The code-capacity Monte-Carlo loop (counter-mode RNG, noise channels,
+flooding BP and OSD-0, the single-device engine), circuit-level decoding of
+detector error models (BP on irregular graphs, wide-system OSD-0, the DEM
+engine), space-time decoding (structured BP over T rounds), the layered BP
+schedule, and the experiments layer on top (presets, checkpointed sweeps,
+``python -m qldpc_tpu_torch.experiments.cli``). Plain torch runs everywhere; on CUDA tensors BP
 and the OSD eliminations launch the hand-written kernels under ``ops/csrc/``
 (built with nvcc at first use, see ``_build.py``). The JAX package
 ``qldpc_tpu`` stays the reference, and this package imports nothing of it:

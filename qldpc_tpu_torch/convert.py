@@ -1,7 +1,8 @@
 """Carry configurations, codes, DEMs and RNG state across from the JAX package.
 
-Each function takes an object of ``qldpc_tpu`` (a config dataclass, a
-``CSSCode``, a ``DEMData`` or ``ParametricDEM``) or a dict of its fields,
+Each function takes an object of ``qldpc_tpu`` (a config dataclass, an
+``ExperimentSpec``, a ``CSSCode``, a ``DEMData`` or ``ParametricDEM``) or a
+dict of its fields,
 reads the fields by name as numpy arrays or plain values, so that neither
 ``jax`` nor ``qldpc_tpu`` is ever imported, and returns the port's object.
 Config selectors that only choose a TPU code path are dropped: on the port
@@ -11,6 +12,7 @@ numerics, or that need a feature outside the port, raise.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -29,6 +31,7 @@ __all__ = [
     "osd_config_from_reference",
     "engine_config_from_reference",
     "dem_engine_config_from_reference",
+    "spec_from_reference",
     "key_from_reference",
     "code_from_reference",
     "dem_from_reference",
@@ -64,8 +67,8 @@ def bp_config_from_reference(cfg) -> BPConfig:
     for name in ("mm_dtype", "stream_dtype"):
         if f.pop(name, "float32") != "float32":
             raise ValueError(
-                f"{name} other than float32 changes the BP numerics; the port "
-                "runs float32 messages"
+                f"{name} (an ExperimentSpec's bp_{name}) other than float32 "
+                "changes the BP numerics; the port runs float32 messages"
             )
     for name in _BP_DROPPED:
         f.pop(name, None)
@@ -88,10 +91,6 @@ def osd_config_from_reference(cfg) -> OSDConfig:
 
 def _engine_fields(cfg) -> dict:
     f = _fields(cfg)
-    if f.pop("rescue_iters", 0):
-        raise NotImplementedError(
-            "rescue_iters is not ported yet (ROADMAP.md, queue 1 item 7)"
-        )
     for name in _ENGINE_DROPPED:
         f.pop(name, None)
     if "bp" in f:
@@ -109,6 +108,16 @@ def dem_engine_config_from_reference(cfg) -> DEMEngineConfig:
     """The port's ``DEMEngineConfig`` from the JAX package's (the
     ``complete-bposd`` preset's streams must be set to float32 first)."""
     return DEMEngineConfig(**_take(_engine_fields(cfg), DEMEngineConfig))
+
+
+def spec_from_reference(spec) -> ExperimentSpec:
+    """The port's ``ExperimentSpec`` from the JAX package's (or a dict of its
+    fields, such as a spec JSON the JAX CLI wrote): the same fields, so
+    ``run_experiment`` maps its TPU selectors as it maps any spec's."""
+    from qldpc_tpu_torch.experiments.configs import ExperimentSpec  # its runner imports this module
+
+    f = {k: copy.deepcopy(v) for k, v in _fields(spec).items()}
+    return ExperimentSpec(**_take(f, ExperimentSpec))
 
 
 def key_from_reference(key_data) -> torch.Tensor:

@@ -45,7 +45,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from qldpc_tpu_torch.codes import gf2
 from qldpc_tpu_torch.ops.tanner import parity_tables
 from qldpc_tpu_torch.ops.osd_cuda import (
     ROWS_SMEM_LIMIT,
@@ -61,7 +60,7 @@ from qldpc_tpu_torch.ops.osd_transform_cuda import (
     smem_bytes,
 )
 
-__all__ = ["OSDConfig", "OSDDecoder"]
+__all__ = ["OSDConfig", "OSDDecoder", "gf2_rank"]
 
 
 _BACKENDS = ("auto", "transform", "factored")
@@ -79,8 +78,8 @@ class OSDConfig:
     def __post_init__(self):
         if self.order > 0:
             raise NotImplementedError(
-                "OSD-e (order > 0) is not ported yet (ROADMAP.md, queue 1 "
-                "item 4)"
+                "OSD-e (order > 0) is not ported yet (ROADMAP.md, Queue 1 "
+                "item 1: OSD-e)"
             )
         if self.order < 0:
             raise ValueError("order must be >= 0")
@@ -88,6 +87,29 @@ class OSDConfig:
             raise ValueError(f"unknown OSD backend {self.backend!r}; one of {_BACKENDS}")
         if self.max_elim_cols < 1:
             raise ValueError("max_elim_cols must be positive")
+
+
+def gf2_rank(H: np.ndarray) -> int:
+    """rank(H) over GF(2), as ``codes.gf2.rank``, by forward elimination of
+    H's rows packed 64 columns a word: seconds where the unpacked RREF takes
+    most of a minute (the [[288,12,18]] DEM, 5,184 x 204,765)."""
+    H = np.asarray(H)
+    m, n = H.shape
+    R = np.zeros((m, -(-n // 64) * 8), np.uint8)
+    R[:, : -(-n // 8)] = np.packbits(H & 1, axis=1, bitorder="little")
+    R = R.view("<u8")
+    rank = 0
+    for i in range(m):
+        nz = np.flatnonzero(R[i])
+        if not nz.size:
+            continue
+        w = nz[0]
+        word = int(R[i, w])
+        bit = np.uint64((word & -word).bit_length() - 1)  # the row's lowest set bit
+        rank += 1
+        below = i + 1 + np.flatnonzero((R[i + 1:, w] >> bit) & np.uint64(1))
+        R[below, w:] ^= R[i, w:]
+    return rank
 
 
 class OSDDecoder(nn.Module):
@@ -111,7 +133,7 @@ class OSDDecoder(nn.Module):
         # column eliminations too
         by_rows = not self.wide and rows_smem_bytes(self.m, self.n_words) <= ROWS_SMEM_LIMIT
         # every column step after a sample reaches rank(H) is a no-op
-        self.h_rank = int(gf2.rank(H))
+        self.h_rank = gf2_rank(H)
         if config.backend != "auto" and by_rows:
             raise ValueError(
                 f"backend={config.backend!r} targets wide systems (n_words > "

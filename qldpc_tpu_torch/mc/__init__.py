@@ -1,8 +1,10 @@
+from .checkpoint import CheckpointManager
 from .dem_engine import DEMEngine, DEMEngineConfig
 from .engine import EngineConfig, MonteCarloEngine, SweepResult
 from .metrics import HIST_BINS, Counters, counters_to_dict, zeros_counters
 
 __all__ = [
+    "CheckpointManager",
     "EngineConfig",
     "MonteCarloEngine",
     "SweepResult",

@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from qldpc_tpu_torch.ops.tanner import parity_tables
-from qldpc_tpu_torch.decoders.bp import BPDecoder
 from qldpc_tpu_torch.decoders.osd import OSDDecoder
 from qldpc_tpu_torch.mc.engine import EngineConfig, MonteCarloEngine, engine_device
 from qldpc_tpu_torch.mc.metrics import counters_to_dict
@@ -76,10 +75,14 @@ class DEMEngine(MonteCarloEngine):
         self.m_checks, self.n_vars = dem.H.shape
         self.distance = 0  # every logical error is "incorrectable"
         self.n_rounds = 0  # the DEM's rounds are in its H: no data folding
-        self.bp = BPDecoder(dem.H, config.bp).to(dev)
+        self.bp, self.bp_short = self._bp_decoders(dem.H)
         self.osd = OSDDecoder(dem.H, config.osd).to(dev) if config.osd is not None else None
-        vos, self._dc_parity = parity_tables(dem.H)
-        self._vos_parity = torch.from_numpy(vos.astype(np.int64)).to(dev)
+        if self.osd is not None and self.osd.elimination != "rows":
+            # the OSD decoder's residual uses the same gather-parity tables
+            self._vos_parity, self._dc_parity = self.osd.vos_parity, self.osd.dc_parity
+        else:
+            vos, self._dc_parity = parity_tables(dem.H)
+            self._vos_parity = torch.from_numpy(vos.astype(np.int64)).to(dev)
         self._Lf = torch.tensor(np.asarray(dem.L) % 2, dtype=torch.float32, device=dev)
         self.k_osd = max(1, int(round(config.batch_size * config.osd_fraction)))
         # one uniform per mechanism: the largest stride of any engine
@@ -120,9 +123,15 @@ class DEMEngine(MonteCarloEngine):
         errors = (u < prob[None, :]).to(torch.int8)
         return errors, self._syndrome(errors), llr
 
-    def run(self, shots: int, seed: int = 0, p: float = 0.0) -> dict:
+    def run(self, shots: int, seed: int = 0, p: float = 0.0, checkpoint=None) -> dict:
         """Estimate the logical error rate over ``shots`` sampled shots.
-        ``p`` is the physical rate of a ParametricDEM (ignored otherwise)."""
+        ``p`` is the physical rate of a ParametricDEM (ignored otherwise);
+        with a ``CheckpointManager`` the run resumes from its last saved
+        batch."""
         if self._parametric and p <= 0.0:
             raise ValueError("a ParametricDEM needs a physical rate: run(..., p=...)")
-        return counters_to_dict(self.run_rate(p, shots, seed=seed))
+        if checkpoint is not None:
+            counters = checkpoint.run_rate(self, p, shots, seed)
+        else:
+            counters = self.run_rate(p, shots, seed=seed)
+        return counters_to_dict(counters)

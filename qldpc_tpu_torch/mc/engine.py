@@ -20,8 +20,13 @@ The space-time channel decodes T rounds of the code (``EngineConfig.n_rounds``,
 tables and OSD-0 on the materialized ``H_st``; the classification folds the
 data rounds into the net flip of each qubit, as the JAX engine does.
 
-Not in this slice (see ROADMAP.md): rescue_iters, checkpointing and
-multi-device execution.
+With ``rescue_iters`` set, BP(rescue_iters) decodes the whole batch and
+BP(max_iter) then decodes its failures alone, compacted as the OSD's are:
+BP is deterministic per sample, so the counters equal a single long run's.
+``run_rate`` resumes from a batch with running counters and reports each
+batch (``on_batch``), which ``CheckpointManager`` drives.
+
+Not in this slice (see ROADMAP.md): multi-device execution.
 """
 
 from __future__ import annotations
@@ -63,6 +68,8 @@ class EngineConfig:
     batch_size: int = 4096
     osd_fraction: float = 1.0  # OSD capacity as a fraction of the batch;
     # failures beyond it keep the BP output and count as osd_overflow
+    rescue_iters: int = 0  # >0: BP(rescue_iters) on the whole batch, then
+    # BP(bp.max_iter) on its failures alone; the counters do not change
 
     _channels: ClassVar[tuple[str, ...]] = _CHANNELS
 
@@ -75,6 +82,8 @@ class EngineConfig:
             raise ValueError("batch_size must be positive")
         if self.n_rounds < 0:
             raise ValueError("n_rounds must be >= 0")
+        if self.rescue_iters < 0:
+            raise ValueError("rescue_iters must be >= 0")
         if self.channel == "space-time" and self.bp.schedule == "layered":
             # the JAX engine's fallback to BPDecoder(H_st) raises there too
             raise ValueError(
@@ -100,8 +109,8 @@ def engine_device(device) -> torch.device:
     one this raises rather than carrying on on the CPU."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
-            "multi-device execution is not ported yet (ROADMAP.md, queue "
-            "1 item 13)"
+            "multi-device execution is not ported yet (ROADMAP.md, Queue 1 "
+            "item 3: multi-device)"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -128,13 +137,12 @@ class MonteCarloEngine:
         if config.channel == "space-time":
             self.n_rounds = config.n_rounds or max(code.distance, 1)
             H_dec = st.space_time_matrix(H, self.n_rounds)
-            self.bp = SpaceTimeBPDecoder(H, self.n_rounds, config.bp).to(self.device)
             self._H_space = torch.tensor(np.asarray(H) % 2, dtype=torch.float32,
                                          device=self.device)
         else:
             self.n_rounds = 0
             H_dec = H
-            self.bp = BPDecoder(H, config.bp).to(self.device)
+        self.bp, self.bp_short = self._bp_decoders(H)
         self.m_checks, self.n_vars = H_dec.shape
         self.osd = (
             OSDDecoder(H_dec, config.osd).to(self.device)
@@ -147,6 +155,22 @@ class MonteCarloEngine:
         self._check_counter_space(self.n_vars + (
             self.m_checks if config.channel == "phenomenological" else 0
         ))
+
+    def _bp_decoders(self, H):
+        """The BP decoder, and the short one of ``rescue_iters`` (or None):
+        space-time decodes T rounds of the base matrix, the other channels
+        the matrix itself."""
+        cfg = self.config
+
+        def make(bp_cfg):
+            if cfg.channel == "space-time":
+                return SpaceTimeBPDecoder(H, self.n_rounds, bp_cfg).to(self.device)
+            return BPDecoder(H, bp_cfg).to(self.device)
+
+        short = None
+        if 0 < cfg.rescue_iters < cfg.bp.max_iter:
+            short = make(dataclasses.replace(cfg.bp, max_iter=cfg.rescue_iters))
+        return make(cfg.bp), short
 
     def _check_counter_space(self, stride: int) -> None:
         """One batch draws ``batch_size * ceil(stride / 2)`` counter pairs;
@@ -191,6 +215,22 @@ class MonteCarloEngine:
     def _syndrome(self, errors):
         """(B, n) -> (B, m) int8 syndromes, for the classification."""
         return ch.syndrome_of(self._Hf, errors)
+
+    def _decode(self, syn, priors, alpha: float) -> BPResult:
+        """BP, or with ``rescue_iters`` BP(short) on the batch and BP(max_iter)
+        from scratch on its failures, compacted to the front as
+        ``_post_process`` compacts OSD's, and merged back."""
+        if self.bp_short is None:
+            return self.bp(syn, priors, alpha=alpha)
+        r1 = self.bp_short(syn, priors, alpha=alpha)
+        sel = torch.nonzero(~r1.converged).flatten()
+        if not len(sel):
+            return r1
+        r2 = self.bp(syn[sel], priors, alpha=alpha)
+        merged = [x.clone() for x in r1]
+        for whole, part in zip(merged, r2):
+            whole[sel] = part
+        return BPResult(*merged)
 
     def _post_process(self, syn, bp_res: BPResult):
         """OSD-0 on the first ``k_osd`` BP failures; returns (final, overflow)."""
@@ -262,7 +302,7 @@ class MonteCarloEngine:
         """Sample, decode and classify one batch; the first ``n_valid``
         samples count."""
         errors, syn, priors = self._sample(key, p)
-        bp_res = self.bp(syn, priors, alpha=alpha)
+        bp_res = self._decode(syn, priors, alpha)
         if self.osd is not None:
             final, overflow = self._post_process(syn, bp_res)
         else:
@@ -273,33 +313,72 @@ class MonteCarloEngine:
             osd_overflow=torch.tensor(overflow, dtype=torch.int64, device=self.device)
         )
 
+    def stage_times(self, p: float, reps: int = 5) -> dict:
+        """Median wall milliseconds of each stage of one batch at ``p``:
+        sampling, BP, OSD-0 post-processing, classification, each ending in
+        a device synchronize (on a card); the first of ``reps + 1`` batches
+        warms the caches."""
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        a32 = float(np.float32(self.config.bp.alpha))
+        kp = rng.fold_in(rng.key(0), hash(p) % (2**31))
+        valid = torch.ones(self.config.batch_size, dtype=torch.bool, device=self.device)
+        rows = []
+        for b in range(reps + 1):
+            t = [time.perf_counter()]
+            errors, syn, priors = self._sample(rng.fold_in(kp, b), p)
+            sync()
+            t.append(time.perf_counter())
+            bp_res = self._decode(syn, priors, a32)
+            sync()
+            t.append(time.perf_counter())
+            final = self._post_process(syn, bp_res)[0] if self.osd is not None else bp_res.hard
+            sync()
+            t.append(time.perf_counter())
+            self._classify(errors, final, syn, bp_res, valid)
+            sync()
+            t.append(time.perf_counter())
+            rows.append(np.diff(t) * 1e3)
+        med = np.median(np.array(rows[1:]), axis=0)
+        return dict(zip(("sample", "bp", "osd", "classify"), med.tolist()))
+
     # ------------------------------------------------------------------ run
-    def run_rate(self, p: float, trials: int, seed: int = 0) -> Counters:
+    def run_rate(self, p: float, trials: int, seed: int = 0, start_batch: int = 0,
+                 init: Counters | None = None, on_batch=None,
+                 alpha: float | None = None) -> Counters:
         """Accumulate ``trials`` samples at one error rate; counters on the CPU.
 
-        Like the JAX engine, the decoder receives alpha rounded to float32
-        (which matters for float64 BP)."""
+        Batch b is keyed ``fold_in(fold_in(key(seed), hash(p) % 2**31), b)``,
+        so a run resumed at ``start_batch`` with the counters ``init`` of the
+        batches before it draws what an uninterrupted run draws. ``on_batch(b,
+        n_batches, total)`` gets the running counters on the CPU after each
+        batch (the one place a batch waits for the card). ``alpha`` replaces
+        the decoder's alpha for this rate; like the JAX engine, the decoder
+        receives it rounded to float32 (which matters for float64 BP)."""
         B = self.config.batch_size
-        a32 = float(np.float32(self.config.bp.alpha))
+        a32 = float(np.float32(self.config.bp.alpha if alpha is None else alpha))
         kp = rng.fold_in(rng.key(seed), hash(p) % (2**31))
-        total = zeros_counters(self.device)
-        for b in range(-(-trials // B)):
+        total = (init if init is not None else zeros_counters()).to(self.device)
+        n_batches = -(-trials // B)
+        for b in range(start_batch, n_batches):
             n_valid = min(B, trials - b * B)
             total = total + self.run_batch(rng.fold_in(kp, b), p, n_valid, a32)
+            if on_batch is not None:
+                on_batch(b, n_batches, total.to("cpu"))
         return total.to("cpu")
 
     def sweep(self, error_rates, trials: int, seed: int = 0,
               checkpoint=None, verbose: bool = False) -> SweepResult:
-        """LER sweep over an error-rate grid; rate i uses seed ``seed + i``."""
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpointed sweeps are not ported yet (ROADMAP.md, queue 1 "
-                "item 7)"
-            )
+        """LER sweep over an error-rate grid; rate i uses seed ``seed + i``.
+        With a ``CheckpointManager`` each rate resumes from its last saved
+        batch."""
         t0 = time.time()
         per_rate = []
         for i, p in enumerate(error_rates):
-            d = counters_to_dict(self.run_rate(float(p), trials, seed=seed + i))
+            if checkpoint is not None:
+                counters = checkpoint.run_rate(self, float(p), trials, seed + i)
+            else:
+                counters = self.run_rate(float(p), trials, seed=seed + i)
+            d = counters_to_dict(counters)
             per_rate.append(d)
             if verbose:
                 print(

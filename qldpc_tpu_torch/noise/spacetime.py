@@ -11,8 +11,9 @@ and the detector syndrome is the round-to-round difference
 with the base matrix; the dense H_st is built on the host only for OSD and
 the classification's syndrome check.
 
-Left out (ROADMAP.md): ``sample_space_time``, the keyed
-``jax.random.bernoulli`` sampler, which the engine does not use.
+Two samplers draw the same model: ``sample_space_time`` from keyed
+``jax.random.bernoulli`` draws (one key, or one key per sample), and
+``sample_space_time_counters`` from the counter-mode stream the engine uses.
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qldpc_tpu_torch.utils.rng import counter_uniform
+from qldpc_tpu_torch.utils.rng import bernoulli, counter_uniform, split
 
 __all__ = [
     "space_time_matrix",
+    "sample_space_time",
     "sample_space_time_counters",
     "fold_data_correction",
     "space_time_prior_llr",
@@ -42,6 +44,48 @@ def space_time_matrix(H: np.ndarray, n_rounds: int) -> np.ndarray:
     return np.hstack([spatial, temporal])
 
 
+def _base_matrix(H, device) -> torch.Tensor:
+    """The base (m, n) matrix as float32 on ``device`` (numpy or a tensor)."""
+    return torch.as_tensor(H % 2 if isinstance(H, np.ndarray) else H,
+                           dtype=torch.float32, device=device)
+
+
+def _detectors(e, u, Hf, batch: int, T: int):
+    """d_t = H e_t + u_t + u_{t-1} (u_0 = 0) from (B, T, n) data and (B, T, m)
+    measurement errors; returns (errors, detectors) flattened."""
+    s = torch.remainder(e.to(torch.float32) @ Hf.T, 2.0).to(torch.int8)  # (B, T, m)
+    u_prev = torch.cat([torch.zeros_like(u[:, :1]), u[:, :-1]], dim=1)
+    d = (s + u + u_prev) % 2
+    errors = torch.cat([e.reshape(batch, -1), u.reshape(batch, -1)], dim=1)
+    return errors, d.reshape(batch, -1)
+
+
+def sample_space_time(key, H, p, batch: int, n_rounds: int, q=None,
+                      dtype=torch.float32, device=None):
+    """Keyed space-time sampling, as ``jax.random`` draws it
+    (qldpc_tpu/noise/spacetime.py:52). ``key`` is one key (2,), split into
+    the data and the measurement key, or a (batch, 2) tensor of per-sample
+    keys, each split likewise. ``dtype`` is the dtype of the comparisons
+    ``u < p`` (JAX's for a Python float: float32, float64 under x64).
+
+    Returns ``(errors (B, T*n + T*m) int8, detectors (B, T*m) int8)``.
+    """
+    Hf = _base_matrix(H, device)
+    m, n = Hf.shape
+    T = n_rounds
+    q = p if q is None else q
+    key = torch.as_tensor(key, dtype=torch.int64)
+    if key.dim() == 2:  # per-sample keys
+        kk = split(key)  # (batch, 2, 2)
+        e = bernoulli(kk[:, 0], p, (T, n), dtype, device)
+        u = bernoulli(kk[:, 1], q, (T, m), dtype, device)
+    else:
+        ke, ku = split(key)
+        e = bernoulli(ke, p, (batch, T, n), dtype, device)
+        u = bernoulli(ku, q, (batch, T, m), dtype, device)
+    return _detectors(e, u, Hf, batch, T)
+
+
 def sample_space_time_counters(key, base: int, H, p, batch: int, n_rounds: int,
                                q=None, device=None):
     """Counter-mode space-time sampling: sample i's first ``T*n`` uniforms
@@ -51,8 +95,7 @@ def sample_space_time_counters(key, base: int, H, p, batch: int, n_rounds: int,
     ``H`` is the base (m, n) matrix, numpy or a float32 tensor on ``device``.
     Returns ``(errors (B, T*n + T*m) int8, detectors (B, T*m) int8)``.
     """
-    Hf = torch.as_tensor(np.asarray(H) % 2 if isinstance(H, np.ndarray) else H,
-                         dtype=torch.float32, device=device)
+    Hf = _base_matrix(H, device)
     m, n = Hf.shape
     T = n_rounds
     q = p if q is None else q
@@ -61,11 +104,7 @@ def sample_space_time_counters(key, base: int, H, p, batch: int, n_rounds: int,
     q32 = torch.as_tensor(q, dtype=torch.float32, device=u_all.device)
     e = (u_all[:, : T * n].reshape(batch, T, n) < p32).to(torch.int8)
     u = (u_all[:, T * n:].reshape(batch, T, m) < q32).to(torch.int8)
-    s = torch.remainder(e.to(torch.float32) @ Hf.T, 2.0).to(torch.int8)  # (B, T, m)
-    u_prev = torch.cat([torch.zeros_like(u[:, :1]), u[:, :-1]], dim=1)
-    d = (s + u + u_prev) % 2
-    errors = torch.cat([e.reshape(batch, T * n), u.reshape(batch, T * m)], dim=1)
-    return errors, d.reshape(batch, T * m)
+    return _detectors(e, u, Hf, batch, T)
 
 
 def fold_data_correction(v: torch.Tensor, n: int, n_rounds: int) -> torch.Tensor:

@@ -69,10 +69,16 @@ def pack_columns(H: np.ndarray) -> np.ndarray:
     i // 32, bit i % 32 (decoders/osd.py's ``_Hc``)."""
     m, n = H.shape
     mw = -(-m // WORD)
-    bits = np.zeros((n, mw * WORD), np.uint64)
-    bits[:, :m] = (np.asarray(H) % 2).T
-    words = (bits.reshape(n, mw, WORD) << np.arange(WORD, dtype=np.uint64)).sum(-1)
-    return words.astype(np.uint32).view(np.int32)
+    # byte k of column j holds rows 8k..8k+7, bit i row 8k+i: eight row
+    # slices a byte (a DEM's H has 10^5 columns; no bit-sized temporaries)
+    rows = np.zeros((mw * WORD, n), np.uint8)
+    rows[:m] = np.asarray(H) & 1
+    rows = rows.reshape(mw * 4, 8, n)
+    packed = rows[:, 0].copy()
+    for i in range(1, 8):
+        packed |= rows[:, i] << i
+    cols = np.ascontiguousarray(packed.T)
+    return cols.view("<i4").astype(np.int32)
 
 
 def smem_bytes(m: int) -> int:

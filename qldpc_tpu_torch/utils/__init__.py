@@ -1,3 +1,3 @@
-from . import rng
+from . import plotting, profiling, rng
 
-__all__ = ["rng"]
+__all__ = ["plotting", "profiling", "rng"]

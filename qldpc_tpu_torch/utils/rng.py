@@ -14,9 +14,18 @@ int64 and reduced with ``& 0xFFFFFFFF`` after every add and rotate. A key is
 an int64 tensor of shape (2,) holding the two 32-bit key words, the same
 ``key_data`` layout as ``jax.random.key_data``; keys are explicit values,
 never global state.
+
+Beside the counter mode, ``split``, ``uniform`` and ``bernoulli`` compute
+``jax.random``'s keyed draws bit for bit, as JAX 0.9 does them with
+``jax_threefry_partitionable`` on: the counters of an array of shape ``s``
+are the flattened iota over ``s`` split into its high and low 32-bit words,
+and the two cipher outputs are combined per element. A ``(..., 2)`` tensor of
+keys draws for each key what ``jax.vmap`` over the keys would.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +35,10 @@ __all__ = [
     "threefry2x32",
     "counter_uniform",
     "counter_bernoulli",
+    "split",
+    "random_bits",
+    "uniform",
+    "bernoulli",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -96,3 +109,61 @@ def counter_bernoulli(
     u = counter_uniform(k, first_sample, batch, stride, device=device)
     p32 = torch.as_tensor(p, dtype=torch.float32, device=u.device)
     return (u < p32).to(torch.int8)
+
+
+def _iota_bits(k: torch.Tensor, shape: tuple[int, ...], device=None):
+    """The two threefry2x32 output words for every element of ``shape``
+    under each key of ``k`` (..., 2): counters are the flattened iota's high
+    and low words. Returns two int64 tensors of shape ``(..., *shape)``."""
+    k = torch.as_tensor(k, dtype=torch.int64).to(device)
+    size = math.prod(shape)
+    idx = torch.arange(size, dtype=torch.int64, device=k.device)
+    lead = k.shape[:-1]
+    k0 = k[..., 0].reshape(*lead, 1)
+    k1 = k[..., 1].reshape(*lead, 1)
+    o0, o1 = threefry2x32(k0, k1, (idx >> 32).expand(*lead, size), (idx & _MASK).expand(*lead, size))
+    return o0.reshape(*lead, *shape), o1.reshape(*lead, *shape)
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``num`` new keys from ``k`` (..., 2), shape
+    (..., num, 2)."""
+    o0, o1 = _iota_bits(k, (num,))
+    return torch.stack([o0, o1], dim=-1)
+
+
+def random_bits(k: torch.Tensor, shape: tuple[int, ...], width: int = 32,
+                device=None) -> torch.Tensor:
+    """``jax.random.bits`` of 32 or 64 bits as int64 (the 64-bit words
+    hold the two's-complement pattern of the uint64)."""
+    o0, o1 = _iota_bits(k, tuple(shape), device)
+    if width == 32:
+        return o0 ^ o1
+    if width == 64:
+        return (o0 << 32) | o1
+    raise ValueError(f"width must be 32 or 64, got {width}")
+
+
+def uniform(k: torch.Tensor, shape: tuple[int, ...], dtype=torch.float32,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform`` in [0, 1): random mantissa bits under the
+    exponent of 1.0, minus 1.0 (not the 24-bit conversion of
+    ``counter_uniform``)."""
+    o0, o1 = _iota_bits(k, tuple(shape), device)
+    if dtype == torch.float32:
+        word = ((o0 ^ o1) >> 9) | 0x3F800000
+        return word.to(torch.int32).view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        # the top 52 bits of the uint64 (o0 << 32) | o1
+        word = (o0 << 20) | (o1 >> 12) | 0x3FF0000000000000
+        return word.view(torch.float64) - 1.0
+    raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+
+
+def bernoulli(k: torch.Tensor, p, shape: tuple[int, ...], dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    """``jax.random.bernoulli`` as int8: ``uniform < p``, both in ``dtype``,
+    which is the dtype JAX gives ``p`` (float32 for a Python float, float64
+    when JAX runs with x64 enabled)."""
+    u = uniform(k, shape, dtype, device)
+    return (u < torch.as_tensor(p, dtype=dtype, device=u.device)).to(torch.int8)

@@ -16,7 +16,12 @@ these numbers as constants beside this command:
     sum-product, held at LER and OSD-rate level (the transcendentals of
     XLA's CPU backend differ from the card's in the last ulp);
   * ``layered144``: code capacity on [[144,12,12]], BP(50) layered
-    sum-product + OSD-0, batch 65,536, p = 0.050119, 65,536 trials, seed 0.
+    sum-product + OSD-0, batch 65,536, p = 0.050119, 65,536 trials, seed 0;
+  * ``space-time-<n>-<p>``: the ``space-time`` preset's cells on the codes
+    [[72]] to [[144]] (T = distance, BP(100) sum-product + OSD-0, batch 512,
+    1,000 trials, seed = the rate's index), which scripts/validate_port.py
+    holds the port's run of that preset to (``--only`` takes ``space-time``
+    for all 16; about 25 minutes, [[144]] 100-310 s a cell).
 
 This script imports jax; the port never does. Each space-time configuration
 takes several minutes of CPU.
@@ -47,6 +52,8 @@ from qldpc_tpu.mc import EngineConfig, MonteCarloEngine, counters_to_dict  # noq
 from qldpc_tpu.parallel import make_mesh  # noqa: E402
 
 CODE = "[[144, 12, 12]]"
+ST_PRESET_CODES = ("[[72, 12, 6]]", "[[90, 8, 10]]", "[[108, 8, 10]]", "[[144, 12, 12]]")
+ST_PRESET_RATES = (0.001, 0.002, 0.004, 0.008)
 CONFIGS = {
     "st144-min-sum": dict(
         p=0.008, trials=4096, seed=1,
@@ -62,13 +69,21 @@ CONFIGS = {
         p=0.050119, trials=65536, seed=0,
         config=dict(bp=BPConfig(max_iter=50, schedule="layered"), batch_size=65536),
     ),
+    **{
+        f"space-time-{code[2:code.index(',')]}-{p}": dict(
+            code=code, p=p, trials=1000, seed=i,
+            config=dict(bp=BPConfig(max_iter=100), channel="space-time", batch_size=512),
+        )
+        for code in ST_PRESET_CODES for i, p in enumerate(ST_PRESET_RATES)
+    },
 }
 
 
 def record(name: str) -> dict:
     spec = CONFIGS[name]
     cfg = EngineConfig(osd=OSDConfig(order=0), **spec["config"])
-    eng = MonteCarloEngine(get_code(CODE), cfg, mesh=make_mesh(1))
+    code = spec.get("code", CODE)
+    eng = MonteCarloEngine(get_code(code), cfg, mesh=make_mesh(1))
     t0 = time.perf_counter()
     d = counters_to_dict(eng.run_rate(spec["p"], spec["trials"], seed=spec["seed"]))
     secs = time.perf_counter() - t0
@@ -79,17 +94,21 @@ def record(name: str) -> dict:
             counters[k] = {int(i): int(v[i]) for i in np.nonzero(v)[0]}
         else:
             counters[k] = v.item() if hasattr(v, "item") else v
-    return dict(name=name, code=CODE, p=spec["p"], trials=spec["trials"],
+    return dict(name=name, code=code, p=spec["p"], trials=spec["trials"],
                 seed=spec["seed"], seconds=round(secs, 1), counters=counters)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", nargs="+", choices=list(CONFIGS), default=list(CONFIGS))
+    ap.add_argument("--only", nargs="+", choices=[*CONFIGS, "space-time"],
+                    default=list(CONFIGS))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    names = [n for o in args.only
+             for n in ([k for k in CONFIGS if k.startswith("space-time-")]
+                       if o == "space-time" else [o])]
     rows = []
-    for name in args.only:
+    for name in names:
         row = record(name)
         print(json.dumps(row), flush=True)
         rows.append(row)

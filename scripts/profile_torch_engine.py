@@ -27,7 +27,6 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 
@@ -42,32 +41,6 @@ from qldpc_tpu_torch.mc import (  # noqa: E402
     MonteCarloEngine,
 )
 from qldpc_tpu_torch.noise.circuit import parametric_memory_dem  # noqa: E402
-from qldpc_tpu_torch.utils import rng  # noqa: E402
-
-
-def stage_times(eng: MonteCarloEngine, p: float, reps: int = 5) -> dict:
-    """Median wall milliseconds of each stage of one batch."""
-    a32 = float(np.float32(eng.config.bp.alpha))
-    rows = []
-    for b in range(reps + 1):  # the first batch warms the caches
-        key = rng.fold_in(rng.fold_in(rng.key(0), hash(p) % 2**31), b)
-        t = [time.perf_counter()]
-        errors, syn, priors = eng._sample(key, p)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        bp_res = eng.bp(syn, priors, alpha=a32)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        final, _ = eng._post_process(syn, bp_res)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        valid = torch.ones(eng.config.batch_size, dtype=torch.bool, device=eng.device)
-        eng._classify(errors, final, syn, bp_res, valid)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        rows.append(np.diff(t) * 1e3)
-    med = np.median(np.array(rows[1:]), axis=0)
-    return dict(zip(("sample", "bp", "osd", "classify"), med.tolist()))
 
 
 def main() -> int:
@@ -102,7 +75,7 @@ def main() -> int:
     eng.run_rate(args.p[0], args.batch)  # build the kernels, warm the allocator
     report = []
     for p in args.p:
-        st = stage_times(eng, p)
+        st = eng.stage_times(p)
         total = sum(st.values())
         line = (f"p={p} batch={args.batch}: " + ", ".join(
             f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in st.items())

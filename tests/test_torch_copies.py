@@ -104,3 +104,76 @@ def test_engines_run_on_the_card_by_default(monkeypatch):
         MonteCarloEngine(codes.get_code("steane"), EngineConfig(batch_size=8))
     # asked for, the CPU runs the plain versions
     assert DEMEngine(dem, cfg, device="cpu").device.type == "cpu"
+
+
+# ------------------------------------------------- the experiments layer's copies
+def _source_lines(module):
+    import inspect
+
+    return inspect.getsource(module).splitlines()
+
+
+def _copy_matches(copy, original, renamed=()):
+    """The copy is the original with a first line naming it and the imports
+    of ``renamed`` pointed at the port."""
+    got, ref = _source_lines(copy), _source_lines(original)
+    assert got[0].startswith(f"# Copied from {original.__name__.replace('.', '/')}.py")
+    for old, new in renamed:
+        ref = [line.replace(old, new) for line in ref]
+    assert got[1:] == ref
+
+
+def test_experiment_configs_are_copies():
+    from qldpc_tpu.experiments import configs as jax_configs
+    from qldpc_tpu_torch.experiments import configs
+
+    _copy_matches(configs, jax_configs,
+                  [("from qldpc_tpu.codes.registry", "from qldpc_tpu_torch.codes.registry")])
+    assert list(configs.PRESETS) == list(jax_configs.PRESETS)
+    for name, ref in jax_configs.PRESETS.items():
+        got = configs.PRESETS[name]
+        for f in dataclasses.fields(ref):
+            assert getattr(got, f.name) == getattr(ref, f.name), (name, f.name)
+        for code in got.codes:
+            assert got.rates_for(code) == ref.rates_for(code)
+    assert configs.LOGSPACE_GRID == jax_configs.LOGSPACE_GRID
+    assert configs.get_preset("study") is not configs.PRESETS["study"]
+
+
+def test_results_io_and_plotting_are_copies(tmp_path):
+    from qldpc_tpu.experiments import results_io as jax_results_io
+    from qldpc_tpu.utils import plotting as jax_plotting
+    from qldpc_tpu_torch.experiments import results_io
+    from qldpc_tpu_torch.utils import plotting
+
+    _copy_matches(results_io, jax_results_io,
+                  [("from qldpc_tpu.utils import plotting", "from qldpc_tpu_torch.utils import plotting")])
+    _copy_matches(plotting, jax_plotting)
+    # the copies draw and reload the same archive
+    rates = [0.01, 0.02]
+    res = {"steane": {p: {"ler": 0.1 * (i + 1)} for i, p in enumerate(rates)}, "_meta": {}}
+    np.savez(tmp_path / "r.npz", results=np.array(res, dtype=object), allow_pickle=True)
+    assert results_io.load_results(tmp_path / "r.npz") == jax_results_io.load_results(
+        tmp_path / "r.npz")
+    got = results_io.replot(tmp_path / "r.npz", tmp_path / "port.png")
+    ref = jax_results_io.replot(tmp_path / "r.npz", tmp_path / "jax.png")
+    assert got.exists() and ref.exists()
+
+
+def test_phase_timer_is_a_copy():
+    import inspect
+
+    from qldpc_tpu.utils import profiling as jax_profiling
+    from qldpc_tpu_torch.utils import profiling
+
+    got, ref = profiling.PhaseTimer, jax_profiling.PhaseTimer
+    assert inspect.getsource(got) == inspect.getsource(ref)
+    timers = [got(), ref()]
+    for t in timers:
+        for name in ("a", "b", "a"):
+            with t.phase(name):
+                pass
+    summaries = [t.summary() for t in timers]
+    assert {k: v["calls"] for k, v in summaries[0].items()} == {"a": 2, "b": 1}
+    assert all(s.keys() == summaries[1].keys() for s in summaries)
+    assert timers[0].report().splitlines()[0] == timers[1].report().splitlines()[0]

@@ -18,7 +18,11 @@ m_pad 32, 1,728 and 5,184 and at every tile of rows, and K2's two
 instances and two loaders from Steane to a 673 x 2,656 system, with
 rank-deficient systems and an early stop; K6 at cluster widths 1 and
 above, rounds that do not divide evenly and a width above T, where every
-width gives the default width's bits.
+width gives the default width's bits. K5a-d are also held at every block
+of one OSD call on the [[288,12,18]] space-time matrix at T = 18, the
+experiments CLI on the card to the same CLI run on the CPU (min-sum:
+identical counters), and a checkpointed run resumed on the card to an
+uninterrupted one.
 ``test_k6_geometry_follows_the_state_size`` needs no card.
 """
 
@@ -473,6 +477,36 @@ def test_each_k5_kernel_matches_plain_at_every_block(cuda, monkeypatch):
     """Each kernel against its plain version on the state the elimination
     hands it, outputs and in-place state both."""
     osd, order, resid = _factored_inputs(cuda, "[[72, 12, 6]]", 256, seed=11)
+    _k5_checked_at_every_block(osd, order, resid, monkeypatch)
+
+
+def test_k5_matches_plain_at_every_block_on_the_288_h_st(cuda, monkeypatch):
+    """K5a-d on the [[288,12,18]] space-time matrix at T = 18 (2,592 x
+    7,776), a narrow system the factored elimination takes, on the BP
+    failures of the space-time engine at p = 0.008; and the OSD-0 solutions
+    equal the plain factored elimination's."""
+    eng = MonteCarloEngine(
+        get_code("[[288, 12, 18]]"),
+        EngineConfig(bp=BPConfig(max_iter=100), channel="space-time", batch_size=256),
+        device=cuda,
+    )
+    assert eng.osd.elimination == "factored" and (eng.m_checks, eng.n_vars) == (2592, 7776)
+    from qldpc_tpu_torch.utils import rng
+
+    _, syn, priors = eng._sample(rng.key(4), 0.008)
+    r = eng.bp(syn, priors)
+    fail = ~r.converged
+    assert int(fail.sum()) >= 8
+    resid = eng.osd._residual(syn[fail], r.hard[fail].to(torch.int32))
+    order = torch.argsort(r.llrs[fail].abs(), dim=1, stable=True)
+    _k5_checked_at_every_block(eng.osd, order, resid, monkeypatch)
+    got = ofc.eliminate_factored_cuda(order, resid, eng.osd.Hc, eng.osd.h_rank, eng.osd.max_cols)
+    ref = ofc.eliminate_factored_plain(order, resid, eng.osd.Hc, eng.osd.h_rank, eng.osd.max_cols)
+    for g, x in zip(got, ref):
+        assert torch.equal(g, x)
+
+
+def _k5_checked_at_every_block(osd, order, resid, monkeypatch):
     calls = dict.fromkeys(K5, 0)
 
     def checked(name, kernel, plain):
@@ -982,11 +1016,13 @@ def _k4_wide_system(m: int, B: int, seed: int):
     return H, order, resid
 
 
-# (m, B): m_words 5, 14 (the [[72]] DEM's 432) and 27 (H_st's 864), and m =
-# 256, a multiple of 32; one sample, one wave of the [[72]] DEM's failures
-# and several waves
+# (m, B): m_words 5, 14 (the [[72]] DEM's 432), 27 (H_st's 864), 29 (the
+# [[90]] DEM's 900) and 34 (the [[108]] DEM's 1,080: past 1,024 rows, K4's
+# one-block-an-SM instance), up to 1,248 rows, the most whose T fits a
+# block's shared memory, and m = 256, a multiple of 32; one sample, one
+# wave of the [[72]] DEM's failures and several waves
 K4_SHAPES = [(160, 1), (160, 716), (432, 1), (432, 716), (432, 4096), (864, 1), (864, 716),
-             (256, 33), (256, 716)]
+             (256, 33), (256, 716), (900, 949), (1080, 1), (1080, 962), (1248, 33)]
 
 
 @pytest.mark.parametrize("b_exit", [False, True])
@@ -1092,3 +1128,56 @@ def test_k1_per_sample_priors(cuda, code_name, case):
         ref = bp_flooding_plain(syn, pr, dec.tables(), cfg)
         torch.cuda.synchronize()
         _hold_bp(got, ref, cfg.method, B)
+
+
+def test_cli_on_the_card_matches_the_cpu_run(cuda, tmp_path):
+    """The experiments CLI on the card against the same run on the CPU:
+    min-sum (exact arithmetic), so every counter is identical; code
+    capacity (K1, K2) and the [[72]] DEM (K3, K4)."""
+    from qldpc_tpu_torch.experiments.cli import main
+    from qldpc_tpu_torch.experiments.results_io import load_results
+
+    runs = {
+        "study": ["--codes", "[[72, 12, 6]]", "--error-rates", "0.03", "0.06",
+                  "--trials", "4096", "--batch-size", "2048"],
+        "complete-bposd": ["--codes", "[[72, 12, 6]]", "--error-rates", "0.002",
+                           "--trials", "512", "--batch-size", "256"],
+    }
+    for preset, args in runs.items():
+        out = {}
+        for device in ("cuda", "cpu"):
+            path = tmp_path / f"{preset}-{device}"
+            assert main(["run", preset, *args, "--set", "bp_method=min-sum", "--device", device,
+                         "--out", str(path), "--no-checkpoint", "--quiet"]) == 0
+            out[device] = load_results(path / f"{preset}.npz")["[[72, 12, 6]]"]
+        assert out["cuda"].keys() == out["cpu"].keys()
+        for p, d in out["cpu"].items():
+            assert d["BPs_fault"] > 0
+            for k in d:
+                assert np.array_equal(out["cuda"][p][k], d[k]), (preset, p, k)
+
+
+def test_checkpoint_resume_on_the_card(cuda, tmp_path):
+    from qldpc_tpu_torch.mc import CheckpointManager
+
+    eng = MonteCarloEngine(get_code("[[144, 12, 12]]"),
+                           EngineConfig(bp=BPConfig(max_iter=50), batch_size=4096), device=cuda)
+    ref = counters_to_dict(eng.run_rate(0.05, 5 * 4096, seed=2))
+
+    class Stop(Exception):
+        pass
+
+    mgr = CheckpointManager(tmp_path)
+    save = mgr.save
+
+    def save_then_stop(engine, p, seed, counters, next_batch):
+        save(engine, p, seed, counters, next_batch)
+        if next_batch == 3:
+            raise Stop
+
+    mgr.save = save_then_stop
+    with pytest.raises(Stop):
+        mgr.run_rate(eng, 0.05, 5 * 4096, 2)
+    got = counters_to_dict(CheckpointManager(tmp_path).run_rate(eng, 0.05, 5 * 4096, 2))
+    for k in ref:
+        assert np.array_equal(got[k], ref[k]), k

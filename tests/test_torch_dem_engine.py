@@ -13,6 +13,8 @@ Queue 3); the tested rates are ones where the priors agree bit for bit,
 checked below.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,5 +130,17 @@ def test_dem_engine_config_conversion():
         dem_engine_config_from_reference(
             JaxDEMEngineConfig(bp=BPConfig(backend="pallas", stream_dtype="bfloat16"))
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dem_engine_config_from_reference(JaxDEMEngineConfig(rescue_iters=10))
+    # rescue_iters is ported now and carries over
+    assert dem_engine_config_from_reference(JaxDEMEngineConfig(rescue_iters=10)).rescue_iters == 10
+
+
+def test_rescue_iters_match_a_single_run_and_jax(steane_parametric):
+    """The DEM engine's rescue decoding: a single long run's counters and the
+    JAX DEM engine's rescue run's."""
+    jax_eng, port = _engines(steane_parametric, rescue_iters=4)
+    assert port.bp_short is not None
+    single = DEMEngine(port.dem, dataclasses.replace(port.config, rescue_iters=0), device="cpu")
+    got = port.run(shots=512, seed=2, p=RATES[1])
+    assert got["BPs_fault"] > 0
+    assert _same(got, single.run(shots=512, seed=2, p=RATES[1]))
+    assert _same(got, jax_eng.run(shots=512, seed=2, p=RATES[1]))

@@ -124,3 +124,32 @@ def test_osd_out_of_slice_features_raise():
     llrs = torch.full((1, wide.shape[1]), 3.0)
     sol = osd(syn, llrs, torch.zeros((1, wide.shape[1]), dtype=torch.int8))
     assert np.array_equal((sol.numpy().astype(np.int64) @ wide.T) % 2, syn.numpy())
+
+
+@pytest.mark.parametrize("m,n,density", [(1, 1, 0.5), (7, 13, 0.4), (36, 72, 0.1), (65, 64, 0.5),
+                                         (130, 300, 0.02), (40, 20, 0.3)])
+def test_gf2_rank_and_column_packing(m, n, density):
+    """The OSD decoder's packed rank equals the RREF rank of the JAX
+    package's gf2 (rank-deficient systems too: repeated rows), and H's packed
+    columns are the JAX decoder's ``_Hc``."""
+    from qldpc_tpu_torch.decoders.osd import gf2_rank
+    from qldpc_tpu_torch.ops.osd_transform_cuda import pack_columns
+
+    rng = np.random.default_rng(m * n)
+    H = (rng.random((m, n)) < density).astype(np.uint8)
+    H[m // 2:] ^= H[: m - m // 2] * (rng.random((m - m // 2, 1)) < 0.5)
+    assert gf2_rank(H) == gf2.rank(H)
+    got = pack_columns(H)
+    words = -(-m // 32)
+    ref = np.zeros((n, words), np.int64)
+    for i in range(m):
+        ref[:, i // 32] |= H[i].astype(np.int64) << (i % 32)
+    assert got.dtype == np.int32 and np.array_equal(got.view(np.uint32), ref.astype(np.uint32))
+
+
+def test_gf2_rank_on_a_dem():
+    from qldpc_tpu.noise.circuit import parametric_memory_dem
+    from qldpc_tpu_torch.decoders.osd import gf2_rank
+
+    H = parametric_memory_dem(get_code("[[72, 12, 6]]"), basis="z", rounds=6).H
+    assert gf2_rank(H) == gf2.rank(H) == 426

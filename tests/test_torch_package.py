@@ -114,7 +114,7 @@ names = [m.name for m in pkgutil.walk_packages(qldpc_tpu_torch.__path__, "qldpc_
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-for script in ("profile_torch_engine", "probe_factored_k5"):
+for script in ("profile_torch_engine", "probe_factored_k5", "validate_port"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(names))
@@ -156,3 +156,33 @@ def test_osd_config_conversion():
         osd_config_from_reference({"order": 0, "bogus": 1})
     with pytest.raises(TypeError):
         osd_config_from_reference(42)
+
+
+_CLI_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["qldpc_tpu"] = None
+from qldpc_tpu_torch.experiments.cli import main
+from qldpc_tpu_torch.experiments.results_io import load_results
+out = sys.argv[1]
+code = main(["run", "complete-bposd", "--codes", "steane", "--trials", "32", "--batch-size",
+             "32", "--error-rates", "0.005", "--device", "cpu", "--out", out, "--quiet"])
+d = load_results(out + "/complete-bposd.npz")["steane"][0.005]
+print(code, d["trials"], sorted(m for m, v in sys.modules.items()
+                                if v is not None and m.split(".")[0] in ("jax", "qldpc_tpu")))
+"""
+
+
+def test_cli_runs_with_jax_blocked(tmp_path):
+    # the experiments CLI (a circuit-level preset: DEM build, BP, OSD,
+    # checkpoints, archives) with both jax and qldpc_tpu blocked
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_WITHOUT_JAX, str(tmp_path)], capture_output=True,
+        text=True, cwd=REPO, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    code, trials, loaded = proc.stdout.strip().splitlines()[-1].split(" ", 2)
+    assert (code, trials, loaded) == ("0", "32", "[]")
+    assert "not ported: running float32 streams" in proc.stderr
+    assert (tmp_path / "complete-bposd_ckpt").is_dir()

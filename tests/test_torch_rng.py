@@ -64,3 +64,81 @@ def test_channels_draw_the_same_errors(p):
     e_j, f_j = jax_channels.phenomenological(kj, jnp.uint32(0), p32, B, n, m, q=0.02)
     assert np.array_equal(e_t.numpy(), np.asarray(e_j))
     assert np.array_equal(f_t.numpy(), np.asarray(f_j))
+
+
+# ----------------------------------------------------------- keyed draws
+# jax.random as JAX 0.9 draws it with jax_threefry_partitionable on (the
+# flattened iota's high and low words as counters); the tests run JAX with
+# x64 on, so a Python float p is compared in float64, and in float32 under
+# jax.enable_x64(False), as the JAX CLI draws it.
+
+KEYED_SEEDS = [0, 7, 12345, 2**31 - 1, 2**32 + 5]
+SHAPES = [(1,), (5,), (3, 7), (2, 3, 5), (4, 145)]
+
+
+@pytest.mark.parametrize("seed", KEYED_SEEDS)
+@pytest.mark.parametrize("num", [2, 3, 8])
+def test_split(seed, num):
+    k = jax.random.fold_in(jax.random.key(seed), 1)
+    kt = rng.fold_in(rng.key(seed), 1)
+    ref = np.asarray(jax.random.key_data(jax.random.split(k, num)))
+    assert np.array_equal(rng.split(kt, num).numpy(), ref)
+    # a (batch, 2) tensor of keys splits as jax.vmap(split) does
+    ks = jax.random.split(k, 5)
+    ref = np.asarray(jax.random.key_data(jax.vmap(lambda kk: jax.random.split(kk, num))(ks)))
+    assert np.array_equal(rng.split(rng.split(kt, 5), num).numpy(), ref)
+
+
+@pytest.mark.parametrize("seed", KEYED_SEEDS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_uniform_and_bits(seed, shape):
+    k = jax.random.key(seed)
+    kt = rng.key(seed)
+    got = rng.uniform(kt, shape)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert np.array_equal(got.numpy(), np.asarray(jax.random.uniform(k, shape, jnp.float32)))
+    assert np.array_equal(rng.uniform(kt, shape, torch.float64).numpy(),
+                          np.asarray(jax.random.uniform(k, shape, jnp.float64)))
+    assert np.array_equal(rng.random_bits(kt, shape).numpy(),
+                          np.asarray(jax.random.bits(k, shape, jnp.uint32)).astype(np.int64))
+    assert np.array_equal(rng.random_bits(kt, shape, 64).numpy().view(np.uint64),
+                          np.asarray(jax.random.bits(k, shape, jnp.uint64)))
+    # per-sample keys draw what jax.vmap over the keys draws
+    ks = jax.random.split(k, 3)
+    ref = np.asarray(jax.vmap(lambda kk: jax.random.uniform(kk, shape, jnp.float32))(ks))
+    assert np.array_equal(rng.uniform(rng.split(kt, 3), shape).numpy(), ref)
+
+
+@pytest.mark.parametrize("seed", KEYED_SEEDS[:4])
+@pytest.mark.parametrize("p", [0.001, 0.01, 0.05, 0.3, 0.5])
+def test_bernoulli(seed, p):
+    k = jax.random.fold_in(jax.random.key(seed), 2)
+    kt = rng.fold_in(rng.key(seed), 2)
+    shape = (37, 145)
+    ref64 = np.asarray(jax.random.bernoulli(k, p, shape)).astype(np.int8)
+    got64 = rng.bernoulli(kt, p, shape, torch.float64)
+    assert got64.dtype == torch.int8 and np.array_equal(got64.numpy(), ref64)
+    with jax.enable_x64(False):
+        ref32 = np.asarray(jax.random.bernoulli(k, p, shape)).astype(np.int8)
+    assert np.array_equal(rng.bernoulli(kt, p, shape).numpy(), ref32)
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("code_name,T,q", [("steane", 3, None), ("[[72, 12, 6]]", 4, 0.02)])
+def test_sample_space_time_keyed(per_sample, code_name, T, q):
+    from qldpc_tpu.codes import get_code
+    from qldpc_tpu.noise import spacetime as jax_st
+    from qldpc_tpu_torch.noise import spacetime as st
+
+    H = get_code(code_name).Hx
+    B, p = 11, 0.03
+    k, kt = jax.random.key(9), rng.key(9)
+    if per_sample:
+        k, kt = jax.random.split(k, B), rng.split(kt, B)
+    for x64, dtype in ((True, torch.float64), (False, torch.float32)):
+        with jax.enable_x64(x64):
+            e_ref, d_ref = jax_st.sample_space_time(k, H, p, B, T, q=q)
+        e, d = st.sample_space_time(kt, H, p, B, T, q=q, dtype=dtype)
+        assert e.dtype == d.dtype == torch.int8
+        assert np.array_equal(e.numpy(), np.asarray(e_ref))
+        assert np.array_equal(d.numpy(), np.asarray(d_ref))
