@@ -89,7 +89,23 @@ Phases (any failure raises and the script exits non-zero):
       elimination's, and the LER and OSD rate at p = 0.004 and 0.008 on
       1,024 trials each (K6 and K5);
   25. rescue_iters = 10 on the [[144]] code-capacity engine: counters equal
-      to a single BP(50) run's, both timed.
+      to a single BP(50) run's, both timed;
+  OSD-e and the Alvarado alpha:
+  26. OSD-e(7) on the rows path: a [[144]] phenomenological batch (B = 4,096,
+      p = 0.03, BP(50) min-sum), whose flipped syndrome bits leave H's image:
+      K2's packed-rows loader on the inconsistent BP failures against its
+      plain version (A, b, piv) and the ordered loader's (b, piv), the card's
+      OSD-e solutions against the CPU's on 512, every cost at most OSD-0's,
+      the search's and the OSD-e stage's ms, peak memory and the batch's
+      stage times; then the
+      engine's counters on 512 trials against the JAX engine's (K1 and both
+      K2 loaders launch);
+  27. OSD-e(7) on the transform path: the [[72]] DEM's BP failures at
+      p = 0.002 with a detector flipped each: K4 (b-exit on) against its
+      plain version on 128 inconsistent lanes, every inconsistent lane at
+      rank(H), the solutions against the CPU's on 32, costs at most OSD-0's;
+  28. estimate_alpha min-sum on [[144]] at p = 0.1 on the card, equal to the
+      CPU's and to the JAX package's recorded value.
 Before the last it prints the card's name and power limit and the kernels'
 JSON record (each kernel's launches on its path; its time between CUDA
 events around its calls, ``ms``, which holds the host's launch work where a
@@ -101,8 +117,10 @@ integer issue rate); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result. K1's row in the kernels line also holds its record at
 p = 0.050119, K2's (its ordered loader's, the path's) its packed-rows
-entry's, K4's its record on the space-time failures, and K5a-d's their
-device ms over one OSD call at the [[288]] DEM (phase 23).
+entry's and the packed-rows loader's launches and device ms on the OSD-e
+path (phase 26), K4's its record on the space-time failures and its
+launches on the OSD-e path (phase 27), and K5a-d's their device ms over one
+OSD call at the [[288]] DEM (phase 23).
 """
 
 from __future__ import annotations
@@ -174,6 +192,36 @@ JAX_ST_SUM_PRODUCT = {"ler": 0.013916015625, "osd": 0.04443359375,
 LAYERED_BATCH, LAYERED_SEED = 65536, 0
 JAX_LAYERED = {"trials": 65536, "ler": 0.0420684814453125, "osd": 0.0476531982421875,
                "average_iterations": 4.8182220458984375}
+
+# OSD-e on the phenomenological channel of [[144,12,12]] (flipped syndrome
+# bits decoded on H: about 98% of the syndromes leave H's image, so the
+# pattern search runs on almost every BP failure), BP(50) min-sum + OSD-e(7)
+PH_CODE, PH_P, PH_BATCH, PH_ORDER = "[[144, 12, 12]]", 0.03, 4096, 7
+OSDE_CPU_LANES = 512  # of the batch's failures, decoded again on the CPU
+OSDE_DEM_CPU_LANES = 32  # of the [[72]] DEM's flipped failures, on the CPU
+# The JAX engine's counters there at batch 512, 512 trials, seed 0 (every
+# counter, histograms as {weight: count}), recorded on the CPU (XLA, 5.6 s)
+# with `python3 scripts/jax_reference_counters.py --only ph144-osde7`.
+JAX_PH_OSDE7_TRIALS, JAX_PH_OSDE7_SEED = 512, 0
+JAX_PH_OSDE7 = {
+    "trials": 512, "logical": 0.861328125, "osd": 0.900390625, "degeneracies": 0.00390625,
+    "OSD_invocation_AND_logicalError": 0.861328125, "average_iterations": 44.849609375,
+    "ler": 0.861328125, "residual_logicals": 441, "ler_notebook": 1.76171875, "BPs_fault": 461,
+    "BPs_miscorrected": 324, "incorrectable": 117, "degeneracy_count": 12, "bp_converged": 51,
+    "osd_overflow": 0,
+    "weights_found_BP": {6: 1},
+    "weights_found_OSD": {1: 1, 2: 1, 4: 1, 5: 2, 6: 4, 7: 1, 19: 1},
+    "weights_found_BP_error": {},
+    "weights_found_OSD_error": {
+        1: 3, 2: 1, 3: 3, 4: 1, 5: 5, 6: 13, 7: 9, 8: 10, 9: 23, 10: 23, 11: 23, 12: 24,
+        13: 35, 14: 34, 15: 30, 16: 21, 17: 31, 18: 22, 19: 31, 20: 19, 21: 8, 22: 3, 23: 4,
+        24: 3, 25: 8, 26: 8, 27: 5, 28: 6, 29: 6, 30: 5, 31: 7, 32: 5, 33: 2, 34: 1, 36: 2,
+        37: 3, 38: 2, 41: 1, 45: 1},
+}
+# estimate_alpha min-sum on [[144,12,12]] at p = 0.1, seed 0 (5,120 samples,
+# float32 draws), recorded with `python3 scripts/jax_reference_counters.py
+# --only alpha-144-0.1` (4.6 s of CPU)
+ALPHA_CODE, ALPHA_P, ALPHA_SEED, JAX_ALPHA = "[[144, 12, 12]]", 0.1, 0, 0.3156756390689138
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -1800,6 +1848,207 @@ def phase_rescue(dev, card_line: str) -> None:
         raise AssertionError("rescue_iters changed the counters")
 
 
+def search_cost(sol, llrs, hard) -> torch.Tensor:
+    """The OSD-e search's cost of each solution, in float64: the sum over
+    the bits it flips from ``hard`` of |llr| * (1 - 2 * hard)."""
+    hard = hard.to(torch.int32)
+    w = llrs.double().abs() * (1.0 - 2.0 * hard.double())
+    return ((sol.to(torch.int32) ^ hard).double() * w).sum(dim=1)
+
+
+def more_costly(sol, osd0, llrs, hard) -> torch.Tensor:
+    """Samples whose OSD-e solution costs more than the OSD-0 one (the zero
+    pattern, which the search scores first), beyond float64 rounding."""
+    c, c0 = search_cost(sol, llrs, hard), search_cost(osd0, llrs, hard)
+    return (c - c0) > 1e-9 * c0.abs().clamp(min=1.0)
+
+
+def hold_osde(label: str, got, ref, llrs, hard, max_ties: int = 0) -> None:
+    """OSD-e solutions identical, save where the two choices cost the same
+    within float32 rounding (relative 2^-20), at most ``max_ties`` of them."""
+    differ = torch.nonzero((got.to(torch.int32) != ref.to(torch.int32)).any(dim=1)).flatten()
+    cg = search_cost(got[differ], llrs[differ], hard[differ])
+    cr = search_cost(ref[differ], llrs[differ], hard[differ])
+    far = (cg - cr).abs() > 2.0**-20 * torch.maximum(cg.abs(), cr.abs())
+    log(f"{label}: {len(got) - len(differ)} of {len(got)} identical, {len(differ)} differing "
+        f"(near-ties), {int(far.sum())} beyond a near-tie")
+    if bool(far.any()) or len(differ) > max_ties:
+        raise AssertionError(f"{label}: the OSD-e solutions differ")
+
+
+def phase_osde_rows(dev, card_line: str) -> dict:
+    """OSD-e(7) on the rows path: [[144]] phenomenological BP(50) min-sum
+    failures. K2's packed-rows loader on the inconsistent samples against
+    its plain version (A, b, piv) and against the ordered loader's (b, piv);
+    the card's OSD-e solutions against the CPU's; every cost at most OSD-0's;
+    the search's and the OSD stage's ms and peak memory; then the engine's
+    counters against the JAX engine's (K1, K2's two loaders launch)."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import BPConfig, OSDConfig, OSDDecoder
+    from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine, counters_to_dict
+    from qldpc_tpu_torch.ops import bp_cuda, osd_cuda
+    from qldpc_tpu_torch.ops.osd_cuda import pack_permuted_rows
+    from qldpc_tpu_torch.utils import rng
+
+    def engine(batch):
+        cfg = EngineConfig(bp=BPConfig(max_iter=50, method="min-sum"),
+                           osd=OSDConfig(order=PH_ORDER), channel="phenomenological",
+                           batch_size=batch)
+        return MonteCarloEngine(get_code(PH_CODE), cfg, device=dev)
+
+    eng = engine(PH_BATCH)
+    osd = eng.osd
+    _, syn, priors = eng._sample(rng.key(5), PH_P)
+    res = eng.bp(syn, priors)
+    fail = ~res.converged
+    syn_f, llrs_f, hard_f = syn[fail], res.llrs[fail], res.hard[fail]
+    resid = osd._residual(syn_f, hard_f.to(torch.int32))
+    order = torch.argsort(llrs_f.abs(), dim=1, stable=True)
+    b, piv = osd_cuda.eliminate_ordered_cuda(order, resid, osd.Hc, osd.h_rank)
+    sel = torch.nonzero(((piv < 0) & (b != 0)).any(dim=1)).flatten()
+    rows = pack_permuted_rows(order[sel], osd.Hc, osd.m)
+    args = (rows, resid[sel], osd.n, osd.h_rank)
+    ka, kb, kp = osd_cuda.eliminate_rows_cuda(*args)
+    ra, rb, rp = osd_cuda.eliminate_rows_plain(*args)
+    same = (torch.equal(ka, ra) and torch.equal(kb, rb) and torch.equal(kp, rp)
+            and torch.equal(kb, b[sel]) and torch.equal(kp, piv[sel]))
+    rows_ms = device_ms(lambda: osd_cuda.eliminate_rows_cuda(*args), reps=5)
+    log(f"OSD-e({PH_ORDER}) rows path, {PH_CODE} phenomenological p={PH_P}, B={PH_BATCH}: "
+        f"{len(syn_f)} BP failures, {len(sel)} inconsistent; K2's packed-rows loader on them "
+        f"bit-identical to its plain version and to the ordered loader's (b, piv): {same}; "
+        f"{rows_ms:.4f} ms on the device")
+    if not same:
+        raise AssertionError("K2's packed-rows loader disagrees on the OSD-e path")
+
+    w = llrs_f[sel].abs() * (1.0 - 2.0 * hard_f[sel].to(llrs_f.dtype))
+    search = (ka, kb, kp, order[sel], torch.gather(w, 1, order[sel]))
+    search_ms = cuda_ms(lambda: osd._search(*search), reps=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sol = osd(syn_f, llrs_f, hard_f)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    stage_ms = cuda_ms(lambda: osd(syn_f, llrs_f, hard_f), reps=3)
+    log(f"  {osd.patterns.shape[0]} patterns over {osd.num_test} test columns, chunk "
+        f"{osd.config.chunk}: the search {search_ms:.3f} ms, the OSD-e stage {stage_ms:.3f} ms on "
+        f"{len(syn_f)} failures, peak {peak / 2**30:.3f} GiB above the inputs, on {card_line}")
+    osd0 = OSDDecoder(get_code(PH_CODE).Hx, OSDConfig(order=0)).to(dev)(syn_f, llrs_f, hard_f)
+    worse = more_costly(sol, osd0, llrs_f, hard_f)
+    log(f"  solutions that OSD-e changed from OSD-0's: "
+        f"{int((sol != osd0).any(dim=1).sum())}; costing more than OSD-0's: {int(worse.sum())}")
+    if bool(worse.any()):
+        raise AssertionError("an OSD-e solution costs more than the OSD-0 one")
+    stages = eng.stage_times(PH_P, reps=3)
+    log(f"  the batch's stages, median ms of 3: {json.dumps(stages)}")
+    k = min(OSDE_CPU_LANES, len(syn_f))
+    cpu = OSDDecoder(get_code(PH_CODE).Hx, OSDConfig(order=PH_ORDER))
+    t0 = time.perf_counter()
+    ref = cpu(syn_f[:k].cpu(), llrs_f[:k].cpu(), hard_f[:k].cpu())
+    log(f"  the CPU's OSD-e on {k} of them: {time.perf_counter() - t0:.1f} s")
+    hold_osde("  card OSD-e against the CPU's", sol[:k].cpu(), ref, llrs_f[:k].cpu(),
+              hard_f[:k].cpu())
+
+    eng = engine(JAX_PH_OSDE7_TRIALS)
+    wrappers = {"bp_flooding": bp_cuda.bp_flooding_cuda,
+                "gf2_elim": osd_cuda.eliminate_ordered_cuda,
+                "gf2_elim_rows": osd_cuda.eliminate_rows_cuda}
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    got = counters_to_dict(eng.run_rate(PH_P, JAX_PH_OSDE7_TRIALS, seed=JAX_PH_OSDE7_SEED))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    got = {**scalars(got), **hists(got)}
+    differ = {k: (got[k], v) for k, v in JAX_PH_OSDE7.items() if got[k] != v}
+    log(f"phenomenological engine, OSD-e({PH_ORDER}), on the card vs the JAX engine, {PH_CODE} "
+        f"p={PH_P}, {JAX_PH_OSDE7_TRIALS} trials: identical {not differ} (ler "
+        f"{got['ler']:.5f}, BP faults {got['BPs_fault']}); launches {json.dumps(launches)}")
+    if differ:
+        raise AssertionError(f"the OSD-e counters differ from the JAX engine's: {differ}")
+    if any(v < 1 for v in launches.values()):
+        raise AssertionError("the OSD-e engine did not launch K1 and both K2 loaders")
+    return dict(launches=launches["gf2_elim_rows"], device_ms=rows_ms, systems=len(sel))
+
+
+def phase_osde_transform(dev) -> dict:
+    """OSD-e(7) on the transform path: the [[72]] DEM's BP failures at
+    p = 0.002 with one detector flipped each. K4 (b-exit on) against its
+    plain version on 128 of the inconsistent lanes (T, b, rank, piv), and
+    every inconsistent lane at rank(H) (it never b-exits, so its T is the
+    full-rank transform the search reads); the card's OSD-e solutions
+    against the CPU's on 32; costs at most OSD-0's."""
+    from qldpc_tpu_torch.decoders import OSDConfig, OSDDecoder
+    from qldpc_tpu_torch.ops import osd_transform_cuda
+    from qldpc_tpu_torch.ops.osd_transform_cuda import eliminate_transform_plain
+
+    eng = dem_engine(dev)
+    syn, llrs, hard = dem_failures(eng, 0.002, seed=7)
+    g = torch.Generator().manual_seed(7)
+    flip = torch.randint(0, syn.shape[1], (syn.shape[0],), generator=g).to(dev)
+    syn = syn.clone()
+    syn[torch.arange(len(syn), device=dev), flip] ^= 1
+    osd = OSDDecoder(eng.dem.H, OSDConfig(order=PH_ORDER)).to(dev)
+    resid = osd._residual(syn, hard.to(torch.int32))
+    order = torch.argsort(llrs.abs(), dim=1, stable=True)
+    k4 = osd_transform_cuda.eliminate_transform_cuda
+    T, b, rank, piv = k4(order, resid, osd.Hc, osd.h_rank, b_exit=True)
+    sel = torch.nonzero(((piv < 0) & (b != 0)).any(dim=1)).flatten()
+    held = sel[:K4_NO_EXIT_LANES]
+    pT, pb, prank, ppiv = eliminate_transform_plain(order[held], resid[held], osd.Hc,
+                                                    osd.h_rank, b_exit=True)
+    same = (torch.equal(T[held], pT) and torch.equal(b[held], pb)
+            and torch.equal(rank[held], prank) and torch.equal(piv[held], ppiv))
+    full = bool((rank[sel] == osd.h_rank).all())
+    log(f"OSD-e({PH_ORDER}) transform path, {eng.code.name} ({osd.m} x {osd.n}, rank "
+        f"{osd.h_rank}), p=0.002: {len(syn)} BP failures with a detector flipped, {len(sel)} "
+        f"inconsistent; K4's T, b, rank and piv on {len(held)} of them bit-identical to the "
+        f"plain version's (b-exit on): {same}; every inconsistent lane at rank(H): {full}")
+    if not (same and full):
+        raise AssertionError("K4 disagrees on the OSD-e path, or an inconsistent lane b-exited")
+    torch.cuda.synchronize()
+    k4.launches = 0
+    t0 = time.perf_counter()
+    sol = osd(syn, llrs, hard)
+    torch.cuda.synchronize()
+    launches = k4.launches
+    log(f"  the OSD-e stage on the card: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+        f"(first call), K4 launched {launches} times")
+    osd0 = eng.osd(syn, llrs, hard)
+    worse = more_costly(sol, osd0, llrs, hard)
+    log(f"  changed from OSD-0's: {int((sol != osd0).any(dim=1).sum())}; costing more: "
+        f"{int(worse.sum())}")
+    if bool(worse.any()) or launches < 1:
+        raise AssertionError("an OSD-e solution costs more than OSD-0's, or K4 never launched")
+    lanes = sel[:OSDE_DEM_CPU_LANES]
+    cpu = OSDDecoder(eng.dem.H, OSDConfig(order=PH_ORDER))
+    t0 = time.perf_counter()
+    ref = cpu(syn[lanes].cpu(), llrs[lanes].cpu(), hard[lanes].cpu())
+    log(f"  the CPU's OSD-e on {len(lanes)} inconsistent lanes: {time.perf_counter() - t0:.1f} s")
+    hold_osde("  card OSD-e against the CPU's", sol[lanes].cpu(), ref, llrs[lanes].cpu(),
+              hard[lanes].cpu())
+    return dict(launches=launches, systems=len(sel))
+
+
+def phase_alpha(dev, card_line: str) -> None:
+    """Alvarado's alpha, min-sum, on the card: equal to the CPU's and to the
+    JAX package's recorded value."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders.alvarado import estimate_alpha
+
+    H = get_code(ALPHA_CODE).Hx
+    t0 = time.perf_counter()
+    card_alpha = estimate_alpha(H, ALPHA_P, seed=ALPHA_SEED, device=dev)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_alpha = estimate_alpha(H, ALPHA_P, seed=ALPHA_SEED, device="cpu")
+    log(f"estimate_alpha min-sum {ALPHA_CODE} p={ALPHA_P} seed {ALPHA_SEED}: card {card_alpha!r} "
+        f"({secs:.2f} s, first use included, on {card_line}), CPU {cpu_alpha!r} "
+        f"({time.perf_counter() - t0:.2f} s), JAX {JAX_ALPHA!r}")
+    if not card_alpha == cpu_alpha == JAX_ALPHA:
+        raise AssertionError("the card's alpha differs from the CPU's or the JAX package's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1870,6 +2119,9 @@ def main() -> int:
         k5_288 = timed(phase_dem288, dev, card_line, f"{tmp}/dem288")
     timed(phase_st288, dev, card_line)
     timed(phase_rescue, dev, card_line)
+    k2["osde_rows"] = timed(phase_osde_rows, dev, card_line)
+    k4["osde"] = timed(phase_osde_transform, dev)
+    timed(phase_alpha, dev, card_line)
     for name in K5_NAMES:
         k5[name]["at_288"] = k5_288[name]
 
@@ -1897,9 +2149,10 @@ def main() -> int:
         ("bp_layered", "bp_layered.cu", "qldpc_tpu/ops/bp_pallas.py:123",
          layered_launches["bp_layered"], k7),
     ]
-    # K1 where samples iterate, K2's packed-rows entry, K4 on the space-time
-    # failures, K5 at the [[288]] DEM
-    extra = ("at_p_0_050119", "rows", "h_st", "at_288")
+    # K1 where samples iterate, K2's packed-rows entry and its launches on
+    # the OSD-e path, K4 on the space-time failures and on the OSD-e path, K5
+    # at the [[288]] DEM
+    extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

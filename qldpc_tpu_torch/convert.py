@@ -41,8 +41,8 @@ __all__ = [
 # others only pick a TPU code path or tile or a dispatch ladder: the results
 # do not depend on them. schedule, n_layers and n_rounds do, and carry over.
 _BP_DROPPED = {"backend", "batch_tile", "chunk_size"}
-_OSD_DROPPED = {"batch_tile", "chunk"}
-_OSD_ORDER_E_ONLY = {"max_combinations", "extra_positions", "dtype"}
+# the OSD decoder's dtype is its LLRs' in either package
+_OSD_DROPPED = {"batch_tile", "dtype"}
 _ENGINE_DROPPED = {"osd_tiers", "osd_chunk", "fused_dispatch", "rescue_tiers"}
 
 
@@ -77,9 +77,7 @@ def bp_config_from_reference(cfg) -> BPConfig:
 
 def osd_config_from_reference(cfg) -> OSDConfig:
     f = _fields(cfg)
-    # the OSD-e fields shape only the pattern search; OSDConfig itself
-    # raises for order > 0
-    for name in _OSD_DROPPED | _OSD_ORDER_E_ONLY:
+    for name in _OSD_DROPPED:
         f.pop(name, None)
     # the JAX backends other than the factored elimination ("lanes",
     # "pallas", "vmap") pick the same arithmetic by platform: the port picks

@@ -9,7 +9,9 @@ they run ``ops.bp_layered_cuda.bp_layered``: plain torch on CPU tensors, K7
 on CUDA tensors. Irregular graphs (detector error models) take the padded
 check-slot layout of the XLA path and run ``ops.dem_bp_cuda.dem_bp``: plain
 torch on CPU tensors, K3 on CUDA tensors. The layered schedule needs a
-check-regular graph, as in the JAX package.
+check-regular graph, as in the JAX package. ``check_messages`` gives the
+check-to-variable messages after a few iterations, which the Alvarado fit
+reads (``decoders.alvarado``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from qldpc_tpu_torch.ops.tanner import TannerGraph
+from qldpc_tpu_torch.ops import bp_cuda, dem_bp_cuda
 from qldpc_tpu_torch.ops.bp_cuda import BPTables, bp_flooding
 from qldpc_tpu_torch.ops.bp_layered_cuda import (
     LayeredTables,
@@ -140,3 +143,47 @@ class BPDecoder(nn.Module):
             syndromes, priors, self.tables(), self.config, alpha
         )
         return BPResult(hard=hard, converged=conv, llrs=values, iterations=iters)
+
+    def _raw_check_messages(self, syndromes: torch.Tensor, priors: torch.Tensor,
+                            at_iter: int = 0) -> torch.Tensor:
+        """R (B, E) after ``at_iter + 1`` flooding iterations, in the
+        decoder's edge space (check slots on a DEM graph), ``config.alpha``
+        applied as BP applies it: qldpc_tpu/decoders/bp.py::
+        _raw_check_messages. The JAX package computes these with XLA, outside
+        any Pallas kernel; here they are torch ops on either device, on the
+        port's check rules (``ops.bp_cuda._check_messages`` and the DEM slot
+        rule) and gathers, with no convergence freeze."""
+        dev = getattr(self, self._table_names[0]).device
+        syndromes = torch.as_tensor(syndromes, device=dev)
+        B = syndromes.shape[0]
+        cfg, tables = self.config, self.tables()
+        priors = torch.as_tensor(priors, device=dev).to(self.dtype).expand(B, self.graph.n)
+        ssign = (1 - 2 * syndromes.to(torch.int32)).to(self.dtype)
+        if self.slot_layout:
+            var_of_edge = tables.var_of_slot.reshape(-1).long()
+            var_edge = tables.var_slots.long()
+            rule = dem_bp_cuda._check_messages
+        else:
+            var_of_edge = tables.check_var.reshape(-1).long()
+            var_edge = tables.var_edge.long()
+            rule = bp_cuda._check_messages
+        pad = torch.zeros((B, 1), dtype=self.dtype, device=dev)
+        R = rule(priors[:, var_of_edge], ssign, tables, cfg, cfg.alpha)
+        for _ in range(at_iter):
+            rv = torch.cat([R, pad], dim=1)[:, var_edge]  # (B, n, dv)
+            values = rv[..., 0]
+            for k in range(1, rv.shape[-1]):
+                values = values + rv[..., k]
+            values = values + priors
+            R = rule(values[:, var_of_edge] - R, ssign, tables, cfg, cfg.alpha)
+        return R
+
+    def check_messages(self, syndromes, priors, at_iter: int = 0) -> torch.Tensor:
+        """The check-to-variable messages (B, E) in edge order after
+        ``at_iter + 1`` iterations, divided by ``config.alpha``
+        (qldpc_tpu/decoders/bp.py::check_messages)."""
+        R = self._raw_check_messages(syndromes, priors, at_iter)
+        if self.slot_layout:  # slot space -> edge order
+            R = R[:, torch.from_numpy(self.graph.check_slot_of_edge).to(R.device).long()]
+        alpha = self.config.alpha
+        return R / alpha if alpha != 1.0 else R

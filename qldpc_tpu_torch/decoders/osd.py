@@ -1,7 +1,7 @@
-"""Ordered-statistics decoding (OSD-0) in torch.
+"""Ordered-statistics decoding (OSD-0 and OSD-e) in torch.
 
-Port of the OSD-0 lanes pipeline of qldpc_tpu/decoders/osd.py
-(``_lanes_core``): the residual syndrome of the BP hard decision, columns
+Port of the lanes pipeline of qldpc_tpu/decoders/osd.py (``_lanes_core``,
+``_osde_lanes``): the residual syndrome of the BP hard decision, columns
 ordered by ascending |LLR| (stable: ties are common and the order decides
 them), a GF(2) elimination of each sample's permuted system, then
 ``e_perm[piv_col[r]] = b[r]``, ``corr[order] = e_perm`` and
@@ -31,15 +31,40 @@ All three give the OSD-0 solution of the JAX ``lanes`` path: the transform
 elimination's ``(b, piv_col)`` are the lanes path's, and the factored one's
 are for every sample that stays within its budget.
 
+OSD-e (``order > 0``): a system is consistent when every row without a
+pivot carries a zero syndrome bit, and a consistent system returns its
+OSD-0 solution untouched (the reference's early return). Only the
+inconsistent samples are searched, ``chunk`` at a time: the flip patterns of
+weight <= order over the ``order + extra_positions`` least reliable columns
+without a pivot (``make_flip_patterns``, the zero pattern first) are scored
+by the LLR cost ``F @ w_test + piv_vals @ w_piv`` with
+``piv_vals = (F @ Tmat^T + b) mod 2``, and the first minimum wins. The
+costs are summed in float64, where sums of float32 LLRs are exact in any
+order (unless their magnitudes span more than 2^29), so that the card and
+the CPU break ties alike (the first pattern of equal cost); the JAX package
+sums them in float32 in XLA's order, so where two patterns flip the same
+multiset of LLRs its rounding may pick the later one (ROADMAP.md Queue 3).
+The search reads each test column's bits in the reduced system: on the
+rows path from K2's packed-rows loader (``eliminate_rows``), run on those
+samples' permuted rows alone, so that a workload of consistent syndromes
+pays nothing for OSD-e; on the transform path from T, as
+``parity(T[r] & Hc[order[c]])``. An inconsistent sample never b-exits (a
+syndrome bit stays on a row without a pivot), so its T is the full-rank
+transform. The search is XLA code in the JAX package, outside any Pallas
+kernel, and stays torch here (``torch.bmm`` and elementwise ops). The
+factored elimination keeps no T and implements OSD-0 only: ``backend=
+"factored"`` with ``order > 0`` raises ``ValueError``, as in the JAX
+package, and ``auto`` raises ``NotImplementedError`` where it would pick it
+(ROADMAP.md, Queue 1 item 6), where the JAX package runs its XLA transform.
+
 ``OSDConfig.backend`` forces the transform or the factored elimination on a
 system the row elimination does not take; no path falls back to another.
-
-Not in this slice (see ROADMAP.md): OSD-e (``order > 0``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from itertools import combinations
 
 import numpy as np
 import torch
@@ -50,43 +75,77 @@ from qldpc_tpu_torch.ops.osd_cuda import (
     ROWS_SMEM_LIMIT,
     WORD,
     eliminate_ordered,
+    eliminate_rows,
+    pack_permuted_rows,
     rows_smem_bytes,
 )
 from qldpc_tpu_torch.ops.osd_factored_cuda import eliminate_factored, factored_columns
 from qldpc_tpu_torch.ops.osd_transform_cuda import (
     SMEM_LIMIT,
+    _parity,
     eliminate_transform,
     pack_columns,
     smem_bytes,
 )
 
-__all__ = ["OSDConfig", "OSDDecoder", "gf2_rank"]
+__all__ = ["OSDConfig", "OSDDecoder", "gf2_rank", "make_flip_patterns"]
 
 
 _BACKENDS = ("auto", "transform", "factored")
 
 
+# Copied from qldpc_tpu/decoders/osd.py::make_flip_patterns.
+def make_flip_patterns(
+    num_positions: int, order: int, max_combinations: int | None = None
+) -> np.ndarray:
+    """Static (C, num_positions) 0/1 pattern matrix; row 0 is the zero pattern.
+
+    Rows follow the reference's enumeration order — weight w = 1..order, each
+    weight in lexicographic combination order (OSD_enhanced.py:89-94) — so
+    truncation by ``max_combinations`` and first-minimum tie-breaking agree.
+    """
+    rows = [np.zeros(num_positions, dtype=np.uint8)]
+    budget = np.inf if max_combinations is None else max_combinations
+    count = 0
+    for w in range(1, min(order, num_positions) + 1):
+        for combo in combinations(range(num_positions), w):
+            if count >= budget:
+                break
+            row = np.zeros(num_positions, dtype=np.uint8)
+            row[list(combo)] = 1
+            rows.append(row)
+            count += 1
+        if count >= budget:
+            break
+    return np.stack(rows)
+
+
 @dataclasses.dataclass(frozen=True)
 class OSDConfig:
     order: int = 0
+    max_combinations: int | None = None  # OSD-e: patterns after the zero one
+    extra_positions: int = 10  # OSD-e: test set size = order + extra_positions
     backend: str = "auto"  # wide systems: "auto" picks the transform
     # elimination when a sample's transform fits one block's shared memory
     # and the factored one otherwise; "transform" and "factored" force one
     max_elim_cols: int = 2048  # factored elimination: column budget floor,
     # raised to min(n, rank(H) + 512) (decoders/osd.py of the JAX package)
+    chunk: int = 64  # OSD-e: samples a search step takes (bounds its
+    # chunk x patterns x m workspace)
 
     def __post_init__(self):
-        if self.order > 0:
-            raise NotImplementedError(
-                "OSD-e (order > 0) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 1: OSD-e)"
-            )
         if self.order < 0:
             raise ValueError("order must be >= 0")
+        if self.extra_positions < 0:
+            raise ValueError("extra_positions must be >= 0")
+        if self.max_combinations is not None and self.max_combinations < 0:
+            raise ValueError("max_combinations must be >= 0")
         if self.backend not in _BACKENDS:
             raise ValueError(f"unknown OSD backend {self.backend!r}; one of {_BACKENDS}")
         if self.max_elim_cols < 1:
             raise ValueError("max_elim_cols must be positive")
+        if self.chunk < 1:
+            raise ValueError("chunk must be positive")
 
 
 def gf2_rank(H: np.ndarray) -> int:
@@ -113,11 +172,11 @@ def gf2_rank(H: np.ndarray) -> int:
 
 
 class OSDDecoder(nn.Module):
-    """Batched OSD-0 post-processor for a fixed parity-check matrix.
+    """Batched OSD-0 / OSD-e post-processor for a fixed parity-check matrix.
 
     Usage::
 
-        osd = OSDDecoder(H, OSDConfig()).to(device)
+        osd = OSDDecoder(H, OSDConfig(order=7)).to(device)
         solutions = osd(syndromes, llrs, hard)   # all batched (B, ...)
     """
 
@@ -134,6 +193,11 @@ class OSDDecoder(nn.Module):
         by_rows = not self.wide and rows_smem_bytes(self.m, self.n_words) <= ROWS_SMEM_LIMIT
         # every column step after a sample reaches rank(H) is a no-op
         self.h_rank = gf2_rank(H)
+        if config.order > 0 and config.backend == "factored":
+            raise ValueError(
+                "backend='factored' implements OSD-0 only (OSD-e reads the "
+                "transform the factored elimination does not keep)"
+            )
         if config.backend != "auto" and by_rows:
             raise ValueError(
                 f"backend={config.backend!r} targets wide systems (n_words > "
@@ -145,6 +209,12 @@ class OSDDecoder(nn.Module):
             if self.elimination == "auto":
                 fits = smem_bytes(self.m) <= SMEM_LIMIT
                 self.elimination = "transform" if fits else "factored"
+            if self.elimination == "factored" and config.order > 0:
+                raise NotImplementedError(
+                    f"OSD-e on a {self.m}-row system, whose transform exceeds one "
+                    "K4 block, is not ported yet (ROADMAP.md, Queue 1 item 6: "
+                    "OSD-e past K4's block)"
+                )
             vos, self.dc_parity = parity_tables(H)
             self.register_buffer("vos_parity", torch.from_numpy(vos.astype(np.int64)))
             if self.elimination == "transform":
@@ -156,6 +226,10 @@ class OSDDecoder(nn.Module):
             self.elimination = "rows"
             self.register_buffer("Hc", torch.from_numpy(pack_columns(H)))
             self.register_buffer("Hf", torch.from_numpy(H.astype(np.float32)))
+        self.num_test = min(config.order + config.extra_positions, self.n) if config.order else 0
+        if config.order:
+            patterns = make_flip_patterns(self.num_test, config.order, config.max_combinations)
+            self.register_buffer("patterns", torch.from_numpy(patterns.astype(np.float32)))
 
     def _residual(self, syndromes, hard):
         B = hard.shape[0]
@@ -169,7 +243,7 @@ class OSDDecoder(nn.Module):
 
     def forward(self, syndromes: torch.Tensor, llrs: torch.Tensor,
                 hard: torch.Tensor) -> torch.Tensor:
-        """OSD-0 solutions (B, n) int8."""
+        """OSD-0 (``order == 0``) or OSD-e solutions (B, n) int8."""
         dev = self.Hc.device
         syndromes = torch.as_tensor(syndromes, device=dev)
         llrs = torch.as_tensor(llrs, device=dev)
@@ -188,14 +262,83 @@ class OSDDecoder(nn.Module):
             return torch.where(overflow[:, None], hard, sol).to(torch.int8)
         # OSD-0 reads only (b, piv_col): the transform elimination's b-exit
         # leaves them exact, and the row elimination returns nothing else
+        T = None
         if self.elimination == "transform":
-            _, b, _, piv = eliminate_transform(order, resid, self.Hc, self.h_rank,
+            T, b, _, piv = eliminate_transform(order, resid, self.Hc, self.h_rank,
                                                b_exit=True)
         else:
             b, piv = eliminate_ordered(order, resid, self.Hc, self.h_rank)
         tgt = torch.where(piv >= 0, piv, n).long()
         e_perm = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
         e_perm[bidx, tgt] = b
+        e_perm = e_perm[:, :n]
+        if self.config.order:
+            inconsistent = ((piv < 0) & (b != 0)).any(dim=1)
+            sel = torch.nonzero(inconsistent).flatten()
+            if len(sel):
+                if T is None:
+                    # K2's packed-rows loader on these samples alone: it pivots
+                    # as the ordered loader does, so (b, piv) are the same
+                    rows = pack_permuted_rows(order[sel], self.Hc, self.m)
+                    R, b_s, piv_s = eliminate_rows(rows, resid[sel], n, self.h_rank)
+                else:
+                    R, b_s, piv_s = T[sel], b[sel], piv[sel]
+                w = llrs[sel].abs() * (1.0 - 2.0 * hard[sel].to(llrs.dtype))
+                e_perm[sel] = self._search(R, b_s, piv_s, order[sel],
+                                           torch.gather(w, 1, order[sel]))
         corr = torch.zeros((B, n), dtype=torch.int32, device=dev)
-        corr[bidx, order] = e_perm[:, :n]
+        corr[bidx, order] = e_perm
         return (hard ^ corr).to(torch.int8)
+
+    def _search(self, R, b, piv, order, w_perm):
+        """OSD-e corrections (k, n) int32 in permuted columns of k
+        inconsistent samples, ``chunk`` at a time: ``_search_single`` (R their
+        reduced rows) or ``_search_single_T`` (R their transforms) of the JAX
+        package. ``w_perm`` = |llr| * (1 - 2 * hard) in permuted columns."""
+        ch = self.config.chunk
+        return torch.cat([
+            self._search_chunk(R[s:s + ch], b[s:s + ch], piv[s:s + ch], order[s:s + ch],
+                               w_perm[s:s + ch])
+            for s in range(0, piv.shape[0], ch)
+        ])
+
+    def _search_chunk(self, R, b, piv, order, w_perm):
+        k, m, n, t = piv.shape[0], self.m, self.n, self.num_test
+        # float64 costs: sums of float32 LLRs, exact in any order unless
+        # their magnitudes span more than 2^29, so that patterns of equal
+        # cost tie on every device and the first wins (and TF32, which
+        # applies to float32 products alone, cannot round them)
+        dev, dtype = piv.device, torch.float64
+        w_perm = w_perm.to(dtype)
+        tgt = torch.where(piv >= 0, piv, n).long()
+        is_piv = torch.zeros((k, n + 1), dtype=torch.bool, device=dev)
+        is_piv.scatter_(1, tgt, piv >= 0)  # only n repeats, always False
+        is_piv = is_piv[:, :n]
+        # the t least reliable columns without a pivot, pivots after them
+        col_ids = torch.arange(n, device=dev)
+        test_cols = torch.argsort(torch.where(is_piv, n + col_ids, col_ids), dim=1)[:, :t]
+        valid = (~torch.gather(is_piv, 1, test_cols)).to(dtype)  # (k, t)
+        if self.elimination == "rows":
+            words = torch.gather(R, 2, (test_cols // WORD)[:, None, :].expand(k, m, t))
+            bits = (words >> (test_cols % WORD).to(torch.int32)[:, None, :]) & 1
+        else:
+            hc = self.Hc[torch.gather(order, 1, test_cols)]  # (k, t, mw)
+            x = R[:, :, None, :] & hc[:, None, :, :]  # (k, m, t, mw)
+            z = x[..., 0]
+            for wd in range(1, x.shape[-1]):
+                z = z ^ x[..., wd]
+            bits = _parity(z)  # (k, m, t): the RREF bits of the test columns
+        Tmat = bits.to(dtype) * valid[:, None, :]
+        F = self.patterns.to(dtype)[None] * valid[:, None, :]  # (k, C, t)
+        piv_vals = torch.bmm(F, Tmat.transpose(1, 2))  # (k, C, m), exact
+        piv_vals.add_(b.to(dtype)[:, None, :]).remainder_(2.0)
+        w_test = torch.gather(w_perm, 1, test_cols) * valid
+        w_piv = torch.where(piv >= 0, torch.gather(w_perm, 1, piv.clamp(0, n - 1).long()),
+                            torch.zeros((), dtype=dtype, device=dev))
+        costs = torch.bmm(F, w_test[..., None]) + torch.bmm(piv_vals, w_piv[..., None])
+        best = costs[..., 0].argmin(dim=1)  # the first minimum
+        ar = torch.arange(k, device=dev)
+        e = torch.zeros((k, n + 1), dtype=dtype, device=dev)
+        e.scatter_(1, test_cols, F[ar, best])
+        e.scatter_(1, tgt, torch.where(piv >= 0, piv_vals[ar, best], 0.0))
+        return e[:, :n].to(torch.int32)

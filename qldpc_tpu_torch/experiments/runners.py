@@ -8,10 +8,11 @@ runner's.
 The spec's fields that only pick a TPU code path (``bp_backend``,
 ``bp_batch_tile``, ``bp_chunk_size``, ``osd_backend`` other than
 ``factored``) are dropped, as ``convert.py`` drops them from a JAX config:
-the tensor's device picks the path. The fields
-that would change the numerics or need a feature outside the port refuse
-before any engine is built: ``bp_mm_dtype="bfloat16"``, OSD-e
-(``osd_order > 0``) and fitted alphas (``estimate_alpha``).
+the tensor's device picks the path. A field that
+would change the numerics refuses before any engine is built:
+``bp_mm_dtype="bfloat16"``. ``estimate_alpha`` fits Alvarado's alpha per
+rate (``decoders.alvarado.estimate_alpha`` on the device, float32 draws as
+the JAX CLI makes them) and runs the rate with it, as the JAX runner does.
 ``bp_stream_dtype="bfloat16"`` is not ported: such a spec runs with float32
 streams, says so on stderr, and its archived spec says ``float32``.
 Circuit-level specs run the DEM engine at the spec's batch size (the JAX
@@ -31,6 +32,7 @@ import torch
 
 from qldpc_tpu_torch.codes import get_code
 from qldpc_tpu_torch.convert import bp_config_from_reference, osd_config_from_reference
+from qldpc_tpu_torch.decoders.alvarado import estimate_alpha
 from qldpc_tpu_torch.decoders.bp import BPConfig, BPDecoder
 from qldpc_tpu_torch.decoders.osd import OSDConfig
 from qldpc_tpu_torch.mc import (
@@ -54,17 +56,6 @@ __all__ = ["run_experiment", "build_engine"]
 def check_spec(spec: ExperimentSpec) -> ExperimentSpec:
     """Refuse what the port cannot run as asked, before any engine is built;
     returns the spec the port runs (float32 streams)."""
-    if spec.estimate_alpha:
-        raise NotImplementedError(
-            "estimate_alpha (the Alvarado fitted alpha) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 2: Alvarado)"
-        )
-    orders = [spec.osd_order, *(spec.osd_order_grid or [])]
-    if any(o is not None and o > 0 for o in orders):
-        raise NotImplementedError(
-            "OSD-e (osd_order > 0) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 1: OSD-e)"
-        )
     if spec.bp_stream_dtype != "float32":
         print(
             f"[{spec.name}] bp_stream_dtype={spec.bp_stream_dtype!r} is not "
@@ -202,9 +193,17 @@ def run_experiment(
         order_grid = spec.osd_order_grid or [None]
         for max_iter in iter_grid:
           for osd_order in order_grid:
-            # p enters per call, so one engine serves the code's rate grid
+            # p and a fitted alpha enter per call, so one engine serves the
+            # code's rate grid
             eng = None
             for i, p in enumerate(rates):
+                alpha = None
+                if spec.estimate_alpha:
+                    with timer.phase("alpha-estimation"):
+                        alpha = estimate_alpha(
+                            get_code(code_name).Hx, p, method=spec.bp_method,
+                            seed=spec.seed + 17 * i, device=device,
+                        )
                 if eng is None:
                     with timer.phase("engine-build"):
                         eng = build_engine(
@@ -213,10 +212,14 @@ def run_experiment(
                         )
                 with timer.phase("sweep"):
                     if ckpt is not None:
-                        counters = ckpt.run_rate(eng, p, spec.trials, spec.seed + i)
+                        counters = ckpt.run_rate(eng, p, spec.trials, spec.seed + i,
+                                                 alpha=alpha)
                     else:
-                        counters = eng.run_rate(p, spec.trials, seed=spec.seed + i)
+                        counters = eng.run_rate(p, spec.trials, seed=spec.seed + i,
+                                                alpha=alpha)
                 d = counters_to_dict(counters)
+                if alpha is not None:
+                    d["alpha"] = alpha
                 if spec.osd_order_grid:
                     key = (max_iter, osd_order, p)
                 elif max_iter is not None:
@@ -228,7 +231,7 @@ def run_experiment(
                     # BP_per_Iteration.py): posterior LLRs of one batch,
                     # split by the true bit value, as fixed-bin histograms
                     d["llr_hist"] = _llr_histograms(
-                        spec, code_name, p, max_iter, None, seed=spec.seed,
+                        spec, code_name, p, max_iter, alpha, seed=spec.seed,
                         device=device,
                     )
                 results[code_name][key] = d

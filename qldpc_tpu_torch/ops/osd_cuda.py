@@ -15,10 +15,12 @@ with ``(x >> bit) & 1``, which is right for bit 31 under the arithmetic
 shift of int32 too.
 
 ``eliminate`` keeps the JAX lanes layout, A (m, n_words, B) and b (m, B);
-``eliminate_rows`` is the sample-major form on packed rows; ``eliminate_ordered``
-the one the OSD decoder calls: H's packed columns (``osd_transform_cuda.
-pack_columns``) read in each sample's column order, with (b, piv_col) alone
-returned, so that no permuted copy of H is built. Each takes the plain
+``eliminate_rows`` is the sample-major form on packed rows, whose reduced
+rows A the OSD-e search reads (``pack_permuted_rows`` builds them for the
+samples it searches); ``eliminate_ordered`` the one the OSD decoder calls
+for every sample: H's packed columns (``osd_transform_cuda.pack_columns``)
+read in each sample's column order, with (b, piv_col) alone returned, so
+that no permuted copy of H is built. Each takes the plain
 version for CPU tensors and launches K2 for CUDA tensors. b holds 0/1.
 """
 
@@ -33,6 +35,7 @@ from qldpc_tpu_torch._build import KernelLibrary
 __all__ = [
     "WORD",
     "pack_rows",
+    "pack_permuted_rows",
     "rows_smem_bytes",
     "ROWS_SMEM_LIMIT",
     "eliminate",
@@ -75,6 +78,14 @@ def pack_rows(bits: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(WORD, dtype=torch.int64, device=bits.device)
     words = (x << shifts).sum(dim=-1)
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def pack_permuted_rows(order: torch.Tensor, Hc: torch.Tensor, m: int) -> torch.Tensor:
+    """The packed rows (B, m, ceil(n / 32)) of H[:, order[s]] for each sample
+    s, from H's packed columns Hc (n, mw) (``osd_transform_cuda.pack_columns``)."""
+    shifts = torch.arange(WORD, dtype=torch.int32, device=Hc.device)
+    cols = (Hc[order.long()][..., None] >> shifts) & 1  # (B, n, mw, 32)
+    return pack_rows(cols.reshape(*order.shape, -1)[..., :m].transpose(1, 2))
 
 
 def eliminate_rows_plain(A: torch.Tensor, b: torch.Tensor, n: int,
@@ -197,11 +208,8 @@ def eliminate_ordered_plain(order: torch.Tensor, b: torch.Tensor, Hc: torch.Tens
     ``(b_rref (B, m) int32, piv_col (B, m) int32)``, piv_col in the permuted
     column ids (-1 where none).
     """
-    m, n = b.shape[1], order.shape[1]
-    shifts = torch.arange(WORD, dtype=torch.int32, device=Hc.device)
-    cols = (Hc[order.long()][..., None] >> shifts) & 1  # (B, n, mw, 32)
-    Hp = cols.reshape(*order.shape, -1)[..., :m].transpose(1, 2)  # (B, m, n)
-    _, b_rref, piv = eliminate_rows_plain(pack_rows(Hp), b, n, max_rank)
+    A = pack_permuted_rows(order, Hc, b.shape[1])
+    _, b_rref, piv = eliminate_rows_plain(A, b, order.shape[1], max_rank)
     return b_rref, piv
 
 

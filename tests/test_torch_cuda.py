@@ -21,8 +21,9 @@ above, rounds that do not divide evenly and a width above T, where every
 width gives the default width's bits. K5a-d are also held at every block
 of one OSD call on the [[288,12,18]] space-time matrix at T = 18, the
 experiments CLI on the card to the same CLI run on the CPU (min-sum:
-identical counters), and a checkpointed run resumed on the card to an
-uninterrupted one.
+identical counters), a checkpointed run resumed on the card to an
+uninterrupted one, OSD-e on the card (rows and transform paths) to the CPU
+bit for bit, and the card's min-sum Alvarado alpha to the CPU's exactly.
 ``test_k6_geometry_follows_the_state_size`` needs no card.
 """
 
@@ -1181,3 +1182,55 @@ def test_checkpoint_resume_on_the_card(cuda, tmp_path):
     got = counters_to_dict(CheckpointManager(tmp_path).run_rate(eng, 0.05, 5 * 4096, 2))
     for k in ref:
         assert np.array_equal(got[k], ref[k]), k
+
+
+def _flipped_case(H, B, seed, p=0.05):
+    """Syndromes with one flipped bit each, and the plain BP's min-sum
+    posteriors: systems mostly outside H's image, where OSD-e searches."""
+    rng = np.random.default_rng(seed)
+    e = (rng.random((B, H.shape[1])) < p).astype(np.int64)
+    syn = (e @ H.T) % 2
+    syn[np.arange(B), rng.integers(0, H.shape[0], B)] ^= 1
+    syn = torch.from_numpy(syn.astype(np.int8))
+    res = BPDecoder(H, BPConfig(max_iter=8, method="min-sum"))(
+        syn, torch.full((H.shape[1],), math.log((1 - p) / p)))
+    return syn, res.llrs, res.hard
+
+
+@pytest.mark.parametrize("case", ["rows-72-order7", "transform-wide-order3"])
+def test_osde_on_the_card_equals_the_cpu(cuda, case):
+    """OSD-e on the card (K2's two loaders, or K4, then the search's float64
+    costs) gives the CPU's solutions bit for bit."""
+    if case.startswith("rows"):
+        H, order, B = get_code("[[72, 12, 6]]").Hx, 7, 256
+    else:
+        rng = np.random.default_rng(8)
+        H = np.zeros((40, 700), np.uint8)
+        for j in range(700):
+            H[rng.choice(40, size=rng.integers(1, 4), replace=False), j] = 1
+        H[-6:] = H[:6] ^ H[6:12]
+        order, B = 3, 128
+    syn, llrs, hard = _flipped_case(H, B, seed=3)
+    cpu = OSDDecoder(H, OSDConfig(order=order))
+    card = OSDDecoder(H, OSDConfig(order=order)).to(cuda)
+    assert card.elimination == ("rows" if case.startswith("rows") else "transform")
+    ref = cpu(syn, llrs, hard)
+    got = card(syn.to(cuda), llrs.to(cuda), hard.to(cuda)).cpu()
+    osd0 = OSDDecoder(H, OSDConfig(order=0))(syn, llrs, hard)
+    assert bool((got != osd0).any(1).any())  # the search ran and moved some
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("method", ["min-sum", "sum-product"])
+def test_estimate_alpha_on_the_card_equals_the_cpu(cuda, method):
+    """Min-sum messages are exact: the same alpha; sum-product's tanh/atanh
+    may round otherwise on the card: within 1e-6 relative."""
+    from qldpc_tpu_torch.decoders.alvarado import estimate_alpha
+
+    H = get_code("[[72, 12, 6]]").Hx
+    got = estimate_alpha(H, 0.05, trials=4096, seed=2, method=method, device=cuda)
+    ref = estimate_alpha(H, 0.05, trials=4096, seed=2, method=method, device="cpu")
+    if method == "min-sum":
+        assert got == ref
+    else:
+        assert abs(got - ref) <= 1e-6 * abs(ref)

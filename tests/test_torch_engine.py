@@ -125,8 +125,10 @@ def test_config_conversion_and_out_of_slice_features():
     # rescue_iters is ported now and carries over; its tiers are dropped
     rescue = engine_config_from_reference(JaxEngineConfig(rescue_iters=10, rescue_tiers=(8,)))
     assert rescue.rescue_iters == 10
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 1: OSD-e"):
-        engine_config_from_reference(JaxEngineConfig(osd=OSDConfig(order=3)))
+    # OSD-e is ported now: its fields carry over, batch_tile is dropped
+    osde = engine_config_from_reference(JaxEngineConfig(
+        osd=OSDConfig(order=3, max_combinations=50, extra_positions=4, chunk=8)))
+    assert osde.osd == PortOSDConfig(order=3, max_combinations=50, extra_positions=4, chunk=8)
     # the space-time channel is ported now: its round count carries over
     st = engine_config_from_reference(JaxEngineConfig(channel="space-time", n_rounds=4))
     assert st.channel == "space-time" and st.n_rounds == 4

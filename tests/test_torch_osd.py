@@ -112,8 +112,10 @@ def test_osd0_solutions_match_jax(rng, code_name):
 
 
 def test_osd_out_of_slice_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OSDConfig(order=2)
+    # OSD-e is ported now: order > 0 builds its patterns (tests/test_torch_osde.py
+    # holds its solutions to the JAX decoder's)
+    osde = OSDDecoder(np.eye(3, 6, dtype=np.uint8), OSDConfig(order=2, extra_positions=1))
+    assert osde.num_test == 3 and osde.patterns.shape == (1 + 3 + 3, 3)
     # wide systems are ported now: they take the transform elimination
     wide = np.zeros((8, 32 * 5 + 1), np.uint8)  # 6 words against 1: transform path
     wide[:, 0] = 1

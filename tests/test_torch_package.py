@@ -113,6 +113,7 @@ import qldpc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(qldpc_tpu_torch.__path__, "qldpc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert "qldpc_tpu_torch.decoders.alvarado" in names
 import chip_smoke
 for script in ("profile_torch_engine", "probe_factored_k5", "validate_port"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
@@ -150,8 +151,10 @@ def test_osd_config_conversion():
     # the factored elimination carries over; every other JAX backend is "auto"
     got = osd_config_from_reference({**ref, "backend": "factored", "max_elim_cols": 4096})
     assert got == OSDConfig(order=0, backend="factored", max_elim_cols=4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        osd_config_from_reference({**ref, "order": 1})
+    # OSD-e's fields carry over; dtype (the LLRs' in either package) and
+    # batch_tile are dropped
+    assert osd_config_from_reference({**ref, "order": 1, "max_combinations": 9}) == OSDConfig(
+        order=1, max_combinations=9)
     with pytest.raises(ValueError, match="no fields"):
         osd_config_from_reference({"order": 0, "bogus": 1})
     with pytest.raises(TypeError):
