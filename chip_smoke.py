@@ -105,7 +105,20 @@ Phases (any failure raises and the script exits non-zero):
       plain version on 128 inconsistent lanes, every inconsistent lane at
       rank(H), the solutions against the CPU's on 32, costs at most OSD-0's;
   28. estimate_alpha min-sum on [[144]] at p = 0.1 on the card, equal to the
-      CPU's and to the JAX package's recorded value.
+      CPU's and to the JAX package's recorded value;
+  several processes (``qldpc_tpu_torch.parallel``, gloo; a process a rank):
+  29. ``parallel.smoke``'s workers, 2 ranks sharing cuda:0, on [[144]] code
+      capacity BP(50) + OSD-0 (batch 65,536, 32,768 a rank, 262,144 trials at
+      p = 0.050119, and 1,310,720 for the trials/s; K1, K2), [[144]]
+      space-time T = 12 (batch 512, 10,240 trials at p = 0.008; K6, K4) and
+      the [[72]] DEM (batch 1,024, 4 batches at p = 0.002; K3, K4), then 4
+      ranks on a (rate 2, mc 2) mesh over [[144]] code capacity at three
+      rates, and on a host of two or more cards a rank a card: every counter
+      identical to this process's run at the same seed, each rank's kernel
+      launches counted, trials/s at 1 and at N ranks logged;
+  30. the experiments CLI under ``torchrun --standalone --nproc-per-node 2``
+      (``study`` on [[144]], checkpoints on): its npz equal to the
+      one-process CLI's, the same files written once, one rank printing.
 Before the last it prints the card's name and power limit and the kernels'
 JSON record (each kernel's launches on its path; its time between CUDA
 events around its calls, ``ms``, which holds the host's launch work where a
@@ -129,11 +142,13 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -222,6 +237,30 @@ JAX_PH_OSDE7 = {
 # float32 draws), recorded with `python3 scripts/jax_reference_counters.py
 # --only alpha-144-0.1` (4.6 s of CPU)
 ALPHA_CODE, ALPHA_P, ALPHA_SEED, JAX_ALPHA = "[[144, 12, 12]]", 0.1, 0, 0.3156756390689138
+
+# Phases 29-30: the full-width cases that several processes run, each against
+# this process alone at the same seed (parallel.smoke's case format), and the
+# kernels each must launch on every rank.
+MESH_CASES = [
+    dict(name="cc144", code=CODE, channel="code-capacity", batch=ENGINE_BATCH, max_iter=50,
+         rates=[REF_P], trials=ENGINE_TRIALS, seed=1, warm=True),
+    dict(name="cc144-long", code=CODE, channel="code-capacity", batch=ENGINE_BATCH,
+         max_iter=50, rates=[REF_P], trials=20 * ENGINE_BATCH, seed=2),
+    dict(name="st144", code=ST_CODE, channel="space-time", n_rounds=ST_ROUNDS, batch=ST_BATCH,
+         max_iter=ST_ITERS, rates=[0.008], trials=ST_TRIALS, seed=1, warm=True),
+    dict(name="dem72", code=DEM_CODE, channel="dem", rounds=DEM_ROUNDS, batch=DEM_BATCH,
+         max_iter=50, rates=[0.002], trials=4 * DEM_BATCH, seed=1, warm=True),
+]
+MESH_RATE_CASE = dict(name="cc144-rate-sharded", code=CODE, channel="code-capacity",
+                      batch=ENGINE_BATCH, max_iter=50, rates=[0.01, 0.03, REF_P],
+                      trials=ENGINE_TRIALS, seed=0, rate_shards=2, warm=True)
+CC_KERNELS = ("bp_flooding_cuda", "eliminate_ordered_cuda")
+MESH_KERNELS = {"cc144": CC_KERNELS, "cc144-long": CC_KERNELS, "cc144-rate-sharded": CC_KERNELS,
+                "st144": ("st_bp_cuda", "eliminate_transform_cuda"),
+                "dem72": ("dem_bp_cuda", "eliminate_transform_cuda")}
+MESH_TIMEOUT = 300  # seconds, for one multi-process launch
+MESH_CLI_ARGS = ["run", "study", "--codes", CODE, "--trials", str(2 * ENGINE_BATCH),
+                 "--batch-size", str(ENGINE_BATCH), "--error-rates", "0.03", str(REF_P)]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -2049,6 +2088,87 @@ def phase_alpha(dev, card_line: str) -> None:
         raise AssertionError("the card's alpha differs from the CPU's or the JAX package's")
 
 
+def mesh_checked(label: str, cases: list, reference: list, ranks: list,
+                 card_line: str) -> None:
+    """Log each case's identity, trials/s at 1 and N ranks and each rank's
+    launches; raise unless every counter equals the reference and every rank
+    launched its kernels."""
+    from qldpc_tpu_torch.parallel import smoke
+
+    rows = smoke.compare(reference, ranks)
+    for row in rows:
+        log(f"{label} {row['name']}: identical to one process {row['identical']}; "
+            f"{row['trials']} trials in {row['seconds_1']:.3f} s alone = "
+            f"{row['trials_per_s_1']:.1f} trials/s, {row['seconds_n']:.3f} s on {len(ranks)} "
+            f"ranks = {row['trials_per_s_n']:.1f} trials/s; launches alone "
+            f"{json.dumps(row['launches_1'])}, per rank {json.dumps(row['launches_n'])} "
+            f"on {card_line}")
+        if not row["identical"]:
+            raise AssertionError(f"{label} {row['name']}: the counters differ from one process's")
+        for r, launched in enumerate(row["launches_n"]):
+            missing = [k for k in MESH_KERNELS[row["name"]] if not launched.get(k)]
+            if missing:
+                raise AssertionError(f"{label} {row['name']}: rank {r} never launched {missing}")
+
+
+def phase_mesh(dev, card_line: str) -> None:
+    """Phase 29: parallel.smoke's workers on the card at full width against
+    this process alone (the single-process runs of the same cases)."""
+    from qldpc_tpu_torch.parallel import Mesh, smoke
+
+    alone = lambda cases: smoke.run_cases(cases, dev, meshes=lambda r: Mesh())
+    module = "qldpc_tpu_torch.parallel.smoke"
+    two = smoke.launch(2, dict(cases=MESH_CASES, device="cuda:0"), MESH_TIMEOUT, module=module)
+    mesh_checked("2 ranks on cuda:0,", MESH_CASES, alone(MESH_CASES), two, card_line)
+    rate = [MESH_RATE_CASE]
+    four = smoke.launch(4, dict(cases=rate, device="cuda:0"), MESH_TIMEOUT, module=module)
+    mesh_checked("4 ranks (rate 2, mc 2) on cuda:0,", rate, alone(rate), four, card_line)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        many = smoke.launch(cards, dict(cases=MESH_CASES, device="cuda"), MESH_TIMEOUT,
+                            module=module)
+        mesh_checked(f"{cards} ranks a card each,", MESH_CASES, alone(MESH_CASES), many,
+                     card_line)
+    else:
+        log("one card: no run with a rank a card")
+
+
+def phase_mesh_cli(dev, card_line: str, out_dir: str) -> None:
+    """Phase 30: the CLI under torchrun, 2 ranks on this host's cards,
+    against the same arguments in this process."""
+    from qldpc_tpu_torch.experiments.cli import main as cli_main
+    from qldpc_tpu_torch.experiments.results_io import load_results
+
+    root = Path(__file__).resolve().parent
+    two, one = Path(out_dir, "two"), Path(out_dir, "one")
+    env = dict(os.environ, PYTHONPATH=str(root))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank is on this host
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "qldpc_tpu_torch.experiments.cli", *MESH_CLI_ARGS, "--out", str(two)],
+        capture_output=True, text=True, cwd=root, env=env, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    log(f"torchrun CLI ({' '.join(MESH_CLI_ARGS)}), 2 ranks: exit {proc.returncode}, {wall:.1f} s "
+        f"(start-up included) on {card_line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the torchrun CLI failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("[study]"):
+            log(f"  {line}")
+    if cli_main([*MESH_CLI_ARGS, "--out", str(one), "--quiet"]):
+        raise AssertionError("the one-process CLI failed")
+    a, b = load_results(two / "study.npz"), load_results(one / "study.npz")
+    same = all(np.array_equal(np.asarray(a[CODE][p][k]), np.asarray(b[CODE][p][k]))
+               for p in b[CODE] for k in b[CODE][p])
+    files = lambda d: sorted(str(f.relative_to(d)) for f in d.rglob("*"))
+    printed = proc.stdout.count(f"[study] {CODE} p=0.03:")
+    log(f"torchrun CLI npz equal to one process's {same}; same files {files(two) == files(one)} "
+        f"({len(files(one))}); per-rate lines printed {printed} time(s)")
+    if not same or files(two) != files(one) or printed != 1:
+        raise AssertionError("the torchrun CLI's results, files or output differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2122,6 +2242,10 @@ def main() -> int:
     k2["osde_rows"] = timed(phase_osde_rows, dev, card_line)
     k4["osde"] = timed(phase_osde_transform, dev)
     timed(phase_alpha, dev, card_line)
+    torch.cuda.empty_cache()
+    timed(phase_mesh, dev, card_line)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed(phase_mesh_cli, dev, card_line, tmp)
     for name in K5_NAMES:
         k5[name]["at_288"] = k5_288[name]
 

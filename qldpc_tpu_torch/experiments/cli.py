@@ -1,23 +1,34 @@
-"""Command-line interface of the port: the JAX package's CLI on one device.
+"""Command-line interface of the port: the JAX package's CLI.
 
     python -m qldpc_tpu_torch.experiments.cli run study --trials 1000 --out results/
     python -m qldpc_tpu_torch.experiments.cli run complete-bposd --codes "[[90, 8, 10]]"
     python -m qldpc_tpu_torch.experiments.cli presets
     python -m qldpc_tpu_torch.experiments.cli run --config my_experiment.json
     python -m qldpc_tpu_torch.experiments.cli run study --device cpu --codes steane
+    torchrun --standalone --nproc-per-node 2 -m qldpc_tpu_torch.experiments.cli run study
 
 The same parser and subcommands as qldpc_tpu/experiments/cli.py, plus
 ``--device``: the card (``cuda``, the default; without one the run raises)
 or ``cpu``, which runs the plain torch versions of the kernels. A spec JSON
 written by the JAX CLI runs unchanged.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) every process joins the gloo group,
+takes its card from ``parallel.rank_device()`` for ``--device cuda`` (or
+the device named), and runs its slice of each batch on the world's 1-D
+mesh; process 0 alone prints and writes. Like the JAX CLI it has no flag
+for this.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
+import torch.distributed as dist
+
 from qldpc_tpu_torch.mc.engine import engine_device
+from qldpc_tpu_torch.parallel.mesh import init_distributed, make_mesh, rank_device
 
 from .configs import PRESETS, ExperimentSpec, get_preset
 from .runners import run_experiment
@@ -126,22 +137,28 @@ def main(argv=None) -> int:
             except _json.JSONDecodeError:
                 overrides[key] = raw  # bare string (e.g. min-sum)
     spec = spec.replace(**overrides)
-    device = engine_device(args.device)
+    if "WORLD_SIZE" not in os.environ:
+        _run(args, spec, engine_device(args.device), mesh=None)
+        return 0
+    init_distributed()
+    try:
+        device = rank_device() if args.device == "cuda" else engine_device(args.device)
+        _run(args, spec, device, make_mesh())
+    finally:
+        dist.destroy_process_group()
+    return 0
 
-    if args.trace:
+
+def _run(args, spec: ExperimentSpec, device, mesh) -> None:
+    run = lambda: run_experiment(spec, device=device, verbose=not args.quiet,
+                                 checkpoint=not args.no_checkpoint, mesh=mesh)
+    if args.trace and (mesh is None or mesh.rank == 0):
         from qldpc_tpu_torch.utils.profiling import trace
 
         with trace(args.trace):
-            run_experiment(
-                spec, device=device, verbose=not args.quiet,
-                checkpoint=not args.no_checkpoint,
-            )
+            run()
     else:
-        run_experiment(
-            spec, device=device, verbose=not args.quiet,
-            checkpoint=not args.no_checkpoint,
-        )
-    return 0
+        run()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Experiment runners: turn an ExperimentSpec into engine sweeps + artifacts.
 
 Port of qldpc_tpu/experiments/runners.py over the port's engines on one
-device (the card by default, the CPU when asked for). The results dict, the
-npz archives (ours and the reference's schema) and the plots are the JAX
-runner's.
+device (the card by default, the CPU when asked for), or on a process mesh
+(``mesh=``, one device a process): every process of the mesh returns the
+same results, and process 0 alone prints and writes the archives, plots and
+checkpoints. The results dict, the npz archives (ours and the reference's
+schema) and the plots are the JAX runner's.
 
 The spec's fields that only pick a TPU code path (``bp_backend``,
 ``bp_batch_tile``, ``bp_chunk_size``, ``osd_backend`` other than
@@ -12,7 +14,8 @@ the tensor's device picks the path. A field that
 would change the numerics refuses before any engine is built:
 ``bp_mm_dtype="bfloat16"``. ``estimate_alpha`` fits Alvarado's alpha per
 rate (``decoders.alvarado.estimate_alpha`` on the device, float32 draws as
-the JAX CLI makes them) and runs the rate with it, as the JAX runner does.
+the JAX CLI makes them) and runs the rate with it, as the JAX runner does;
+each process of a mesh fits it itself, from the same keyed draws.
 ``bp_stream_dtype="bfloat16"`` is not ported: such a spec runs with float32
 streams, says so on stderr, and its archived spec says ``float32``.
 Circuit-level specs run the DEM engine at the spec's batch size (the JAX
@@ -45,6 +48,7 @@ from qldpc_tpu_torch.mc import (
 )
 from qldpc_tpu_torch.mc.engine import engine_device
 from qldpc_tpu_torch.noise.circuit import parametric_memory_dem
+from qldpc_tpu_torch.parallel.mesh import Mesh, make_mesh
 from qldpc_tpu_torch.utils import plotting, rng
 from qldpc_tpu_torch.utils.profiling import PhaseTimer
 
@@ -53,16 +57,17 @@ from .configs import ExperimentSpec
 __all__ = ["run_experiment", "build_engine"]
 
 
-def check_spec(spec: ExperimentSpec) -> ExperimentSpec:
+def check_spec(spec: ExperimentSpec, warn: bool = True) -> ExperimentSpec:
     """Refuse what the port cannot run as asked, before any engine is built;
-    returns the spec the port runs (float32 streams)."""
-    if spec.bp_stream_dtype != "float32":
+    returns the spec the port runs (float32 streams), saying so on stderr
+    where ``warn``."""
+    if spec.bp_stream_dtype != "float32" and warn:
         print(
             f"[{spec.name}] bp_stream_dtype={spec.bp_stream_dtype!r} is not "
             "ported: running float32 streams",
             file=sys.stderr, flush=True,
         )
-        spec = spec.replace(bp_stream_dtype="float32")
+    spec = spec.replace(bp_stream_dtype="float32")
     _bp_config(spec)  # raises for a bp_mm_dtype other than float32
     return spec
 
@@ -99,7 +104,7 @@ def _osd_config(spec: ExperimentSpec, order=None) -> OSDConfig | None:
 
 def build_engine(
     spec: ExperimentSpec, code_name: str, device="cuda", max_iter=None,
-    alpha=None, osd_order=None, timer: PhaseTimer | None = None,
+    alpha=None, osd_order=None, timer: PhaseTimer | None = None, mesh: Mesh | None = None,
 ) -> MonteCarloEngine:
     device = engine_device(device)
     code = get_code(code_name)
@@ -123,6 +128,7 @@ def build_engine(
             ),
             device=device,
             name=code_name,
+            mesh=mesh,
         )
     return MonteCarloEngine(
         code,
@@ -136,6 +142,7 @@ def build_engine(
             osd_fraction=spec.osd_fraction,
         ),
         device=device,
+        mesh=mesh,
     )
 
 
@@ -168,18 +175,24 @@ def _llr_histograms(
 
 def run_experiment(
     spec: ExperimentSpec, device="cuda", verbose: bool = True,
-    checkpoint: bool = True,
+    checkpoint: bool = True, mesh: Mesh | None = None,
 ) -> dict:
     """Run a sweep and write <output_dir>/<name>.npz + plots.
 
     Returns the results dict: {code_name: {p: metrics_dict}} plus sweep
-    metadata under "_meta". ``device`` is one device (the card by default,
-    or "cpu"); a list of devices raises.
+    metadata under "_meta". ``device`` is this process's one device (the
+    card by default, or "cpu"); a list of devices raises. ``mesh`` (default
+    ``parallel.make_mesh()``) shards every batch over its processes, as the
+    JAX runner's ``mesh`` does; only its process 0 prints and writes.
     """
     device = engine_device(device)
-    spec = check_spec(spec)
+    mesh = mesh if mesh is not None else make_mesh()
+    lead = mesh.rank == 0
+    verbose = verbose and lead
+    spec = check_spec(spec, warn=lead)
     out = Path(spec.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
+    if lead:
+        out.mkdir(parents=True, exist_ok=True)
     ckpt = CheckpointManager(out / f"{spec.name}_ckpt") if checkpoint else None
     timer = PhaseTimer()
 
@@ -208,7 +221,7 @@ def run_experiment(
                     with timer.phase("engine-build"):
                         eng = build_engine(
                             spec, code_name, device=device, max_iter=max_iter,
-                            osd_order=osd_order, timer=timer,
+                            osd_order=osd_order, timer=timer, mesh=mesh,
                         )
                 with timer.phase("sweep"):
                     if ckpt is not None:
@@ -251,7 +264,8 @@ def run_experiment(
         "wall_time_s": wall,
         "throughput_trials_per_s": total_trials / max(wall, 1e-9),
     }
-    _save_and_plot(spec, results, out, verbose)
+    if lead:
+        _save_and_plot(spec, results, out, verbose)
     if verbose:
         print(timer.report())
         print(f"[{spec.name}] total {total_trials} trials in {wall:.1f}s "

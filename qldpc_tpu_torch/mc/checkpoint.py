@@ -6,12 +6,17 @@ after every batch and a run resumes from the last completed batch. The file
 name and the npz schema (``meta`` holding ``{"next_batch": b}`` as JSON, one
 array per ``Counters`` field) are the JAX package's, so a checkpoint either
 package wrote resumes in the other.
+
+On a process mesh every process loads at the start of a rate, and process 0
+alone writes, the counters summed over its batch group. The file does not
+depend on the world size, so a run resumes at any world size.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -29,7 +34,6 @@ class CheckpointManager:
 
     def __post_init__(self):
         self.directory = Path(self.directory)
-        self.directory.mkdir(parents=True, exist_ok=True)
 
     def _path(self, engine, p: float, seed: int) -> Path:
         safe = (
@@ -52,17 +56,25 @@ class CheckpointManager:
 
     def save(self, engine, p: float, seed: int, counters: Counters, next_batch: int):
         path = self._path(engine, p, seed)
+        self.directory.mkdir(parents=True, exist_ok=True)
         arrays = {k: np.asarray(v.cpu(), dtype=np.int64) for k, v in counters._asdict().items()}
-        np.savez(path, meta=json.dumps({"next_batch": next_batch}), **arrays)
+        # written aside and renamed: a reader (another process of the mesh,
+        # or a run resumed after a crash) sees the old file or the new one
+        tmp = path.with_name(path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, meta=json.dumps({"next_batch": next_batch}), **arrays)
+        os.replace(tmp, path)
 
     def run_rate(
         self, engine, p: float, trials: int, seed: int, alpha=None
     ) -> Counters:
-        """Drive ``engine.run_rate`` with resume and periodic saves."""
+        """Drive ``engine.run_rate`` with resume and periodic saves (by the
+        engine's process 0)."""
         total, start = self.load(engine, p, seed)
+        writes = engine.mesh.rank == 0
 
         def on_batch(b, n_batches, running):
-            if (b + 1) % self.every_n_batches == 0 or b + 1 == n_batches:
+            if writes and ((b + 1) % self.every_n_batches == 0 or b + 1 == n_batches):
                 self.save(engine, p, seed, running, b + 1)
 
         return engine.run_rate(

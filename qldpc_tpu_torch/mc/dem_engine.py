@@ -1,4 +1,5 @@
-"""Circuit-level decoding engine over a detector error model, on one device.
+"""Circuit-level decoding engine over a detector error model, on one device
+or a process mesh.
 
 Port of qldpc_tpu/mc/dem_engine.py onto the port's ``MonteCarloEngine``:
 every mechanism of the DEM fires as an independent Bernoulli of its prior,
@@ -15,6 +16,10 @@ p, ``q = (1 - exp(counts @ log1p(-2 r p))) / 2`` clipped to [1e-15,
 1 - 1e-15] and ``llr = log((1 - q) / q)``, in float32 like the JAX engine.
 They are computed on the CPU and then moved, so every device decodes with
 the same prior bits. A plain ``DEMData`` carries its own priors.
+
+On a ``parallel.Mesh`` each process draws its slice of every batch from the
+global stream and sizes its OSD capacity from it, as ``MonteCarloEngine``
+does (qldpc_tpu/mc/dem_engine.py:62-74, :117-124).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from qldpc_tpu_torch.mc.engine import EngineConfig, MonteCarloEngine, engine_dev
 from qldpc_tpu_torch.mc.metrics import counters_to_dict
 from qldpc_tpu_torch.noise.circuit import ParametricDEM
 from qldpc_tpu_torch.noise.dem import DEMData
+from qldpc_tpu_torch.parallel.mesh import Mesh
 from qldpc_tpu_torch.utils import rng
 
 __all__ = ["DEMEngine", "DEMEngineConfig"]
@@ -52,13 +58,14 @@ class _DEMCodeShim:
 
 class DEMEngine(MonteCarloEngine):
     """Batched logical-error estimation for one detector error model on one
-    device: the card by default, the CPU when asked for. ``dem`` is the
-    port's ``DEMData`` or ``ParametricDEM``; carry a JAX-built one across
-    with ``convert.dem_from_reference``."""
+    device: the card by default, the CPU when asked for, and ``mesh`` as in
+    ``MonteCarloEngine``. ``dem`` is the port's ``DEMData`` or
+    ``ParametricDEM``; carry a JAX-built one across with
+    ``convert.dem_from_reference``."""
 
     def __init__(self, dem: DEMData | ParametricDEM,
                  config: DEMEngineConfig = DEMEngineConfig(),
-                 device="cuda", name: str = "dem"):
+                 device="cuda", name: str = "dem", mesh: Mesh | None = None):
         dev = engine_device(device)
         if not isinstance(dem, (DEMData, ParametricDEM)):
             raise TypeError(
@@ -72,6 +79,7 @@ class DEMEngine(MonteCarloEngine):
         self.code = _DEMCodeShim(name=name)
         self.config = config
         self.device = dev
+        self._shard(config, mesh)
         self.m_checks, self.n_vars = dem.H.shape
         self.distance = 0  # every logical error is "incorrectable"
         self.n_rounds = 0  # the DEM's rounds are in its H: no data folding
@@ -84,7 +92,6 @@ class DEMEngine(MonteCarloEngine):
             vos, self._dc_parity = parity_tables(dem.H)
             self._vos_parity = torch.from_numpy(vos.astype(np.int64)).to(dev)
         self._Lf = torch.tensor(np.asarray(dem.L) % 2, dtype=torch.float32, device=dev)
-        self.k_osd = max(1, int(round(config.batch_size * config.osd_fraction)))
         # one uniform per mechanism: the largest stride of any engine
         self._check_counter_space(self.n_vars)
         self._parametric = isinstance(dem, ParametricDEM)
@@ -118,7 +125,7 @@ class DEMEngine(MonteCarloEngine):
         """Per-mechanism Bernoulli firings; returns (errors, syndromes,
         priors). ``p`` is ignored for a plain DEMData."""
         prob, llr = self.priors(p)
-        u = rng.counter_uniform(key, 0, self.config.batch_size, self.n_vars,
+        u = rng.counter_uniform(key, self.base, self.local_batch, self.n_vars,
                                 device=self.device)
         errors = (u < prob[None, :]).to(torch.int8)
         return errors, self._syndrome(errors), llr

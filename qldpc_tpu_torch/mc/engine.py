@@ -1,4 +1,4 @@
-"""Monte-Carlo logical-error-rate engine on one device.
+"""Monte-Carlo logical-error-rate engine, on one device or a process mesh.
 
 Port of qldpc_tpu/mc/engine.py: per batch, counter-mode RNG draws the
 errors, the syndrome is computed, BP decodes, OSD-0 runs on the samples BP
@@ -26,7 +26,15 @@ BP is deterministic per sample, so the counters equal a single long run's.
 ``run_rate`` resumes from a batch with running counters and reports each
 batch (``on_batch``), which ``CheckpointManager`` drives.
 
-Not in this slice (see ROADMAP.md): multi-device execution.
+Several devices run one process each (``torchrun``, or ``parallel.smoke``),
+placed on a ``parallel.Mesh``. Each process of a batch group decodes
+``batch_size / batch_shards`` samples of every batch, drawn from the one
+global stream at ``base = batch_rank * local_batch``, with the OSD capacity
+sized from its own slice as the JAX engine sizes it per shard; its counters
+accumulate on its device over a rate and are summed over the group once per
+rate (after every batch only for ``on_batch``). The counters are therefore
+those of one process at every world size that divides the batch. On a 2-D
+mesh ``run_rates_sharded`` splits the rate grid over the rate groups.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from qldpc_tpu_torch.mc.metrics import (
 )
 from qldpc_tpu_torch.noise import channels as ch
 from qldpc_tpu_torch.noise import spacetime as st
+from qldpc_tpu_torch.parallel.mesh import Mesh, make_mesh
 from qldpc_tpu_torch.utils import rng
 
 __all__ = ["EngineConfig", "MonteCarloEngine", "SweepResult"]
@@ -109,8 +118,9 @@ def engine_device(device) -> torch.device:
     one this raises rather than carrying on on the CPU."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
-            "multi-device execution is not ported yet (ROADMAP.md, Queue 1 "
-            "item 3: multi-device)"
+            "an engine runs on one device: for several, run one process per "
+            "device (torchrun) and pass mesh=qldpc_tpu_torch.parallel.make_mesh() "
+            "with device=parallel.rank_device()"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -124,10 +134,13 @@ def engine_device(device) -> torch.device:
 class MonteCarloEngine:
     """Batched LER estimation for one code and decoder configuration on one
     device: the card (``"cuda"``, the default, or ``"cuda:1"``), or
-    ``"cpu"`` when asked for."""
+    ``"cpu"`` when asked for. ``mesh`` places this process in a process grid
+    (default: ``parallel.make_mesh()``, the whole group, or this process
+    alone)."""
 
-    def __init__(self, code, config: EngineConfig, device="cuda"):
+    def __init__(self, code, config: EngineConfig, device="cuda", mesh: Mesh | None = None):
         self.device = engine_device(device)
+        self._shard(config, mesh)
         self.code = code
         self.config = config
         H = code.Hx if config.basis == "x" else code.Hz
@@ -150,11 +163,23 @@ class MonteCarloEngine:
         )
         self._Hf = torch.tensor(np.asarray(H_dec) % 2, dtype=torch.float32, device=self.device)
         self._Lf = torch.tensor(np.asarray(L) % 2, dtype=torch.float32, device=self.device)
-        self.k_osd = max(1, int(round(config.batch_size * config.osd_fraction)))
         # space-time's n*T + m*T variables are its draws
         self._check_counter_space(self.n_vars + (
             self.m_checks if config.channel == "phenomenological" else 0
         ))
+
+    def _shard(self, config: EngineConfig, mesh: Mesh | None) -> None:
+        """This process's slice of every batch: ``local_batch`` samples from
+        global sample id ``base``, and an OSD capacity sized from them."""
+        self.mesh = mesh if mesh is not None else make_mesh()
+        if config.batch_size % self.mesh.batch_shards:
+            raise ValueError(
+                f"batch_size {config.batch_size} must divide evenly across the "
+                f"{self.mesh.batch_shards} processes of a batch group"
+            )
+        self.local_batch = config.batch_size // self.mesh.batch_shards
+        self.base = self.mesh.batch_rank * self.local_batch
+        self.k_osd = max(1, int(round(self.local_batch * config.osd_fraction)))
 
     def _bp_decoders(self, H):
         """The BP decoder, and the short one of ``rescue_iters`` (or None):
@@ -186,23 +211,23 @@ class MonteCarloEngine:
     def _sample(self, key, p: float):
         """Channel sampling; returns (errors, syndromes, priors)."""
         cfg, dev = self.config, self.device
-        n, B = self.n_vars, cfg.batch_size
+        n, B, base = self.n_vars, self.local_batch, self.base
         if cfg.channel == "code-capacity":
-            errors = ch.code_capacity(key, 0, p, B, n, device=dev)
+            errors = ch.code_capacity(key, base, p, B, n, device=dev)
             syn = ch.syndrome_of(self._Hf, errors)
         elif cfg.channel == "doubled":
-            errors = ch.doubled_channel(key, 0, p, B, n, device=dev)
+            errors = ch.doubled_channel(key, base, p, B, n, device=dev)
             syn = ch.syndrome_of(self._Hf, errors)
         elif cfg.channel == "phenomenological":
             q = p if cfg.syndrome_flip_rate is None else cfg.syndrome_flip_rate
             errors, flips = ch.phenomenological(
-                key, 0, p, B, n, self.m_checks, q=q, device=dev
+                key, base, p, B, n, self.m_checks, q=q, device=dev
             )
             syn = (ch.syndrome_of(self._Hf, errors) + flips) % 2
         else:
             q = p if cfg.syndrome_flip_rate is None else cfg.syndrome_flip_rate
             errors, syn = st.sample_space_time_counters(
-                key, 0, self._H_space, p, B, self.n_rounds, q=q, device=dev
+                key, base, self._H_space, p, B, self.n_rounds, q=q, device=dev
             )
             m = self._H_space.shape[0]
             priors = st.space_time_prior_llr(self.n_qubits, m, self.n_rounds, p,
@@ -299,15 +324,16 @@ class MonteCarloEngine:
         )
 
     def run_batch(self, key, p: float, n_valid: int, alpha: float) -> Counters:
-        """Sample, decode and classify one batch; the first ``n_valid``
-        samples count."""
+        """Sample, decode and classify this process's slice of one batch;
+        the batch's first ``n_valid`` samples count."""
         errors, syn, priors = self._sample(key, p)
         bp_res = self._decode(syn, priors, alpha)
         if self.osd is not None:
             final, overflow = self._post_process(syn, bp_res)
         else:
             final, overflow = bp_res.hard, 0
-        valid = torch.arange(self.config.batch_size, device=self.device) < n_valid
+        ids = self.base + torch.arange(self.local_batch, device=self.device)
+        valid = ids < n_valid
         counters = self._classify(errors, final, syn, bp_res, valid)
         return counters._replace(
             osd_overflow=torch.tensor(overflow, dtype=torch.int64, device=self.device)
@@ -321,7 +347,7 @@ class MonteCarloEngine:
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         a32 = float(np.float32(self.config.bp.alpha))
         kp = rng.fold_in(rng.key(0), hash(p) % (2**31))
-        valid = torch.ones(self.config.batch_size, dtype=torch.bool, device=self.device)
+        valid = torch.ones(self.local_batch, dtype=torch.bool, device=self.device)
         rows = []
         for b in range(reps + 1):
             t = [time.perf_counter()]
@@ -342,45 +368,95 @@ class MonteCarloEngine:
         return dict(zip(("sample", "bp", "osd", "classify"), med.tolist()))
 
     # ------------------------------------------------------------------ run
+    def _local_counters(self, p: float, trials: int, seed: int, alpha: float | None,
+                        start_batch: int = 0, each=None) -> Counters:
+        """This process's counters over batches ``start_batch..``, summed on
+        its device; ``each(b, n_batches, local)`` sees the running sum."""
+        B = self.config.batch_size
+        a32 = float(np.float32(self.config.bp.alpha if alpha is None else alpha))
+        kp = rng.fold_in(rng.key(seed), hash(p) % (2**31))
+        local = zeros_counters(self.device)
+        n_batches = -(-trials // B)
+        for b in range(start_batch, n_batches):
+            n_valid = min(B, trials - b * B)
+            local = local + self.run_batch(rng.fold_in(kp, b), p, n_valid, a32)
+            if each is not None:
+                each(b, n_batches, local)
+        return local
+
     def run_rate(self, p: float, trials: int, seed: int = 0, start_batch: int = 0,
                  init: Counters | None = None, on_batch=None,
                  alpha: float | None = None) -> Counters:
-        """Accumulate ``trials`` samples at one error rate; counters on the CPU.
+        """Accumulate ``trials`` samples at one error rate; the counters of
+        the whole batch group, on the CPU, on every process of it.
 
         Batch b is keyed ``fold_in(fold_in(key(seed), hash(p) % 2**31), b)``,
         so a run resumed at ``start_batch`` with the counters ``init`` of the
         batches before it draws what an uninterrupted run draws. ``on_batch(b,
         n_batches, total)`` gets the running counters on the CPU after each
-        batch (the one place a batch waits for the card). ``alpha`` replaces
-        the decoder's alpha for this rate; like the JAX engine, the decoder
-        receives it rounded to float32 (which matters for float64 BP)."""
-        B = self.config.batch_size
-        a32 = float(np.float32(self.config.bp.alpha if alpha is None else alpha))
-        kp = rng.fold_in(rng.key(seed), hash(p) % (2**31))
-        total = (init if init is not None else zeros_counters()).to(self.device)
-        n_batches = -(-trials // B)
-        for b in range(start_batch, n_batches):
-            n_valid = min(B, trials - b * B)
-            total = total + self.run_batch(rng.fold_in(kp, b), p, n_valid, a32)
-            if on_batch is not None:
-                on_batch(b, n_batches, total.to("cpu"))
-        return total.to("cpu")
+        batch (the one place a batch waits for the card, and for the other
+        processes of the group). ``alpha`` replaces the decoder's alpha for
+        this rate; like the JAX engine, the decoder receives it rounded to
+        float32 (which matters for float64 BP)."""
+        init = (init if init is not None else zeros_counters()).to("cpu")
+
+        def reduced(local: Counters) -> Counters:
+            return init + Counters(*self.mesh.reduce_batch(local))
+
+        if on_batch is None:
+            return reduced(self._local_counters(p, trials, seed, alpha, start_batch))
+        total = [init]
+
+        def each(b, n_batches, local):
+            total[0] = reduced(local)
+            on_batch(b, n_batches, total[0])
+
+        self._local_counters(p, trials, seed, alpha, start_batch, each)
+        return total[0]
+
+    def run_rates_sharded(self, error_rates, trials: int, seed: int = 0,
+                          alpha: float | None = None) -> list[Counters]:
+        """Every rate's counters on every process, the rate grid split over
+        the mesh's rate groups (``make_mesh(rate_shards=r)``).
+
+        As in the JAX engine, the grid is padded to a multiple of the rate
+        groups and group g takes the g-th contiguous block; rate i runs with
+        seed ``seed + i``, so the counters equal ``[run_rate(p_i, trials,
+        seed + i) ...]`` on any mesh. The padding's rates are dropped, so they
+        are not run. On a 1-D mesh this is that sequential loop."""
+        rates = [float(p) for p in error_rates]
+        mesh = self.mesh
+        if mesh.rate_shards == 1:
+            return [self.run_rate(p, trials, seed=seed + i, alpha=alpha)
+                    for i, p in enumerate(rates)]
+        block = -(-len(rates) // mesh.rate_shards)
+        mine = range(mesh.rate_index * block, min((mesh.rate_index + 1) * block, len(rates)))
+        local = [self._local_counters(rates[i], trials, seed + i, alpha) if i in mine
+                 else zeros_counters() for i in range(len(rates))]
+        # one reduction over the world sums each rate over its batch group
+        # and hands every process the other groups' rates
+        flat = mesh.reduce_world([x for c in local for x in c])
+        n = len(Counters._fields)
+        return [Counters(*flat[i * n:(i + 1) * n]) for i in range(len(rates))]
 
     def sweep(self, error_rates, trials: int, seed: int = 0,
               checkpoint=None, verbose: bool = False) -> SweepResult:
         """LER sweep over an error-rate grid; rate i uses seed ``seed + i``.
         With a ``CheckpointManager`` each rate resumes from its last saved
-        batch."""
+        batch; without one a 2-D mesh splits the grid over its rate groups
+        (``run_rates_sharded``). Only the mesh's process 0 prints."""
         t0 = time.time()
+        if checkpoint is None and self.mesh.rate_shards > 1:
+            runs = self.run_rates_sharded(error_rates, trials, seed)
+        else:  # one rate at a time, each printed as it ends
+            runs = (checkpoint.run_rate(self, float(p), trials, seed + i)
+                    if checkpoint is not None else self.run_rate(float(p), trials, seed=seed + i)
+                    for i, p in enumerate(error_rates))
         per_rate = []
-        for i, p in enumerate(error_rates):
-            if checkpoint is not None:
-                counters = checkpoint.run_rate(self, float(p), trials, seed + i)
-            else:
-                counters = self.run_rate(float(p), trials, seed=seed + i)
+        for p, counters in zip(error_rates, runs):
             d = counters_to_dict(counters)
             per_rate.append(d)
-            if verbose:
+            if verbose and self.mesh.rank == 0:
                 print(
                     f"{self.code.name} p={float(p):.5g}: ler={d['ler']:.5g} "
                     f"osd={d['osd']:.3g} iters={d['average_iterations']:.2f}"

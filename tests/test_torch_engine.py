@@ -132,7 +132,7 @@ def test_config_conversion_and_out_of_slice_features():
     # the space-time channel is ported now: its round count carries over
     st = engine_config_from_reference(JaxEngineConfig(channel="space-time", n_rounds=4))
     assert st.channel == "space-time" and st.n_rounds == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 3: multi-device"):
+    with pytest.raises(NotImplementedError, match="one process per device"):
         MonteCarloEngine(port_code("steane"), EngineConfig(), device=["cpu", "cpu"])
 
 

@@ -244,7 +244,7 @@ def test_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["run", "study", "--codes", "steane", "--trials", "8", "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 3: multi-device"):
+    with pytest.raises(NotImplementedError, match="one process per device"):
         run_experiment(get_preset("study"), device=["cpu", "cpu"])
 
 

@@ -114,8 +114,11 @@ names = [m.name for m in pkgutil.walk_packages(qldpc_tpu_torch.__path__, "qldpc_
 for name in names:
     importlib.import_module(name)
 assert "qldpc_tpu_torch.decoders.alvarado" in names
+for name in ("parallel.mesh", "parallel.smoke", "examples.quickstart", "examples.noise_models",
+             "examples.degeneracy_count"):
+    assert "qldpc_tpu_torch." + name in names, name
 import chip_smoke
-for script in ("profile_torch_engine", "probe_factored_k5", "validate_port"):
+for script in ("profile_torch_engine", "probe_factored_k5", "validate_port", "mesh_throughput"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(names))
