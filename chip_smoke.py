@@ -20,6 +20,12 @@ Phases (any failure raises and the script exits non-zero):
   6. BP(50) throughput of K1 and of the plain torch version, at the
      engine's batch of 65,536 syndromes and at 262,144, p = 0.01, and at
      65,536 at p = 0.050119, where samples iterate (6.9 on average);
+  6b. K1's bf16-operand instances (``mm_dtype="bfloat16"``) against the
+     plain version in bf16 at 65,536 syndromes (K1's standard), timed in
+     turns against the float32 instance at p = 0.01; then the experiments
+     CLI's ``study`` with ``bp_mm_dtype=bfloat16`` on [[144]] at p =
+     0.050119 (every K1 launch a bf16 one; LER within 4 sigma of the JAX
+     package's TPU run with bf16 operands);
   circuit level, the [[72,12,6]] memory-experiment DEM (432 x 15765):
   7. K3 against its plain torch version, B = 1024, sum-product and min-sum,
      and its summary path (no stored R) against its message path: bit for
@@ -45,6 +51,13 @@ Phases (any failure raises and the script exits non-zero):
       never K4), held against docs/circuit_ler.md, and its counters held
       against the CPU DEM engine on 32 trials;
   14. steady-state trials/s of the DEM engine;
+  14b. K3's bf16-stream instances (``stream_dtype="bfloat16"``) on the
+      batch of phase 11, sum-product and min-sum, against the plain version
+      in bf16 (K3's standard) and summary path against message path bit for
+      bit; the four instances (float32 and bf16, summary and message paths)
+      timed in turns, their device ms per pass and bytes per iteration; the
+      DEM engine's trials/s at p = 0.001 with float32 and with bf16 streams,
+      in turns;
   space-time, [[144,12,12]] at T = 12 (H_st 864 x 2592), the space-time
   preset's BP(100) + OSD-0 at batch 512:
   15. K6 (one sample over a cluster of blocks) against its plain torch
@@ -68,8 +81,10 @@ Phases (any failure raises and the script exits non-zero):
   the experiments CLI and the rest of the circuit-level family:
   21. ``python -m qldpc_tpu_torch.experiments.cli run complete-bposd`` on the
       [[90,8,10]] and [[108,8,10]] DEMs at p = 0.001 and 0.002, 10,240
-      trials, float32 streams (launches K3 and K4, never K5), read back from
-      its npz: obs-err and OSD rate within 4 sigma of docs/circuit_ler.md;
+      trials, the preset unchanged: bf16 streams (launches K3's bf16
+      instances and K4, never K5), read back from its npz: obs-err and OSD
+      rate within 4 sigma of the JAX package's bf16 cells
+      (results/circuit_bf16_val_r5, docs/circuit_ler.md:25-34);
       then K4 against its plain version on each DEM's BP failures, with and
       without the b-exit (900 and 1,080 rows); each code's K4 geometry and
       trials/s logged;
@@ -133,7 +148,11 @@ p = 0.050119, K2's (its ordered loader's, the path's) its packed-rows
 entry's and the packed-rows loader's launches and device ms on the OSD-e
 path (phase 26), K4's its record on the space-time failures and its
 launches on the OSD-e path (phase 27), and K5a-d's their device ms over one
-OSD call at the [[288]] DEM (phase 23).
+OSD call at the [[288]] DEM (phase 23). The rows ``bp_flooding_bf16`` and
+``dem_bp_bf16`` are K1's and K3's bf16 instances: their launches are those of
+the CLI runs of phases 6b and 21, their times those of phases 6b and 14b
+(beside the float32 instance's device ms in turns, and for K3 its message
+path's).
 """
 
 from __future__ import annotations
@@ -174,6 +193,10 @@ DEM144_REF = {0.001: (0.0009, 0.894, 46.5), 0.002: (0.0264, 0.993, 48.9)}
 DEM_REF_TRIALS = 10_000
 DEM_BATCH, DEM_TRIALS = 1024, 10_240  # per error rate
 K3_DECISION_TOL = 1  # lanes in 1024 allowed to differ in decision (K3)
+# BP(50)+OSD-0 LER of [[144,12,12]] at p = 0.05012 from the JAX package's
+# TPU run with bf16 matmul operands, 10,000 trials
+# (results/validation_r5_bf16mxu/validation.md)
+MM_REF_LER, MM_REF_TRIALS = 0.0442, 10_000
 K5_CHECK_LANES, SOLUTION_LANES = 128, 32
 K4_NO_EXIT_LANES = 128  # BP failures K4 is held on without the b-exit
 
@@ -612,6 +635,88 @@ def phase_throughput(H: np.ndarray, dev, card_line: str) -> dict:
         recs.setdefault(p, dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **b))
     return dict(recs[0.01], at_p_0_050119=dict(
         recs[REF_P], syndromes=ENGINE_BATCH, p=REF_P))
+
+
+def phase_k1_bf16(H: np.ndarray, dev, card_line: str, out_dir: str) -> tuple[dict, int]:
+    """K1's bf16 instances against the plain version in bf16, timed in turns
+    against the float32 instance; then the CLI's study preset with bf16
+    operands (phase 6b). Returns the record and the bf16 launches of the CLI
+    run."""
+    from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
+    from qldpc_tpu_torch.experiments.cli import main as cli_main
+    from qldpc_tpu_torch.experiments.results_io import load_results
+    from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
+
+    B = K1_BATCH
+    Hf = torch.from_numpy(H.astype(np.float32)).to(dev)
+    worst = 0.0
+    for name, cfg, p in (
+        ("sum-product p=0.01", BPConfig(max_iter=50), 0.01),
+        ("sum-product p=0.05", BPConfig(max_iter=50), 0.05),
+        ("min-sum a=0.8 o=0.1 p=0.05",
+         BPConfig(max_iter=50, method="min-sum", alpha=0.8, offset=0.1), 0.05),
+    ):
+        cfg = dataclasses.replace(cfg, mm_dtype="bfloat16")
+        tables = BPDecoder(H, cfg).to(dev).tables()
+        _, syn_np = sample(H, p, B, seed=0)
+        syn = torch.from_numpy(syn_np).to(dev)
+        prior = torch.full((H.shape[1],), math.log((1 - p) / p), dtype=torch.float32, device=dev)
+        kv, kc, ki, kh = bp_flooding_cuda(syn, prior, tables, cfg)
+        torch.cuda.synchronize()
+        rv, rc, ri, rh = bp_flooding_plain(syn, prior, tables, cfg)
+        torch.cuda.synchronize()
+        differ = (kc != rc) | (ki != ri) | (kh != rh).any(1)
+        n_diff, agree = int(differ.sum()), ~differ
+        err = float((kv[agree] - rv[agree]).abs().max()) if bool(agree.any()) else 0.0
+        close = torch.allclose(kv[agree], rv[agree], rtol=VALUE_TOL, atol=VALUE_TOL)
+        reproduces = bool(((kh.float() @ Hf.T).remainder(2)[kc] == syn[kc].float()).all())
+        log(f"K1 bf16 operands {name}: B={B} converged {int(kc.sum())} lanes differing in "
+            f"decision {n_diff} (limit {DECISION_TOL * B:.1f}) max |dvalues| {err:.3g} mean "
+            f"iterations {ki.float().mean().item():.3f}")
+        if n_diff > DECISION_TOL * B or not close or not reproduces:
+            raise AssertionError(f"K1 bf16 operands {name} disagrees with its plain version")
+        worst = max(worst, err)
+
+    p = 0.01
+    cfg32 = BPConfig(max_iter=50)
+    cfg16 = dataclasses.replace(cfg32, mm_dtype="bfloat16")
+    tables = BPDecoder(H, cfg32).to(dev).tables()
+    prior = torch.full((H.shape[1],), math.log((1 - p) / p), dtype=torch.float32, device=dev)
+    syn = torch.from_numpy(sample(H, p, B, seed=2)[1]).to(dev)
+    a32, a16 = (syn, prior, tables, cfg32), (syn, prior, tables, cfg16)
+    f32a, b16a, b16b, f32b = (device_ms(lambda a=a: bp_flooding_cuda(*a), reps=5)
+                              for a in (a32, a16, a16, a32))
+    ms = cuda_ms(lambda: bp_flooding_cuda(*a16), reps=5)
+    plain_ms = cuda_ms(lambda: bp_flooding_plain(*a16), reps=2)
+    iters = bp_flooding_cuda(*a16)[2]
+    b = bp_bound(syn, prior, tables, iters, int(H.sum()))
+    log(f"K1 {CODE} BP(50) p={p} B={B} device ms in turns: float32 {f32a:.4f}, bf16 operands "
+        f"{b16a:.4f}, {b16b:.4f}, float32 {f32b:.4f}; bf16 {ms:.4f} ms per call, plain (bf16) "
+        f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), mean iterations "
+        f"{iters.float().mean().item():.3f} on {card_line}")
+
+    torch.cuda.synchronize()
+    bp_flooding_cuda.launches = bp_flooding_cuda.bf16_launches = 0
+    t0 = time.perf_counter()
+    code = cli_main(["run", "study", "--codes", CODE, "--error-rates", str(REF_P),
+                     "--trials", str(ENGINE_TRIALS), "--batch-size", str(ENGINE_BATCH),
+                     "--set", "bp_backend=pallas", "--set", "bp_mm_dtype=bfloat16",
+                     "--out", out_dir, "--no-checkpoint", "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bp_flooding_cuda.bf16_launches
+    d = load_results(f"{out_dir}/study.npz")[CODE][REF_P]
+    lim = binomial_limit(d["ler"], d["trials"], MM_REF_LER, MM_REF_TRIALS)
+    log(f"CLI study bp_mm_dtype=bfloat16 {CODE} p={REF_P}, {d['trials']} trials: exit {code}, "
+        f"{wall:.1f} s, K1 launches {bp_flooding_cuda.launches} (bf16 {launches}); LER "
+        f"{d['ler']:.5f} against the JAX package's bf16 {MM_REF_LER} (limit +-{lim:.5f}), "
+        f"OSD rate {d['osd']:.5f}, mean iterations {d['average_iterations']:.3f}")
+    if code != 0 or launches < 1 or launches != bp_flooding_cuda.launches:
+        raise AssertionError("the bf16 CLI run did not launch K1's bf16 instance alone")
+    if abs(d["ler"] - MM_REF_LER) > lim or d["trials"] != ENGINE_TRIALS:
+        raise AssertionError(f"bf16 operands: LER {d['ler']} is outside 4 sigma of {MM_REF_LER}")
+    return dict(ms=ms, device_ms=b16a, f32_device_ms=f32a, plain_ms=plain_ms,
+                max_abs_err=worst, **b), launches
 
 
 def binomial_limit(x: float, n: int, ref: float, n_ref: int) -> float:
@@ -1139,6 +1244,92 @@ def phase_dem144_throughput(eng, card_line: str) -> None:
             f"{steady_rate(eng, p, 4 * DEM_BATCH):.1f} trials/s with K3 and K5a-d, "
             f"on {card_line}")
 
+K3_MESSAGE_SPLIT = ("dem_check_kernel", "dem_var_kernel", "dem_syndrome_kernel",
+                    "dem_freeze_kernel", "dem_init")
+
+
+def phase_k3_bf16(eng, dev, card_line: str) -> dict:
+    """K3's bf16 instances on a [[144]] DEM batch (phase 14b): both methods
+    against the plain version in bf16 and summary against message path bit
+    for bit; the float32 and bf16 instances of both paths timed in turns,
+    with their device ms per pass and bytes per iteration; the engine's
+    trials/s with float32 and with bf16 streams, in turns. Returns the
+    record of the bf16 summary path (sum-product)."""
+    from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
+    from qldpc_tpu_torch.ops.dem_bp_cuda import dem_bp_cuda, dem_bp_plain, summary_path
+
+    B, tables, p = DEM_BATCH, eng.bp.tables(), 0.002
+    prob, llr = eng.priors(p)
+    rng = np.random.default_rng(3)
+    mech = rng.random((B, eng.n_vars)) < prob.cpu().numpy()
+    syn = eng._syndrome(torch.from_numpy(mech.astype(np.int8)).to(dev))
+    label = f"{eng.code.name} p={p} bf16 streams"
+    worst = 0.0
+    for method in ("sum-product", "min-sum"):
+        cfg = BPConfig(max_iter=50, method=method, stream_dtype="bfloat16")
+        if not summary_path(tables, cfg):
+            raise AssertionError(f"K3 {label}: the summary path does not apply")
+        got, err = k3_held(eng, syn, llr, cfg, label)
+        msg = dem_bp_cuda(syn, llr, tables, cfg, _store_r=True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, msg))
+        log(f"K3 {label} {method}: summary path against the message path bit for bit {same}")
+        if not same:
+            raise AssertionError(f"K3 {label} {method}: the two bf16 paths differ")
+        worst = max(worst, err)
+
+    cfg32 = BPConfig(max_iter=50)
+    cfg16 = dataclasses.replace(cfg32, stream_dtype="bfloat16")
+    calls = {
+        "float32 summary": lambda: dem_bp_cuda(syn, llr, tables, cfg32),
+        "bf16 summary": lambda: dem_bp_cuda(syn, llr, tables, cfg16),
+        "bf16 message": lambda: dem_bp_cuda(syn, llr, tables, cfg16, _store_r=True),
+        "float32 message": lambda: dem_bp_cuda(syn, llr, tables, cfg32, _store_r=True),
+    }
+    order = [*calls, *reversed(calls)]
+    times = {name: [] for name in calls}
+    for name in order:
+        times[name].append(device_ms(calls[name], reps=1))
+    iters = {name: int(fn()[2].max()) + 1 for name, fn in calls.items()}
+    for name, fn in calls.items():
+        split = kernel_device_ms(fn, K3_SPLIT if "summary" in name else K3_MESSAGE_SPLIT)
+        log(f"K3 {eng.code.name} BP(50) sum-product p={p} B={B}, {name} path: device ms "
+            f"{times[name][0]:.3f} / {times[name][1]:.3f} (in turns), {iters[name]} "
+            f"iterations, peak memory {peak_bytes(fn) / 1e9:.3f} GB; per iteration "
+            + ", ".join(f"{k} {v / iters[name]:.4f}" for k, v in split.items()))
+    # device-memory bytes per iteration, every sample running (phase 11's
+    # count): the summary path, either dtype, 12 B a real slot; the message
+    # path in float32 reads Q twice, writes R, reads R and writes Q (20 B);
+    # in bf16 it reads the 16-bit R and gathers the float32 posterior twice
+    # and writes R in the check pass, and reads R in the variable pass (16 B)
+    E, m, n = int(tables.check_deg.sum()), tables.m, tables.n
+    per_var, per_check = n * B * 5, m * B
+    moved = {"summary (either dtype)": 3 * E * B * 4 + 2 * m * B * 4 + per_var + per_check,
+             "float32 message": 5 * E * B * 4 + per_var + 2 * per_check,
+             "bf16 message": E * B * (4 + 8 + 2 + 2) + per_var + 2 * per_check}
+    log(f"K3 {eng.code.name} B={B} bytes streamed per iteration: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB ({v / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)"
+                    for k, v in moved.items()) + f" on {card_line}")
+
+    rec = dict(ms=cuda_ms(calls["bf16 summary"], reps=2), device_ms=times["bf16 summary"][0],
+               f32_device_ms=times["float32 summary"][0],
+               message_device_ms=times["bf16 message"][0],
+               plain_ms=cuda_ms(lambda: dem_bp_plain(syn, llr, tables, cfg16), reps=1),
+               max_abs_err=worst,
+               **bp_bound(syn, llr, tables, dem_bp_cuda(syn, llr, tables, cfg16)[2], E))
+
+    bp32, bp16 = eng.bp, BPDecoder(eng.dem.H, cfg16).to(dev)
+    rates = {}
+    for name, dec in (("float32", bp32), ("bf16", bp16), ("bf16", bp16), ("float32", bp32)):
+        eng.bp = dec
+        rates.setdefault(name, []).append(steady_rate(eng, 0.001, 4 * DEM_BATCH))
+    eng.bp = bp32
+    log(f"DEM engine steady state {eng.code.name} p=0.001 in turns: float32 streams "
+        f"{rates['float32'][0]:.1f} / {rates['float32'][1]:.1f} trials/s, bf16 streams "
+        f"{rates['bf16'][0]:.1f} / {rates['bf16'][1]:.1f} trials/s, on {card_line}")
+    return rec
+
+
 def st_detectors(H: np.ndarray, T: int, p: float, B: int, seed: int) -> np.ndarray:
     """Space-time detectors d_t = H e_t + u_t + u_{t-1} from a numpy seed."""
     m, n = H.shape
@@ -1464,9 +1655,10 @@ def phase_layered_engine(dev, card_line: str) -> dict:
 
 
 # ------------------------------------------------ the CLI and the rest of the family
-# docs/circuit_ler.md:50-70, float32 streams, 10,000 trials: p -> (obs-err, OSD rate)
-CLI_CODES = {"[[90, 8, 10]]": {0.001: (0.0049, 0.694), 0.002: (0.0514, 0.928)},
-             "[[108, 8, 10]]": {0.001: (0.0025, 0.749), 0.002: (0.0280, 0.954)}}
+# the JAX package's bf16-stream cells, 10,000 trials (results/
+# circuit_bf16_val_r5, docs/circuit_ler.md:25-34): p -> (obs-err, OSD rate)
+CLI_CODES = {"[[90, 8, 10]]": {0.001: (0.004, 0.6942), 0.002: (0.0472, 0.9225)},
+             "[[108, 8, 10]]": {0.001: (0.0018, 0.7533), 0.002: (0.0263, 0.9529)}}
 CLI_TRIALS = 10_240
 CKPT_INTERRUPT = 2  # batches before the interruption
 DEM288_CODE, DEM288_P, DEM288_BATCH = "[[288, 12, 18]]", 0.003, 1024
@@ -1507,10 +1699,11 @@ def capture_engines():
 
 
 def phase_cli_dems(dev, card_line: str, out_dir: str) -> dict:
-    """The experiments CLI on the card: complete-bposd on the [[90]] and
-    [[108]] DEMs (float32 streams), read back from its npz; obs-err and OSD
-    rate within 4 sigma of docs/circuit_ler.md. Both DEMs take K3 and K4
-    (never K5): the counts are zeroed before the CLI runs and read after.
+    """The experiments CLI on the card: complete-bposd as shipped (bf16
+    streams) on the [[90]] and [[108]] DEMs, read back from its npz; obs-err
+    and OSD rate within 4 sigma of the JAX package's bf16 cells. Both DEMs
+    take K3's bf16 instances and K4 (never K5): the counts are zeroed before
+    the CLI runs and read after.
     Then K4 is held to its plain version on each DEM's BP failures, with and
     without the b-exit (the [[108]] DEM's 1,080 rows take K4's instance for
     more than 1,024 rows, which no earlier phase runs)."""
@@ -1525,20 +1718,27 @@ def phase_cli_dems(dev, card_line: str, out_dir: str) -> dict:
     torch.cuda.synchronize()
     for fn in wrappers.values():
         fn.launches = 0
+    dem_bp_cuda.dem_bp_cuda.bf16_launches = 0
     t0 = time.perf_counter()
     with patch:
         code = cli_main(["run", "complete-bposd", "--codes", *CLI_CODES, "--error-rates",
-                         "0.001", "0.002", "--trials", str(CLI_TRIALS), "--set",
-                         "bp_stream_dtype=float32", "--out", out_dir, "--no-checkpoint"])
+                         "0.001", "0.002", "--trials", str(CLI_TRIALS), "--out", out_dir,
+                         "--no-checkpoint"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches["dem_bp_bf16"] = dem_bp_cuda.dem_bp_cuda.bf16_launches
     log(f"CLI complete-bposd on {list(CLI_CODES)}: exit {code}, {wall:.1f} s (DEM builds "
         f"included), kernel launches {json.dumps(launches)} on {card_line}")
     if code != 0:
         raise AssertionError(f"the CLI exited {code}")
     if launches["dem_bp"] < 1 or launches["gf2_transform_elim"] < 1:
         raise AssertionError("the CLI's run did not launch K3 and K4")
+    if launches["dem_bp_bf16"] != launches["dem_bp"]:
+        raise AssertionError("the CLI's run launched K3 without its bf16 streams")
+    if load_results(f"{out_dir}/complete-bposd.npz")["_meta"]["spec"]["bp_stream_dtype"] \
+            != "bfloat16":
+        raise AssertionError("the CLI's archived spec does not say bfloat16")
     if any(launches[name] for name in K5_NAMES):
         raise AssertionError("the CLI's run launched K5 on the [[90]] or [[108]] DEM")
     for name, p, trials, secs in rates:
@@ -2195,6 +2395,8 @@ def main() -> int:
     launches = timed(phase_engine, dev, card_line)
     timed(phase_engine_vs_cpu, dev)
     k1 = timed(phase_throughput, H, dev, card_line)
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_bf16, k1_bf16_launches = timed(phase_k1_bf16, H, dev, card_line, tmp)
 
     eng = timed(dem_engine, dev)
     k3_72, dem_failures = timed(phase_k3, eng, dev)
@@ -2221,6 +2423,7 @@ def main() -> int:
                             {"gf2_transform_elim": k4_wrapper})
     timed(phase_dem_engine_vs_cpu, dev, 32, code=DEM144_CODE, rounds=DEM144_ROUNDS)
     timed(phase_dem144_throughput, eng144, card_line)
+    k3_bf16 = timed(phase_k3_bf16, eng144, dev, card_line)
     del eng144
     torch.cuda.empty_cache()
 
@@ -2234,7 +2437,7 @@ def main() -> int:
     layered_launches = timed(phase_layered_engine, dev, card_line)
 
     with tempfile.TemporaryDirectory() as tmp:
-        timed(phase_cli_dems, dev, card_line, f"{tmp}/cli")
+        cli_launches = timed(phase_cli_dems, dev, card_line, f"{tmp}/cli")
         timed(phase_checkpoints, dev, tmp)
         k5_288 = timed(phase_dem288, dev, card_line, f"{tmp}/dem288")
     timed(phase_st288, dev, card_line)
@@ -2272,11 +2475,17 @@ def main() -> int:
          st_launches["st_bp"], k6),
         ("bp_layered", "bp_layered.cu", "qldpc_tpu/ops/bp_pallas.py:123",
          layered_launches["bp_layered"], k7),
+        ("bp_flooding_bf16", "bp_flooding.cu", "qldpc_tpu/ops/bp_pallas.py:256",
+         k1_bf16_launches, k1_bf16),
+        ("dem_bp_bf16", "dem_bp.cu", "qldpc_tpu/ops/dem_bp_pallas.py:78",
+         cli_launches["dem_bp_bf16"], k3_bf16),
     ]
     # K1 where samples iterate, K2's packed-rows entry and its launches on
     # the OSD-e path, K4 on the space-time failures and on the OSD-e path, K5
-    # at the [[288]] DEM
-    extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288")
+    # at the [[288]] DEM; beside the bf16 instances the float32 instance's
+    # device ms in turns and K3's bf16 message path's
+    extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288",
+             "f32_device_ms", "message_device_ms")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

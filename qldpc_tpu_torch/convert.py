@@ -6,8 +6,9 @@ dict of its fields,
 reads the fields by name as numpy arrays or plain values, so that neither
 ``jax`` nor ``qldpc_tpu`` is ever imported, and returns the port's object.
 Config selectors that only choose a TPU code path are dropped: on the port
-the tensor's device decides the path. Fields that would change the
-numerics, or that need a feature outside the port, raise.
+the tensor's device decides the path. Fields that change the numerics carry
+over, the bf16 message modes (``stream_dtype``, ``mm_dtype``) among them;
+where the JAX package refuses a combination, so does the port.
 """
 
 from __future__ import annotations
@@ -64,12 +65,11 @@ def _take(fields: dict, target) -> dict:
 
 def bp_config_from_reference(cfg) -> BPConfig:
     f = _fields(cfg)
-    for name in ("mm_dtype", "stream_dtype"):
-        if f.pop(name, "float32") != "float32":
-            raise ValueError(
-                f"{name} (an ExperimentSpec's bp_{name}) other than float32 "
-                "changes the BP numerics; the port runs float32 messages"
-            )
+    # the bf16 modes belong to the JAX package's Pallas kernels: with another
+    # backend named, its BPConfig refuses them (qldpc_tpu/decoders/bp.py:94-110)
+    for name in ("stream_dtype", "mm_dtype"):
+        if f.get(name, "float32") != "float32" and f.get("backend", "pallas") != "pallas":
+            raise ValueError(f"{name} applies only to the pallas backend's kernels")
     for name in _BP_DROPPED:
         f.pop(name, None)
     return BPConfig(**_take(f, BPConfig))
@@ -103,8 +103,8 @@ def engine_config_from_reference(cfg) -> EngineConfig:
 
 
 def dem_engine_config_from_reference(cfg) -> DEMEngineConfig:
-    """The port's ``DEMEngineConfig`` from the JAX package's (the
-    ``complete-bposd`` preset's streams must be set to float32 first)."""
+    """The port's ``DEMEngineConfig`` from the JAX package's, its BP
+    config's bf16 streams included."""
     return DEMEngineConfig(**_take(_engine_fields(cfg), DEMEngineConfig))
 
 

@@ -12,6 +12,14 @@ torch on CPU tensors, K3 on CUDA tensors. The layered schedule needs a
 check-regular graph, as in the JAX package. ``check_messages`` gives the
 check-to-variable messages after a few iterations, which the Alvarado fit
 reads (``decoders.alvarado``).
+
+The JAX package's two bf16 message modes carry over (``BPConfig.stream_dtype``
+and ``mm_dtype``, qldpc_tpu/decoders/bp.py:63-73): the messages round to
+bfloat16 where its Pallas kernels round them, and all arithmetic stays
+float32. ``stream_dtype="bfloat16"`` belongs to the DEM kernel (K3) and
+``mm_dtype="bfloat16"`` to the fused flooding kernel (K1); each raises
+where the JAX package raises (``BPDecoder``), and either raises with
+``dtype="float64"``, which runs only on the plain path.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from qldpc_tpu_torch.ops.dem_bp_cuda import DEMTables, dem_bp, dem_tables
 __all__ = ["BPConfig", "BPResult", "BPDecoder"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_MESSAGE_DTYPES = ("float32", "bfloat16")
 
 
 class BPResult(NamedTuple):
@@ -62,6 +71,12 @@ class BPConfig:
     schedule: str = "flooding"  # "flooding" | "layered" (check-serial)
     n_layers: int = 0  # layered: check groups per iteration; 0 = auto
     dtype: str = "float32"  # "float64" runs on the plain (CPU) path only
+    stream_dtype: str = "float32"  # DEM kernel (irregular graphs): "bfloat16"
+    # rounds the slot-space messages as the streams of
+    # qldpc_tpu/ops/dem_bp_pallas.py hold them
+    mm_dtype: str = "float32"  # fused flooding kernel (check-regular graphs):
+    # "bfloat16" rounds the messages as the bf16 MXU operands of
+    # qldpc_tpu/ops/bp_pallas.py::_bp_kernel do
 
     def __post_init__(self):
         if self.max_iter < 1:
@@ -79,6 +94,40 @@ class BPConfig:
                              "schedule (messages are recomputed per layer)")
         if self.n_layers < 0:
             raise ValueError("n_layers must be >= 0")
+        if self.stream_dtype not in _MESSAGE_DTYPES:
+            raise ValueError(f"unknown stream_dtype {self.stream_dtype!r}")
+        if self.mm_dtype not in _MESSAGE_DTYPES:
+            raise ValueError(f"unknown mm_dtype {self.mm_dtype!r}")
+        if self.mm_dtype != "float32" and self.schedule != "flooding":
+            raise ValueError(
+                "mm_dtype applies only to the fused flooding kernel (regular graphs)"
+            )
+        if self.dtype == "float64" and "bfloat16" in (self.stream_dtype, self.mm_dtype):
+            # the JAX kernels compute in float32 whatever dtype says; the
+            # port's float64 runs only on the plain path
+            raise ValueError("the bf16 message modes round float32 messages: dtype must "
+                             "be float32")
+
+
+def _check_message_modes(cfg: BPConfig, slot_layout: bool) -> None:
+    """The JAX decoder's refusals of the bf16 modes on this graph
+    (qldpc_tpu/decoders/bp.py:545-580)."""
+    if cfg.stream_dtype != "float32":
+        if not slot_layout:
+            raise ValueError(
+                "stream_dtype applies to the streamed DEM kernel only; the fused "
+                "kernel of a check-regular graph has no device-memory message streams"
+            )
+        if cfg.schedule != "flooding" or cfg.damping != 1.0:
+            raise ValueError(
+                "stream_dtype=bfloat16 requires the streamed DEM kernel (irregular "
+                "graph, flooding schedule, no damping)"
+            )
+    if cfg.mm_dtype != "float32" and slot_layout:
+        raise ValueError(
+            "mm_dtype applies to the fused flooding kernel only; irregular graphs use "
+            "the streamed DEM kernel (stream_dtype is its bf16 knob)"
+        )
 
 
 class BPDecoder(nn.Module):
@@ -104,6 +153,7 @@ class BPDecoder(nn.Module):
                     "(every check with the same degree)"
                 )
             L = layer_count(g.m, config.n_layers)  # raises when it does not divide m
+        _check_message_modes(config, self.slot_layout)
         if self.slot_layout:
             self._table_names = tuple(f.name for f in dataclasses.fields(DEMTables))
             for name, arr in dem_tables(g).items():

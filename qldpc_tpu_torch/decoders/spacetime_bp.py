@@ -12,7 +12,10 @@ measurement rounds).
 
 Like the JAX decoder it refuses the layered schedule and base codes that are
 not check-regular. It decodes in float32, as the JAX decoder does whatever
-its dtype, and refuses a float64 config rather than ignore it.
+its dtype, and refuses a float64 config rather than ignore it. The bf16
+message modes (``stream_dtype``, ``mm_dtype``) belong to the DEM and the
+flooding kernels: the JAX decoder's structured kernel has neither and runs
+float32 messages under them, and so does this one.
 """
 
 from __future__ import annotations

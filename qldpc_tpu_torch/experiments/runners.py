@@ -10,23 +10,25 @@ schema) and the plots are the JAX runner's.
 The spec's fields that only pick a TPU code path (``bp_backend``,
 ``bp_batch_tile``, ``bp_chunk_size``, ``osd_backend`` other than
 ``factored``) are dropped, as ``convert.py`` drops them from a JAX config:
-the tensor's device picks the path. A field that
-would change the numerics refuses before any engine is built:
-``bp_mm_dtype="bfloat16"``. ``estimate_alpha`` fits Alvarado's alpha per
+the tensor's device picks the path. The bf16 message modes carry over
+(``bp_stream_dtype`` for the DEM kernel K3, the ``complete-bposd`` preset's
+default, and ``bp_mm_dtype`` for the flooding kernel K1); a combination the
+JAX package refuses refuses here, where the config alone shows it before any
+engine is built. ``estimate_alpha`` fits Alvarado's alpha per
 rate (``decoders.alvarado.estimate_alpha`` on the device, float32 draws as
 the JAX CLI makes them) and runs the rate with it, as the JAX runner does;
 each process of a mesh fits it itself, from the same keyed draws.
-``bp_stream_dtype="bfloat16"`` is not ported: such a spec runs with float32
-streams, says so on stderr, and its archived spec says ``float32``.
 Circuit-level specs run the DEM engine at the spec's batch size (the JAX
-runner's clamp guards a TPU's memory).
+runner's clamp guards a TPU's memory). With checkpoints on, each entry of a
+``max_iter_grid`` or ``osd_order_grid`` keeps its files in a directory of
+its own under ``<name>_ckpt/``; a spec without grids keeps them in
+``<name>_ckpt/`` itself, as the JAX runner does.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
-import sys
 import time
 from pathlib import Path
 
@@ -57,24 +59,28 @@ from .configs import ExperimentSpec
 __all__ = ["run_experiment", "build_engine"]
 
 
-def check_spec(spec: ExperimentSpec, warn: bool = True) -> ExperimentSpec:
-    """Refuse what the port cannot run as asked, before any engine is built;
-    returns the spec the port runs (float32 streams), saying so on stderr
-    where ``warn``."""
-    if spec.bp_stream_dtype != "float32" and warn:
-        print(
-            f"[{spec.name}] bp_stream_dtype={spec.bp_stream_dtype!r} is not "
-            "ported: running float32 streams",
-            file=sys.stderr, flush=True,
-        )
-    spec = spec.replace(bp_stream_dtype="float32")
-    _bp_config(spec)  # raises for a bp_mm_dtype other than float32
+def check_spec(spec: ExperimentSpec) -> ExperimentSpec:
+    """Refuse, before any engine is built, a BP config that the JAX
+    package's BPConfig refuses (bp_mm_dtype with the layered schedule, a bf16
+    mode beside a backend other than pallas); returns the spec."""
+    _bp_config(spec)
     return spec
 
 
+def _checkpoint_dir(out: Path, spec: ExperimentSpec, max_iter, osd_order) -> Path:
+    """The checkpoint directory of one grid entry: ``<name>_ckpt``, with a
+    subdirectory for each ``max_iter_grid`` and ``osd_order_grid`` value."""
+    path = out / f"{spec.name}_ckpt"
+    if spec.max_iter_grid:
+        path = path / f"max_iter{max_iter}"
+    if spec.osd_order_grid:
+        path = path / f"osd_order{osd_order}"
+    return path
+
+
 # The JAX runner's configs, field by field (qldpc_tpu/experiments/runners.py
-# _bp_config, _osd_config): convert.py drops the TPU selectors and refuses
-# what would change the numerics, for a spec as for a JAX config.
+# _bp_config, _osd_config): convert.py drops the TPU selectors, for a spec as
+# for a JAX config.
 def _bp_config(spec: ExperimentSpec, max_iter=None, alpha=None) -> BPConfig:
     return bp_config_from_reference(dict(
         max_iter=max_iter if max_iter is not None else spec.bp_max_iter,
@@ -189,11 +195,10 @@ def run_experiment(
     mesh = mesh if mesh is not None else make_mesh()
     lead = mesh.rank == 0
     verbose = verbose and lead
-    spec = check_spec(spec, warn=lead)
+    spec = check_spec(spec)
     out = Path(spec.output_dir)
     if lead:
         out.mkdir(parents=True, exist_ok=True)
-    ckpt = CheckpointManager(out / f"{spec.name}_ckpt") if checkpoint else None
     timer = PhaseTimer()
 
     results: dict = {}
@@ -206,6 +211,8 @@ def run_experiment(
         order_grid = spec.osd_order_grid or [None]
         for max_iter in iter_grid:
           for osd_order in order_grid:
+            ckpt = (CheckpointManager(_checkpoint_dir(out, spec, max_iter, osd_order))
+                    if checkpoint else None)
             # p and a fitted alpha enter per call, so one engine serves the
             # code's rate grid
             eng = None

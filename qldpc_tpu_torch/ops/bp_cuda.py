@@ -10,6 +10,14 @@ floating-point order: the leave-one-out tanh product is an exclusive prefix
 times an exclusive suffix product, each folded sequentially; posteriors are a
 left fold over each variable's edges plus the prior.
 
+``cfg.mm_dtype="bfloat16"`` rounds the messages where the TPU kernel's bf16
+matmul operands round them (qldpc_tpu/ops/bp_pallas.py:296-364), ``rd(x)``
+being round-to-nearest-even to bfloat16 and back to float32: the first Q of
+an edge is ``rd(prior)``, the posterior the float32 fold of ``rd(R)`` plus
+the prior, the next Q ``rd(posterior) - R`` with R unrounded, then damping
+against the old Q and the clip; decisions and convergence read the float32
+posterior.
+
 ``bp_flooding`` is the entry point: it takes the plain version for CPU
 tensors and launches K1 for CUDA tensors, and never falls back.
 """
@@ -49,10 +57,10 @@ _LIB = KernelLibrary(
         "bp_flooding_launch": [
             _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp,
             _i, _i, _i, _i, _i, _i,
-            _f, _i, _f, _i, _f, _f, _i, _f, _i, _i,
+            _f, _i, _f, _i, _f, _f, _i, _f, _i, _i, _i,
             _i, _vp,
         ],
-        "bp_flooding_grid": [_i] * 7,
+        "bp_flooding_grid": [_i] * 8,
     },
 )
 
@@ -83,6 +91,11 @@ class BPTables:
     @property
     def dv(self) -> int:
         return self.var_edge.shape[1]
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to nearest even in bfloat16, back in its own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def _leave_one_out_product(t: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -151,9 +164,9 @@ def bp_flooding_plain(
     alpha: float | None = None,
 ):
     """Flooding BP in plain torch. ``priors`` (n,) or (B, n) sets the dtype;
-    ``cfg`` supplies max_iter, method, alpha, offset, damping and clip_llr,
-    and ``alpha`` overrides ``cfg.alpha``. Every iteration runs on every
-    sample; converged samples are frozen.
+    ``cfg`` supplies max_iter, method, alpha, offset, damping, clip_llr and
+    mm_dtype, and ``alpha`` overrides ``cfg.alpha``. Every iteration runs on
+    every sample; converged samples are frozen.
 
     Returns ``(values (B, n), converged (B,) bool, iterations (B,) int32,
     hard (B, n) int8)``.
@@ -169,7 +182,12 @@ def bp_flooding_plain(
     syn = syndromes.to(torch.int32)
     priors = priors.expand(B, n)
     ssign = (1 - 2 * syn).to(dtype)
-    Q = priors[:, var_of_edge]
+    if cfg.mm_dtype == "bfloat16":
+        rd = round_bf16
+    else:
+        def rd(x):
+            return x
+    Q = rd(priors)[:, var_of_edge]
     values = priors.clone()
     hard = torch.zeros((B, n), dtype=torch.int8, device=dev)
     conv = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -178,12 +196,12 @@ def bp_flooding_plain(
 
     for it in range(cfg.max_iter):
         R = _check_messages(Q, ssign, tables, cfg, alpha)
-        rv = torch.cat([R, pad], dim=1)[:, var_edge]  # (B, n, dv)
+        rv = torch.cat([rd(R), pad], dim=1)[:, var_edge]  # (B, n, dv)
         vals = rv[..., 0]
         for k in range(1, rv.shape[-1]):
             vals = vals + rv[..., k]
         vals = vals + priors
-        Qn = vals[:, var_of_edge] - R
+        Qn = rd(vals)[:, var_of_edge] - R
         if cfg.damping != 1.0:
             Qn = cfg.damping * Qn + (1.0 - cfg.damping) * Q
         if cfg.clip_llr is not None:
@@ -219,12 +237,12 @@ def launch_warps(m: int, n: int, dc: int, shared_priors: bool) -> int:
 
 
 def launch_grid(B: int, tables: BPTables, shared_priors: bool) -> tuple[int, int]:
-    """(warps a block, blocks) of K1's persistent grid for B samples on the
-    current CUDA device: the blocks the samples need, at most what its SMs
-    hold at once."""
+    """(warps a block, blocks) of K1's persistent grid of float32 operands
+    for B samples on the current CUDA device: the blocks the samples need, at
+    most what its SMs hold at once."""
     warps = launch_warps(tables.m, tables.n, tables.dc, shared_priors)
     blocks = _LIB.lib.bp_flooding_grid(B, tables.m, tables.n, tables.dc, tables.dv,
-                                       int(shared_priors), warps)
+                                       int(shared_priors), 0, warps)
     if blocks < 0:
         raise RuntimeError(f"bp_flooding.cu::bp_flooding_grid failed with cudaError {-blocks}")
     return warps, blocks
@@ -237,7 +255,8 @@ def bp_flooding_cuda(
     cfg: BPConfig,
     alpha: float | None = None,
 ):
-    """Launch K1. Same contract as ``bp_flooding_plain``; float32 only."""
+    """Launch K1. Same contract as ``bp_flooding_plain``; float32 priors
+    only, and ``cfg.mm_dtype="bfloat16"`` launches its bf16 instances."""
     dev = syndromes.device
     if dev.type != "cuda":
         raise ValueError("bp_flooding_cuda needs CUDA tensors")
@@ -264,6 +283,7 @@ def bp_flooding_cuda(
     if tables.check_var.dtype != torch.int32 or tables.var_edge.dtype != torch.int32:
         raise TypeError("BP tables must be int32")
     warps = launch_warps(m, n, tables.dc, prior_stride == 0)
+    bf16 = cfg.mm_dtype == "bfloat16"
     # contiguous operands bound to names: each must outlive the launch
     syn = syndromes.to(torch.uint8).contiguous()
     priors = priors.contiguous()
@@ -283,16 +303,19 @@ def bp_flooding_cuda(
         alpha32, int(alpha32 != 1.0),
         float(cfg.offset), int(bool(cfg.offset)),
         float(cfg.damping), float(1.0 - cfg.damping), int(cfg.damping != 1.0),
-        float(cfg.clip_llr or 0.0), int(cfg.clip_llr is not None),
+        float(cfg.clip_llr or 0.0), int(cfg.clip_llr is not None), int(bf16),
         cfg.max_iter, warps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     bp_flooding_cuda.launches += 1
+    if bf16:
+        bp_flooding_cuda.bf16_launches += 1
     hard = (values < 0).to(torch.int8)
     return values, conv.bool(), iters, hard
 
 
 bp_flooding_cuda.launches = 0
+bp_flooding_cuda.bf16_launches = 0  # the launches of the bf16-operand instances
 
 
 def bp_flooding(syndromes, priors, tables: BPTables, cfg: BPConfig, alpha=None):

@@ -36,7 +36,19 @@
 //   3. syndrome test, one lane per check: the parity of the hard decisions
 //      (posterior < 0) against the syndrome; __any_sync over the warp.
 // A sample that reproduces its syndrome stores the state of that iteration.
+//
+// bf16 operands (mm_dtype="bfloat16", qldpc_tpu/ops/bp_pallas.py:283-297) are
+// a compile-time flag (BF): the messages round where the TPU kernel's bf16
+// matmul operands round them, rd(x) being round-to-nearest-even to bf16 and
+// back. The first Q of an edge is rd(prior) (and so is every prior the
+// block's first-iteration table is built from); the posterior is the float32
+// left fold of rd(R) over the variable's edges plus the float32 prior; the
+// next Q is rd(posterior) - R, R unrounded, then damping against the old Q
+// (rd(prior) at the first iteration) and the clip. The hard decision and
+// convergence read the float32 posterior. The state stays in shared memory
+// as float32, so BF changes no byte the kernel moves.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,10 +74,17 @@ __device__ __forceinline__ float max_nan(float x, float lo)
     return isnan(x) ? x : fmaxf(x, lo);
 }
 
+// x rounded to nearest even in bf16 under BF, back in float32; else x
+template <bool BF>
+__device__ __forceinline__ float rd(float x)
+{
+    if constexpr (BF) return __bfloat162float(__float2bfloat16_rn(x)); else return x;
+}
+
 // One check's rule on its dc messages q (Q, or at the first iteration the
-// priors of its variables: what Q would hold), into r. DC > 0: dc = DC at
-// compile time; DC = 0: dc <= MAX_DC at run time.
-template <int DC>
+// priors of its variables, rounded under BF: what Q would hold), into r.
+// DC > 0: dc = DC at compile time; DC = 0: dc <= MAX_DC at run time.
+template <int DC, bool BF>
 __device__ __forceinline__ void check_rule(
     const float* q_src, const float* P, const int* __restrict__ cv, bool from_prior, float* r,
     float ss, int dc_rt, int method, float alpha, int use_alpha, float offset,
@@ -73,7 +92,7 @@ __device__ __forceinline__ void check_rule(
 {
     if constexpr (DC > 0) {
         float q[DC];
-        unrolled<DC>([&](auto j) { q[j] = from_prior ? P[__ldg(cv + j)] : q_src[j]; });
+        unrolled<DC>([&](auto j) { q[j] = from_prior ? rd<BF>(P[__ldg(cv + j)]) : q_src[j]; });
         if (method == 0) {
             // leave-one-out product as exclusive prefix x exclusive suffix,
             // both folded sequentially (bp.py::_others_product)
@@ -124,7 +143,7 @@ __device__ __forceinline__ void check_rule(
     } else {
         const int dc = dc_rt;
         float q[MAX_DC];
-        for (int j = 0; j < dc; ++j) q[j] = from_prior ? P[__ldg(cv + j)] : q_src[j];
+        for (int j = 0; j < dc; ++j) q[j] = from_prior ? rd<BF>(P[__ldg(cv + j)]) : q_src[j];
         if (method == 0) {
             float t[MAX_DC], suf[MAX_DC];
             for (int j = 0; j < dc; ++j) t[j] = tanhf(q[j] * 0.5f);
@@ -167,8 +186,8 @@ __device__ __forceinline__ void check_rule(
 }
 
 // DC, DV > 0: the degrees at compile time (check-regular dc, and dv edges a
-// variable with padding allowed); 0: at run time.
-template <int DC, int DV>
+// variable with padding allowed); 0: at run time. BF: bf16 operands.
+template <int DC, int DV, bool BF>
 __global__ void __launch_bounds__(256, DC > 0 ? K1_MIN_BLOCKS : 1) bp_flooding_warp_kernel(
     const uint8_t* __restrict__ syn,      // (B, m) 0/1
     const float* __restrict__ priors,     // (B, n) or (n,) with prior_stride 0
@@ -208,7 +227,7 @@ __global__ void __launch_bounds__(256, DC > 0 ? K1_MIN_BLOCKS : 1) bp_flooding_w
         __syncthreads();
         for (int i = threadIdx.x; i < 2 * m; i += blockDim.x) {
             const int bit = i >= m, c = i - bit * m;
-            check_rule<DC>(nullptr, Pb, check_var + c * dc, true, R0 + bit * E + c * dc,
+            check_rule<DC, BF>(nullptr, Pb, check_var + c * dc, true, R0 + bit * E + c * dc,
                            bit ? -1.0f : 1.0f, dc, method, alpha, use_alpha, offset, use_offset);
         }
         __syncthreads();
@@ -235,7 +254,7 @@ __global__ void __launch_bounds__(256, DC > 0 ? K1_MIN_BLOCKS : 1) bp_flooding_w
             const bool from_table = shared_prior && it == 0;
             if (!from_table)
                 for (int c = lane; c < m; c += 32)
-                    check_rule<DC>(Q + c * dc, P, check_var + c * dc, it == 0, R + c * dc,
+                    check_rule<DC, BF>(Q + c * dc, P, check_var + c * dc, it == 0, R + c * dc,
                                    ssyn[c] ? -1.0f : 1.0f, dc, method, alpha, use_alpha, offset,
                                    use_offset);
             __syncwarp();
@@ -244,6 +263,8 @@ __global__ void __launch_bounds__(256, DC > 0 ? K1_MIN_BLOCKS : 1) bp_flooding_w
             auto r_of = [&](int ek) {
                 return ek >= E ? 0.0f : from_table ? R0[(ssyn[ek / dc] ? E : 0) + ek] : R[ek];
             };
+            // the posterior folds rd(R); each next Q takes R unrounded
+            // (the pads' 0 rounds to itself)
             for (int v = lane; v < n; v += 32) {
                 const int* ve = var_edge + v * dv;
                 int e[DV > 0 ? DV : 1];
@@ -254,18 +275,20 @@ __global__ void __launch_bounds__(256, DC > 0 ? K1_MIN_BLOCKS : 1) bp_flooding_w
                         e[k] = __ldg(ve + k);
                         r[k] = r_of(e[k]);
                     });
-                    acc = r[0];
-                    unrolled<DV - 1>([&](auto k) { acc = acc + r[k + 1]; });
+                    acc = rd<BF>(r[0]);
+                    unrolled<DV - 1>([&](auto k) { acc = acc + rd<BF>(r[k + 1]); });
                 } else {
-                    acc = r_of(__ldg(ve));
-                    for (int k = 1; k < dv; ++k) acc = acc + r_of(__ldg(ve + k));
+                    acc = rd<BF>(r_of(__ldg(ve)));
+                    for (int k = 1; k < dv; ++k) acc = acc + rd<BF>(r_of(__ldg(ve + k)));
                 }
                 acc = acc + P[v];  // the posterior
                 V[v] = acc;
+                const float from = rd<BF>(acc);
                 auto update = [&](int ek, float rk) {
                     if (ek >= E) return;
-                    float qn = acc - rk;
-                    if (use_damping) qn = damp_new * qn + damp_old * (it == 0 ? P[v] : Q[ek]);
+                    float qn = from - rk;
+                    if (use_damping)
+                        qn = damp_new * qn + damp_old * (it == 0 ? rd<BF>(P[v]) : Q[ek]);
                     if (use_clip) qn = clamp_nan(qn, -clip, clip);
                     Q[ek] = qn;
                 };
@@ -321,9 +344,9 @@ typedef void (*k1_kernel_t)(
 
 // The persistent grid: as many blocks as the samples need, at most what the
 // SMs hold at once (the occupancy of this size). The instance: the BB codes'
-// degrees at compile time, any other at run time. Returns the blocks, or a
-// negative cudaError_t.
-static int grid_blocks(int B, int m, int n, int dc, int dv, int shared_prior,
+// degrees at compile time, any other at run time, each with float32 or bf16
+// operands. Returns the blocks, or a negative cudaError_t.
+static int grid_blocks(int B, int m, int n, int dc, int dv, int shared_prior, int bf16,
                        int warps_per_block, int* warp_floats, size_t* smem,
                        k1_kernel_t* kernel_out)
 {
@@ -331,8 +354,11 @@ static int grid_blocks(int B, int m, int n, int dc, int dv, int shared_prior,
     *smem = ((size_t)warps_per_block * *warp_floats
              + (shared_prior ? ((n + 3) & ~3) + 2 * (size_t)m * dc : 0)) * sizeof(float);
     const int threads = 32 * warps_per_block;
-    const k1_kernel_t kernel = dc == 6 && dv == 3 ? &bp_flooding_warp_kernel<6, 3>
-                                                  : &bp_flooding_warp_kernel<0, 0>;
+    const bool bb = dc == 6 && dv == 3;
+    const k1_kernel_t kernel = bf16 ? (bb ? &bp_flooding_warp_kernel<6, 3, true>
+                                          : &bp_flooding_warp_kernel<0, 0, true>)
+                                    : (bb ? &bp_flooding_warp_kernel<6, 3, false>
+                                          : &bp_flooding_warp_kernel<0, 0, false>);
     *kernel_out = kernel;
     // opt in for every size: the default limit is 48 KB
     cudaError_t err = cudaFuncSetAttribute(
@@ -354,15 +380,15 @@ static int grid_blocks(int B, int m, int n, int dc, int dv, int shared_prior,
 }
 
 extern "C" int bp_flooding_grid(int B, int m, int n, int dc, int dv, int shared_prior,
-                                int warps_per_block)
+                                int bf16, int warps_per_block)
 {
     if (dc < 1 || dc > MAX_DC || warps_per_block < 1 || warps_per_block > 32 || B <= 0)
         return -(int)cudaErrorInvalidValue;
     int warp_floats;
     size_t smem;
     k1_kernel_t kernel;
-    return grid_blocks(B, m, n, dc, dv, shared_prior, warps_per_block, &warp_floats, &smem,
-                       &kernel);
+    return grid_blocks(B, m, n, dc, dv, shared_prior, bf16, warps_per_block, &warp_floats,
+                       &smem, &kernel);
 }
 
 extern "C" int bp_flooding_launch(
@@ -372,7 +398,7 @@ extern "C" int bp_flooding_launch(
     int B, int m, int n, int dc, int dv, int method,
     float alpha, int use_alpha, float offset, int use_offset,
     float damp_new, float damp_old, int use_damping,
-    float clip, int use_clip, int max_iter,
+    float clip, int use_clip, int bf16, int max_iter,
     int warps_per_block, void* stream_)
 {
     if (dc < 1 || dc > MAX_DC || warps_per_block < 1 || warps_per_block > 32)
@@ -382,7 +408,7 @@ extern "C" int bp_flooding_launch(
     int warp_floats;
     size_t smem;
     k1_kernel_t kernel;
-    const int blocks = grid_blocks(B, m, n, dc, dv, prior_stride == 0, warps_per_block,
+    const int blocks = grid_blocks(B, m, n, dc, dv, prior_stride == 0, bf16, warps_per_block,
                                    &warp_floats, &smem, &kernel);
     if (blocks < 0) return -blocks;
     cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int), stream);

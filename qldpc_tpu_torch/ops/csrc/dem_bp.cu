@@ -68,7 +68,30 @@
 //                reproduced converges at this iteration.
 // Both paths evaluate the same expressions on the same operands in the same
 // order, so on the summary path's configurations they agree bit for bit.
+//
+// bf16 streams (stream_dtype="bfloat16", qldpc_tpu/ops/dem_bp_pallas.py:34-41)
+// are a compile-time flag (BF) of every kernel that touches a message. The
+// messages round where the TPU kernel's streams round them, rd(x) being
+// round-to-nearest-even to bf16 and back: R = rd(rule(Q) * alpha), and Q =
+// clip(rd(posterior) - R) from the first iteration on (the posterior starts
+// at the prior, R at 0); the posteriors, decisions and convergence stay
+// float32, the posterior a left fold of the rounded R's plus the prior.
+//   * The message path keeps the TPU kernel's 16-bit R carry and no Q: its
+//     check pass gathers the posteriors (float32, n x B) and forms each Q
+//     itself, and its variable pass reads the 16-bit R's. Per real slot and
+//     iteration it moves 2 + 2 bytes of R in the check pass, 2 in the
+//     variable pass and the gathered posterior, against 20 bytes of Q and R
+//     in float32.
+//   * The summary path keeps its 32-bit words: a word holds Q or its
+//     sum-product encoding, and Q = rd(posterior) - rd(R) does not fit 16
+//     bits. Its variable pass rounds each R in registers and forms Q from
+//     the rounded posterior, so it moves the bytes of float32. (Storing rd(R)
+//     in 16 bits in place of the word, and forming Q again from rd(posterior)
+//     in both passes, would halve the word traffic for a second gather of
+//     the posteriors and, for sum-product, a second tanhf and logf a slot.)
+// Damping takes no bf16 streams, as in the JAX package.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <type_traits>
@@ -91,6 +114,25 @@ __device__ __forceinline__ float max_nan(float x, float lo)
     return isnan(x) ? x : fmaxf(x, lo);
 }
 
+// x rounded to nearest even in bf16, back in float32
+__device__ __forceinline__ float rd(float x)
+{
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The message path's stored R: float32, or the bf16 carry under BF.
+template <bool BF>
+using Msg = typename std::conditional<BF, __nv_bfloat16, float>::type;
+
+__device__ __forceinline__ float msg_f32(float x) { return x; }
+__device__ __forceinline__ float msg_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <bool BF>
+__device__ __forceinline__ Msg<BF> msg_of(float x)
+{
+    if constexpr (BF) return __float2bfloat16_rn(x); else return x;
+}
+
 __global__ void dem_init_kernel(
     const float* __restrict__ prior, int ps_v, int ps_b,
     float* __restrict__ values, uint8_t* __restrict__ hard,
@@ -109,12 +151,17 @@ __global__ void dem_init_kernel(
     }
 }
 
+// Under BF there is no Q array: slot j's Q is clip(rd(posterior) - R_j),
+// from the posteriors and the R carry, and each R_j is read before it is
+// overwritten.
+template <bool BF>
 __global__ void dem_check_kernel(
-    const float* __restrict__ Q, float* __restrict__ R,
+    const float* __restrict__ Q, Msg<BF>* __restrict__ R,
+    const float* __restrict__ values, const int* __restrict__ var_of_slot,
     const uint8_t* __restrict__ syn_t, const int* __restrict__ check_deg,
     const uint8_t* __restrict__ conv, const int* __restrict__ active, int it,
     int m, int dc, int B, int method,
-    float alpha, int use_alpha, float offset, int use_offset)
+    float alpha, int use_alpha, float offset, int use_offset, float clip, int use_clip)
 {
     if (it > 0 && active[it - 1] == 0) return;
     const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
@@ -122,10 +169,19 @@ __global__ void dem_check_kernel(
     const int c = (int)(i / B), b = (int)(i - (size_t)c * B);
     if (conv[b]) return;
     const int d = check_deg[c];
-    const float* q = Q + (size_t)c * dc * B + b;  // slot j at q[j * B]
-    float* r = R + (size_t)c * dc * B + b;
     const float ss = syn_t[i] ? -1.0f : 1.0f;
     const size_t sB = (size_t)B;
+    Msg<BF>* r = R + (size_t)c * dc * B + b;  // slot j at r[j * B]
+    auto q_at = [&](int j) -> float {
+        if constexpr (BF) {
+            const int v = var_of_slot[(size_t)c * dc + j];
+            const float x = rd(values[(size_t)v * B + b]) - msg_f32(r[j * sB]);
+            return use_clip ? clamp_nan(x, -clip, clip) : x;
+        } else {
+            return Q[(size_t)c * dc * B + b + j * sB];
+        }
+    };
+    auto put = [&](int j, float x) { r[j * sB] = msg_of<BF>(x); };
 
     if (method == 0 && dc > LARGE_DC) {
         // log-domain total-minus-one magnitudes, total-parity signs; the
@@ -133,25 +189,25 @@ __global__ void dem_check_kernel(
         int neg = 0;
         float total = 0.0f;
         for (int j = 0; j < d; ++j) {
-            const float t = tanhf(q[j * sB] * 0.5f);
+            const float t = tanhf(q_at(j) * 0.5f);
             neg += t < 0.0f;
             total = total + logf(max_nan(fabsf(t), 1e-15f));
         }
         const float tsign = (neg & 1) ? -1.0f : 1.0f;
         for (int j = 0; j < d; ++j) {
-            const float t = tanhf(q[j * sB] * 0.5f);
+            const float t = tanhf(q_at(j) * 0.5f);
             const float lt = logf(max_nan(fabsf(t), 1e-15f));
             const float s = t >= 0.0f ? 1.0f : -1.0f;
             const float others = expf(total - lt) * tsign * s;
             const float x = clamp_nan(others * ss, -TANH_CLIP, TANH_CLIP);
             float rr = 2.0f * atanhf(x);
             if (use_alpha) rr = rr * alpha;
-            r[j * sB] = rr;
+            put(j, rr);
         }
     } else if (method == 0) {
         // exclusive prefix x exclusive suffix, folded sequentially
         float t[LARGE_DC], suf[LARGE_DC];
-        for (int j = 0; j < d; ++j) t[j] = tanhf(q[j * sB] * 0.5f);
+        for (int j = 0; j < d; ++j) t[j] = tanhf(q_at(j) * 0.5f);
         if (d > 0) suf[d - 1] = t[d - 1];
         for (int j = d - 2; j >= 0; --j) suf[j] = suf[j + 1] * t[j];
         float left = 1.0f;
@@ -161,7 +217,7 @@ __global__ void dem_check_kernel(
             x = clamp_nan(x, -TANH_CLIP, TANH_CLIP);
             float rr = 2.0f * atanhf(x);
             if (use_alpha) rr = rr * alpha;
-            r[j * sB] = rr;
+            put(j, rr);
             left = left * t[j];
         }
     } else {
@@ -172,7 +228,7 @@ __global__ void dem_check_kernel(
         bool has_nan = false;
         float min1 = __int_as_float(0x7f800000);  // +inf, the phantom |Q|
         for (int j = 0; j < d; ++j) {
-            const float qj = q[j * sB];
+            const float qj = q_at(j);
             neg += qj < 0.0f;
             const float a = fabsf(qj);
             has_nan |= isnan(a);
@@ -181,22 +237,23 @@ __global__ void dem_check_kernel(
         if (has_nan) min1 = __int_as_float(0x7fffffff);
         float min2 = __int_as_float(0x7f800000);
         for (int j = 0; j < d; ++j)
-            if (j != amin) min2 = fminf(min2, fabsf(q[j * sB]));
+            if (j != amin) min2 = fminf(min2, fabsf(q_at(j)));
         for (int j = 0; j < d; ++j) {
-            const float qj = q[j * sB];
+            const float qj = q_at(j);
             const int own = qj < 0.0f;
             const float sign = ((neg - own) & 1) ? -1.0f : 1.0f;
             float mag = fabsf(qj) == min1 ? min2 : min1;
             if (use_offset) mag = max_nan(mag - offset, 0.0f);
             float rr = (ss * sign) * mag;
             if (use_alpha) rr = rr * alpha;
-            r[j * sB] = rr;
+            put(j, rr);
         }
     }
 }
 
+template <bool BF>
 __global__ void dem_var_kernel(
-    float* __restrict__ Q, const float* __restrict__ R,
+    float* __restrict__ Q, const Msg<BF>* __restrict__ R,
     const float* __restrict__ prior, int ps_v, int ps_b,
     const int* __restrict__ var_slots, float* __restrict__ values,
     uint8_t* __restrict__ hard, const uint8_t* __restrict__ conv,
@@ -210,18 +267,20 @@ __global__ void dem_var_kernel(
     if (conv[b]) return;
     const int* vs = var_slots + (size_t)v * dv;
     // pads sit at the end of a variable's row; adding their 0.0 is exact
-    float acc = vs[0] < S ? R[(size_t)vs[0] * B + b] : 0.0f;
+    float acc = vs[0] < S ? msg_f32(R[(size_t)vs[0] * B + b]) : 0.0f;
     for (int k = 1; k < dv && vs[k] < S; ++k)
-        acc = acc + R[(size_t)vs[k] * B + b];
+        acc = acc + msg_f32(R[(size_t)vs[k] * B + b]);
     const float val = acc + prior[(size_t)v * ps_v + (size_t)b * ps_b];
     values[i] = val;
     hard[i] = val < 0.0f;
-    for (int k = 0; k < dv && vs[k] < S; ++k) {
-        const size_t e = (size_t)vs[k] * B + b;
-        float qn = val - R[e];
-        if (use_damping) qn = damp_new * qn + damp_old * Q[e];
-        if (use_clip) qn = clamp_nan(qn, -clip, clip);
-        Q[e] = qn;
+    if constexpr (!BF) {  // under BF the check pass forms Q from the posteriors
+        for (int k = 0; k < dv && vs[k] < S; ++k) {
+            const size_t e = (size_t)vs[k] * B + b;
+            float qn = val - R[e];
+            if (use_damping) qn = damp_new * qn + damp_old * Q[e];
+            if (use_clip) qn = clamp_nan(qn, -clip, clip);
+            Q[e] = qn;
+        }
     }
 }
 
@@ -362,18 +421,23 @@ __device__ __forceinline__ float ms_message(float q, float min1, float smin2,
     return rr;
 }
 
-// The first Q of every real slot, the prior of its variable (no clip), or
-// its sum-product word where sp_words is set.
+// The first Q of every real slot, the prior of its variable (no clip; under
+// BF clip(rd(prior))), or its sum-product word where sp_words is set.
+template <bool BF>
 __global__ void dem_init_q_kernel(
     const float* __restrict__ prior, int ps_v, int ps_b,
     const int* __restrict__ var_of_slot, const int* __restrict__ check_deg,
-    float* __restrict__ Q, int m, int dc, int B, int sp_words)
+    float* __restrict__ Q, int m, int dc, int B, int sp_words, float clip, int use_clip)
 {
     const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
     if (i >= (size_t)m * dc * B) return;
     const int s = (int)(i / B), b = (int)(i - (size_t)s * B);
     if (s % dc >= check_deg[s / dc]) return;  // phantom slot
-    const float q = prior[(size_t)var_of_slot[s] * ps_v + (size_t)b * ps_b];
+    float q = prior[(size_t)var_of_slot[s] * ps_v + (size_t)b * ps_b];
+    if constexpr (BF) {
+        q = rd(q);
+        if (use_clip) q = clamp_nan(q, -clip, clip);
+    }
     Q[i] = sp_words ? sp_word(q) : q;
 }
 
@@ -450,8 +514,9 @@ __global__ void dem_summary_kernel(
 }
 
 // M is the method (0 sum-product, 1 min-sum), fixed at compile time so that
-// each kernel holds one rule's registers.
-template <int DV, int V, int M>
+// each kernel holds one rule's registers; BF rounds each R, and the
+// posterior that each next Q starts from, to bf16 (no damping).
+template <int DV, int V, int M, bool BF>
 __global__ void dem_word_var_kernel(
     float* __restrict__ W, const float* __restrict__ SA, const float* __restrict__ SB,
     const float* __restrict__ prior, int ps_v, int ps_b,
@@ -492,6 +557,7 @@ __global__ void dem_word_var_kernel(
             r[k][u] = M == 0
                 ? sp_message(x[u], a[u], s[u], alpha, use_alpha)
                 : ms_message(x[u], a[u], s[u], alpha, use_alpha, offset, use_offset);
+            if constexpr (BF) r[k][u] = rd(r[k][u]);
             acc[u] = k == 0 ? r[k][u] : acc[u] + r[k][u];
         }
         deg = k + 1;
@@ -518,7 +584,7 @@ __global__ void dem_word_var_kernel(
         if (use_damping) load<V>(w, old);
 #pragma unroll
         for (int u = 0; u < V; ++u) {
-            float qn = val[u] - r[k][u];
+            float qn = (BF ? rd(val[u]) : val[u]) - r[k][u];
             if (use_damping) qn = damp_new * qn + damp_old * old[u];
             if (use_clip) qn = clamp_nan(qn, -clip, clip);
             nw[u] = M == 0 ? sp_word(qn) : qn;
@@ -558,7 +624,7 @@ __global__ void dem_syndrome_kernel(
 // thread, the variable kernel VV (measured on the H100: four samples a
 // thread stream the summary pass at full rate, while the variable kernel,
 // which holds DV x VV messages in registers, runs fastest with two).
-template <int DV, int VC, int VV, int M>
+template <int DV, int VC, int VV, int M, bool BF>
 static int run_words(
     cudaStream_t stream, int threads, const uint8_t* syn_t, const float* P, int ps_v,
     int ps_b, const int* vos, const int* deg, const int* vslots, float* values,
@@ -574,14 +640,14 @@ static int run_words(
         P, ps_v, ps_b, values, Hd, cv, iters, mm, n, B, max_iter);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    dem_init_q_kernel<<<grid_for((size_t)S * B, threads), threads, 0, stream>>>(
-        P, ps_v, ps_b, vos, deg, W, m, dc, B, M == 0);
+    dem_init_q_kernel<BF><<<grid_for((size_t)S * B, threads), threads, 0, stream>>>(
+        P, ps_v, ps_b, vos, deg, W, m, dc, B, M == 0, clip, use_clip);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     for (int it = 0; it < max_iter; ++it) {
         dem_summary_kernel<VC><<<grid_for(m * BC, threads), threads, 0, stream>>>(
             W, SA, SB, syn_t, deg, cv, act, it, m, dc, B, M);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        dem_word_var_kernel<DV, VV, M><<<grid_for(n * BW, threads), threads, 0, stream>>>(
+        dem_word_var_kernel<DV, VV, M, BF><<<grid_for(n * BW, threads), threads, 0, stream>>>(
             W, SA, SB, P, ps_v, ps_b, vslots, values, Hd, cv, act, it, n, dv, magic, S, B,
             alpha, use_alpha, offset, use_offset, damp_new, damp_old, use_damping,
             clip, use_clip);
@@ -596,7 +662,7 @@ static int run_words(
     return (int)cudaSuccess;
 }
 
-template <int M>
+template <int M, bool BF>
 static int run_words_for(int B, int dv, cudaStream_t stream, int threads,
                          const uint8_t* syn_t, const float* P, int ps_v, int ps_b,
                          const int* vos, const int* deg, const int* vslots, float* values,
@@ -607,7 +673,7 @@ static int run_words_for(int B, int dv, cudaStream_t stream, int threads,
                          int use_clip, int max_iter)
 {
 #define RUN(DVT, VCT, VVT)                                                               \
-    return run_words<DVT, VCT, VVT, M>(                                                 \
+    return run_words<DVT, VCT, VVT, M, BF>(                                               \
         stream, threads, syn_t, P, ps_v, ps_b, vos, deg, vslots, values, Hd, W, SA, SB, \
         cv, iters, mm, act, B, m, n, dc, dv, alpha, use_alpha, offset, use_offset,      \
         damp_new, damp_old, use_damping, clip, use_clip, max_iter)
@@ -620,7 +686,7 @@ static int run_words_for(int B, int dv, cudaStream_t stream, int threads,
 
 // The summary path. ``summary`` holds 2 * m * B floats (the two planes).
 // Refuses dv > MAX_DV, dc <= 16 and sum-product with damping (the message
-// path's cases).
+// path's cases), and bf16 with damping.
 extern "C" int dem_bp_words_launch(
     const void* syn_t, const void* prior, int ps_v, int ps_b,
     const void* var_of_slot, const void* check_deg, const void* var_slots,
@@ -629,14 +695,15 @@ extern "C" int dem_bp_words_launch(
     int B, int m, int n, int dc, int dv, int method,
     float alpha, int use_alpha, float offset, int use_offset,
     float damp_new, float damp_old, int use_damping,
-    float clip, int use_clip, int max_iter, int threads, void* stream_)
+    float clip, int use_clip, int bf16, int max_iter, int threads, void* stream_)
 {
     if (threads < 32 || threads > 1024 || dv < 1 || dv > MAX_DV || dc <= LARGE_DC
-        || (method == 0 && use_damping))
+        || (method == 0 && use_damping) || (bf16 && use_damping))
         return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaSuccess;
     float* SA = (float*)summary;
-    auto run = method == 0 ? &run_words_for<0> : &run_words_for<1>;
+    auto run = method == 0 ? (bf16 ? &run_words_for<0, true> : &run_words_for<0, false>)
+                           : (bf16 ? &run_words_for<1, true> : &run_words_for<1, false>);
     return run(B, dv, (cudaStream_t)stream_, threads, (const uint8_t*)syn_t,
                (const float*)prior, ps_v, ps_b, (const int*)var_of_slot,
                (const int*)check_deg, (const int*)var_slots, (float*)values,
@@ -646,6 +713,50 @@ extern "C" int dem_bp_words_launch(
                max_iter);
 }
 
+template <bool BF>
+static int run_messages(
+    cudaStream_t stream, int threads, const uint8_t* syn_t, const float* P, int ps_v,
+    int ps_b, const int* vos, const int* deg, const int* vslots, float* V, uint8_t* Hd,
+    float* fQ, Msg<BF>* R, uint8_t* cv, int* iters, uint8_t* mm, int* act, int B, int m,
+    int n, int dc, int dv, int method, float alpha, int use_alpha, float offset,
+    int use_offset, float damp_new, float damp_old, int use_damping, float clip,
+    int use_clip, int max_iter)
+{
+    const int S = m * dc;
+    dem_init_kernel<<<grid_for((size_t)n * B, threads), threads, 0, stream>>>(
+        P, ps_v, ps_b, V, Hd, cv, iters, mm, n, B, max_iter);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (BF) {  // R starts at 0 (bf16 zero is all bits clear)
+        err = cudaMemsetAsync(R, 0, (size_t)S * B * sizeof(Msg<BF>), stream);
+    } else {
+        dem_init_q_kernel<false><<<grid_for((size_t)S * B, threads), threads, 0, stream>>>(
+            P, ps_v, ps_b, vos, deg, fQ, m, dc, B, 0, clip, use_clip);
+        err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return (int)err;
+
+    for (int it = 0; it < max_iter; ++it) {
+        dem_check_kernel<BF><<<grid_for((size_t)m * B, threads), threads, 0, stream>>>(
+            fQ, R, V, vos, syn_t, deg, cv, act, it,
+            m, dc, B, method, alpha, use_alpha, offset, use_offset, clip, use_clip);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        dem_var_kernel<BF><<<grid_for((size_t)n * B, threads), threads, 0, stream>>>(
+            fQ, R, P, ps_v, ps_b, vslots, V, Hd, cv, act, it,
+            n, dv, S, B, damp_new, damp_old, use_damping, clip, use_clip);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        dem_syndrome_kernel<1><<<grid_for((size_t)m * B, threads), threads, 0, stream>>>(
+            Hd, syn_t, vos, deg, cv, mm, act, it, m, dc, B);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        dem_freeze_kernel<<<grid_for((size_t)B, threads), threads, 0, stream>>>(
+            cv, iters, mm, act, it, B);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
+}
+
+// The message path. ``Q`` and ``R`` are (S, B) float32; under bf16 ``R`` is
+// (S, B) bf16 and ``Q`` is not read. Refuses bf16 with damping.
 extern "C" int dem_bp_launch(
     const void* syn_t, const void* prior, int ps_v, int ps_b,
     const void* var_of_slot, const void* check_deg, const void* var_slots,
@@ -654,46 +765,20 @@ extern "C" int dem_bp_launch(
     int B, int m, int n, int dc, int dv, int method,
     float alpha, int use_alpha, float offset, int use_offset,
     float damp_new, float damp_old, int use_damping,
-    float clip, int use_clip, int max_iter, int threads, void* stream_)
+    float clip, int use_clip, int bf16, int max_iter, int threads, void* stream_)
 {
-    if (threads < 32 || threads > 1024)
+    if (threads < 32 || threads > 1024 || (bf16 && use_damping))
         return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaSuccess;
-    cudaStream_t stream = (cudaStream_t)stream_;
-    const int S = m * dc;
-    const float* P = (const float*)prior;
-    float* fQ = (float*)Q;
-    float* fR = (float*)R;
-    float* V = (float*)values;
-    uint8_t* Hd = (uint8_t*)hard;
-    uint8_t* cv = (uint8_t*)conv;
-    uint8_t* mm = (uint8_t*)mismatch;
-    int* act = (int*)active;
-
-    dem_init_kernel<<<grid_for((size_t)n * B, threads), threads, 0, stream>>>(
-        P, ps_v, ps_b, V, Hd, cv, (int*)iters, mm, n, B, max_iter);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    dem_init_q_kernel<<<grid_for((size_t)S * B, threads), threads, 0, stream>>>(
-        P, ps_v, ps_b, (const int*)var_of_slot, (const int*)check_deg, fQ, m, dc, B, 0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    for (int it = 0; it < max_iter; ++it) {
-        dem_check_kernel<<<grid_for((size_t)m * B, threads), threads, 0, stream>>>(
-            fQ, fR, (const uint8_t*)syn_t, (const int*)check_deg, cv, act, it,
-            m, dc, B, method, alpha, use_alpha, offset, use_offset);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        dem_var_kernel<<<grid_for((size_t)n * B, threads), threads, 0, stream>>>(
-            fQ, fR, P, ps_v, ps_b, (const int*)var_slots, V, Hd, cv, act, it,
-            n, dv, S, B, damp_new, damp_old, use_damping, clip, use_clip);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        dem_syndrome_kernel<1><<<grid_for((size_t)m * B, threads), threads, 0, stream>>>(
-            Hd, (const uint8_t*)syn_t, (const int*)var_of_slot,
-            (const int*)check_deg, cv, mm, act, it, m, dc, B);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        dem_freeze_kernel<<<grid_for((size_t)B, threads), threads, 0, stream>>>(
-            cv, (int*)iters, mm, act, it, B);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    return (int)cudaSuccess;
+#define RUN(BFT)                                                                          \
+    return run_messages<BFT>(                                                            \
+        (cudaStream_t)stream_, threads, (const uint8_t*)syn_t, (const float*)prior, ps_v, \
+        ps_b, (const int*)var_of_slot, (const int*)check_deg, (const int*)var_slots,      \
+        (float*)values, (uint8_t*)hard, (float*)Q, (Msg<BFT>*)R, (uint8_t*)conv,          \
+        (int*)iters, (uint8_t*)mismatch, (int*)active, B, m, n, dc, dv, method, alpha,    \
+        use_alpha, offset, use_offset, damp_new, damp_old, use_damping, clip, use_clip,   \
+        max_iter)
+    if (bf16) RUN(true);
+    RUN(false);
+#undef RUN
 }

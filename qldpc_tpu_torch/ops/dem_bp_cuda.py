@@ -27,6 +27,17 @@ padded check-slot layout) written in torch:
   * a sample freezes at the first iteration whose hard decision reproduces
     its syndrome, with that iteration's index.
 
+``cfg.stream_dtype="bfloat16"`` rounds the messages where the TPU kernel's
+bf16 streams round them (qldpc_tpu/ops/dem_bp_pallas.py:95, :140, :323),
+``rd(x)`` being round-to-nearest-even to bfloat16 and back to float32:
+every iteration's Q is ``clip(rd(values[v]) - R_prev)`` (R starts at 0, so
+the first is ``clip(rd(prior))``: the clip applies from the first iteration
+on, as in that kernel), and each R is ``rd(rule(Q) * alpha)``; the
+posteriors, decisions, convergence and iterations stay float32, the
+posterior a left fold of the rounded R's plus the prior. The TPU kernel
+pins phantom slots to 1e9, which rounds in bf16, where the port's phantoms
+are the rules' neutral elements: on a check of degree 1 the two differ.
+
 ``dem_bp`` is the entry point: plain torch for CPU tensors, K3 for CUDA
 tensors, never a fallback.
 """
@@ -42,7 +53,7 @@ import torch
 
 from qldpc_tpu_torch.ops.tanner import TannerGraph
 from qldpc_tpu_torch._build import KernelLibrary
-from qldpc_tpu_torch.ops.bp_cuda import TANH_CLIP, _leave_one_out_product
+from qldpc_tpu_torch.ops.bp_cuda import TANH_CLIP, _leave_one_out_product, round_bf16
 
 if TYPE_CHECKING:
     from qldpc_tpu_torch.decoders.bp import BPConfig
@@ -69,7 +80,7 @@ _LAUNCH_ARGS = [
     _vp, _vp, _i, _i, _vp, _vp, _vp,
     _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
     _i, _i, _i, _i, _i, _i,
-    _f, _i, _f, _i, _f, _f, _i, _f, _i, _i,
+    _f, _i, _f, _i, _f, _f, _i, _f, _i, _i, _i,
     _i, _vp,
 ]
 _LIB = KernelLibrary(
@@ -186,6 +197,15 @@ def _check_messages(Q, ssign, tables: DEMTables, cfg: BPConfig, alpha: float):
     return R.reshape(B, m * dc)
 
 
+def _stream_bf16(cfg: BPConfig) -> bool:
+    """Whether ``cfg`` asks for bf16 streams; refuses them with damping,
+    which the TPU kernel does not take."""
+    bf16 = cfg.stream_dtype == "bfloat16"
+    if bf16 and cfg.damping != 1.0:
+        raise ValueError("stream_dtype=bfloat16 takes no damping")
+    return bf16
+
+
 def dem_bp_plain(
     syndromes: torch.Tensor,
     priors: torch.Tensor,
@@ -214,7 +234,11 @@ def dem_bp_plain(
     syn = syndromes.to(torch.int32)
     priors = priors.expand(B, n)
     ssign = (1 - 2 * syn).to(dtype)
-    Q = priors[:, vos]
+    bf16 = _stream_bf16(cfg)
+    if bf16:  # the rounded R carry; Q follows from it and the posteriors
+        R = torch.zeros((B, m * dc), dtype=dtype, device=dev)
+    else:
+        Q = priors[:, vos]
     values = priors.clone()
     hard = torch.zeros((B, n), dtype=torch.int8, device=dev)
     conv = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -225,20 +249,31 @@ def dem_bp_plain(
         act = torch.nonzero(~conv).flatten()
         if act.numel() == 0:
             break
-        Qa, pa = Q[act], priors[act]
-        R = _check_messages(Qa, ssign[act], tables, cfg, alpha)
+        pa = priors[act]
+        if bf16:
+            Qa = round_bf16(values[act])[:, vos] - R[act]
+            if cfg.clip_llr is not None:
+                Qa = torch.clamp(Qa, -cfg.clip_llr, cfg.clip_llr)
+        else:
+            Qa = Q[act]
+        Ra = _check_messages(Qa, ssign[act], tables, cfg, alpha)
+        if bf16:
+            Ra = round_bf16(Ra)
         pad = torch.zeros((act.numel(), 1), dtype=dtype, device=dev)
-        rv = torch.cat([R, pad], dim=1)[:, var_slots]  # (A, n, dv)
+        rv = torch.cat([Ra, pad], dim=1)[:, var_slots]  # (A, n, dv)
         vals = _fold(rv)[..., 0] + pa
-        Qn = vals[:, vos] - R
-        if cfg.damping != 1.0:
-            Qn = cfg.damping * Qn + (1.0 - cfg.damping) * Qa
-        if cfg.clip_llr is not None:
-            Qn = torch.clamp(Qn, -cfg.clip_llr, cfg.clip_llr)
         h = (vals < 0).to(torch.int8)
         hs = torch.where(tables.slot_mask, h[:, vos].view(-1, m, dc), 0)
         ok = (hs.sum(dim=-1, dtype=torch.int32) % 2 == syn[act]).all(dim=-1)
-        Q[act] = Qn
+        if bf16:
+            R[act] = Ra
+        else:
+            Qn = vals[:, vos] - Ra
+            if cfg.damping != 1.0:
+                Qn = cfg.damping * Qn + (1.0 - cfg.damping) * Qa
+            if cfg.clip_llr is not None:
+                Qn = torch.clamp(Qn, -cfg.clip_llr, cfg.clip_llr)
+            Q[act] = Qn
         values[act] = vals
         hard[act] = h
         iters[act] = it
@@ -263,7 +298,8 @@ def dem_bp_cuda(
     *,
     _store_r: bool = False,
 ):
-    """Launch K3. Same contract as ``dem_bp_plain``; float32 only. A NaN
+    """Launch K3. Same contract as ``dem_bp_plain``; float32 priors only,
+    and ``cfg.stream_dtype="bfloat16"`` launches its bf16 instances. A NaN
     message (min-sum on a check of degree 1 sends an infinite magnitude, and
     the variable side's ``inf - inf`` gives NaN) propagates as through
     torch's ``min`` and ``clamp``. ``_store_r`` forces the message path
@@ -298,14 +334,23 @@ def dem_bp_cuda(
             raise ValueError("all BP operands must be on one device")
     if any(t.dtype != torch.int32 for t in index_tables):
         raise TypeError("DEM BP index tables must be int32")
+    bf16 = _stream_bf16(cfg)
     S = m * dc
     syn_t = syndromes.to(torch.uint8).T.contiguous()  # (m, B)
     values = torch.empty((n, B), dtype=torch.float32, device=dev)
     hard = torch.empty((n, B), dtype=torch.uint8, device=dev)
-    # Q (or its slot words) in slot space; R there too on the message path,
-    # the two summary planes (m, B) on the summary path
-    Q = torch.empty((S, B), dtype=torch.float32, device=dev)
-    R_or_summary = torch.empty((2 * m, B) if words else (S, B), dtype=torch.float32, device=dev)
+    # the summary path: the slot words and the two summary planes (m, B);
+    # the message path: Q and R in slot space, or under bf16 streams the
+    # 16-bit R alone
+    if words:
+        Q = torch.empty((S, B), dtype=torch.float32, device=dev)
+        R_or_summary = torch.empty((2 * m, B), dtype=torch.float32, device=dev)
+    elif bf16:
+        R_or_summary = torch.empty((S, B), dtype=torch.bfloat16, device=dev)
+        Q = R_or_summary  # not read
+    else:
+        Q = torch.empty((S, B), dtype=torch.float32, device=dev)
+        R_or_summary = torch.empty((S, B), dtype=torch.float32, device=dev)
     conv = torch.empty(B, dtype=torch.uint8, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     mismatch = torch.empty(B, dtype=torch.uint8, device=dev)
@@ -322,16 +367,19 @@ def dem_bp_cuda(
         alpha32, int(alpha32 != 1.0),
         float(cfg.offset), int(bool(cfg.offset)),
         float(cfg.damping), float(1.0 - cfg.damping), int(cfg.damping != 1.0),
-        float(cfg.clip_llr or 0.0), int(cfg.clip_llr is not None),
+        float(cfg.clip_llr or 0.0), int(cfg.clip_llr is not None), int(bf16),
         cfg.max_iter, _THREADS,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     dem_bp_cuda.launches += 1
+    if bf16:
+        dem_bp_cuda.bf16_launches += 1
     values = values.T.contiguous()
     return values, conv.bool(), iters, (values < 0).to(torch.int8)
 
 
 dem_bp_cuda.launches = 0
+dem_bp_cuda.bf16_launches = 0  # the launches of the bf16-stream instances
 
 
 def dem_bp(syndromes, priors, tables: DEMTables, cfg: BPConfig, alpha=None):

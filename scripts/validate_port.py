@@ -6,8 +6,9 @@ the references the repo holds.
 
 Runs every preset of the experiments layer through
 ``qldpc_tpu_torch.experiments.run_experiment`` at its codes, rates and trials
-(``complete-bposd`` with float32 streams: the port has no bf16 streams), and
-holds every cell the repo has a reference for within binomial bars (4 sigma
+(``complete-bposd`` as shipped, with bf16 streams, and again with float32
+streams), and holds every cell the repo has a reference for within binomial
+bars (4 sigma
 of the two-sample difference plus 2 / min(trials), the floor of
 scripts/validate_baseline.py's bars for cells with no event, plus the
 workload's relative slack ``rel`` of scripts/validate_baseline.py's
@@ -16,10 +17,21 @@ WORKLOADS where it has one):
   * ``study`` (BP(50) + OSD-0, code capacity): BASELINE.md section 1, the
     cells of grid indices 5-7 (scripts/validate_baseline.py:46-52, 1,000
     trials);
-  * ``complete-bposd``: the float32 tables of docs/circuit_ler.md:39-81 for
-    [[72]] to [[144]] (obs-err and OSD rate, 10,000 trials); [[288]] in a run
-    of its own at p = 0.0015 and 0.003, 10,000 trials, against the float32
-    pair 0.0001 / 0.0384 (docs/circuit_ler.md:34), obs-err only;
+  * ``complete-bposd`` as shipped (bf16 streams): p = 0.001 and 0.002 of
+    [[72]] to [[144]] against the bf16 cells of results/circuit_bf16_val and
+    results/circuit_bf16_val_r5 (docs/circuit_ler.md:25-34, obs-err and OSD
+    rate, 10,000 trials), its other rates recorded; [[288]] in a run of its
+    own at p = 0.0015 and 0.003, 10,000 trials, against the bf16 pair 0.0001
+    / 0.0381 (docs/circuit_ler.md:34), obs-err only;
+  * ``complete-bposd`` with ``bp_stream_dtype=float32``: the float32 tables
+    of docs/circuit_ler.md:39-81 for [[72]] to [[144]] (obs-err and OSD
+    rate, 10,000 trials); [[288]] as above against the float32 pair 0.0001 /
+    0.0384;
+  * ``study-mm-bf16``: ``study`` (BP(50) + OSD-0, code capacity) with bf16
+    operands in K1 (``bp_backend=pallas``, ``bp_mm_dtype=bfloat16``), 10,000
+    trials at grid indices 5-7, against the JAX package's TPU run with the
+    same mode (results/validation_r5_bf16mxu/validation.md, its "ours"
+    column, 10,000 trials);
   * ``phenomenological``: the preset (OSD-0) is recorded; a second run with
     BP alone (the CLI's ``--bp-only``) is held to BASELINE.md section 6
     (BP-only, 100 trials, scripts/validate_baseline.py PH_REF);
@@ -134,6 +146,29 @@ CIRCUIT_REF_TRIALS = 10_000
 # docs/circuit_ler.md:34, the float32 [[288]] pair (obs-err only)
 CIRCUIT_288_REF = {0.0015: 0.0001, 0.003: 0.0384}
 CIRCUIT_288_TRIALS = 10_000
+# the JAX package's bf16-stream cells, 10,000 trials: p -> (obs-err, OSD
+# rate) from results/circuit_bf16_val ([[72]], [[144]]) and
+# results/circuit_bf16_val_r5 ([[90]], [[108]]); [[288]]'s bf16 pair from
+# results/circuit_f32_val_288 (docs/circuit_ler.md:34, obs-err only)
+CIRCUIT_BF16_REF = {
+    C72: {0.001: (0.0102, 0.4318), 0.002: (0.0643, 0.7117)},
+    C90: {0.001: (0.004, 0.6942), 0.002: (0.0472, 0.9225)},
+    C108: {0.001: (0.0018, 0.7533), 0.002: (0.0263, 0.9529)},
+    C144: {0.001: (0.0014, 0.8994), 0.002: (0.022, 0.9945)},
+}
+CIRCUIT_288_BF16_REF = {0.0015: 0.0001, 0.003: 0.0381}
+
+# results/validation_r5_bf16mxu/validation.md: the JAX package's BP(50) +
+# OSD-0 code-capacity LER with bf16 MXU operands on the TPU ("ours"), 10,000
+# trials, at grid indices 5-7
+MM_BF16_REF = {
+    C72: {5: 0.0048, 6: 0.0311, 7: 0.1675},
+    C90: {5: 0.0006, 6: 0.0054, 7: 0.074},
+    C108: {5: 0.0004, 6: 0.0041, 7: 0.0536},
+    C144: {5: 0.0006, 6: 0.0048, 7: 0.0442},
+    C288: {5: 0.0006, 6: 0.0017, 7: 0.0209},
+}
+MM_BF16_TRIALS = 10_000
 
 # The JAX engine's space-time preset cells (T = distance, BP(100)
 # sum-product + OSD-0, batch 512, 1,000 trials, seed = rate index):
@@ -413,25 +448,43 @@ def space_time(c: Campaign) -> None:
 
 
 def complete_bposd(c: Campaign) -> None:
-    spec = get_preset("complete-bposd").replace(bp_stream_dtype="float32")
-    res = c.run(spec, "complete-bposd")
-    for code, cells in res.items():
-        for i, p in enumerate(spec.rates_for(code)):
-            ref = CIRCUIT_REF.get(code, {}).get(p)
-            parts = [cells[p]]
-            if ref is not None:
-                parts += c.top_up(spec, "complete-bposd", code, i, p, cells[p]["trials"], ref[0])
-            for k, metric in enumerate(("ler", "osd")):
-                c.gate("complete-bposd", code, p, parts, metric,
-                       None if ref is None else ref[k], CIRCUIT_REF_TRIALS)
-    if c.codes and C288 not in c.codes:
-        return
-    gate288 = spec.replace(name="complete-bposd-288", codes=[C288],
-                           error_rates=list(CIRCUIT_288_REF), trials=CIRCUIT_288_TRIALS)
-    for p, d in c.run(gate288, "complete-bposd-288")[C288].items():
-        c.gate("complete-bposd-288", C288, p, [d], "ler", CIRCUIT_288_REF[p],
-               CIRCUIT_288_TRIALS)
-        c.gate("complete-bposd-288", C288, p, [d], "osd", None, 0)
+    """The preset as shipped (bf16 streams), then with float32 streams, each
+    held to the JAX package's cells of its stream dtype."""
+    shipped = get_preset("complete-bposd")
+    for streams, refs, refs288 in (("bfloat16", CIRCUIT_BF16_REF, CIRCUIT_288_BF16_REF),
+                                   ("float32", CIRCUIT_REF, CIRCUIT_288_REF)):
+        label = "complete-bposd" + ("" if streams == "bfloat16" else "-f32")
+        spec = shipped.replace(name=label, bp_stream_dtype=streams)
+        res = c.run(spec, label)
+        for code, cells in res.items():
+            for i, p in enumerate(spec.rates_for(code)):
+                ref = refs.get(code, {}).get(p)
+                parts = [cells[p]]
+                if ref is not None:
+                    parts += c.top_up(spec, label, code, i, p, cells[p]["trials"], ref[0])
+                for k, metric in enumerate(("ler", "osd")):
+                    c.gate(label, code, p, parts, metric, None if ref is None else ref[k],
+                           CIRCUIT_REF_TRIALS)
+        if c.codes and C288 not in c.codes:
+            continue
+        gate288 = spec.replace(name=f"{label}-288", codes=[C288], error_rates=list(refs288),
+                               trials=CIRCUIT_288_TRIALS)
+        for p, d in c.run(gate288, f"{label}-288")[C288].items():
+            c.gate(f"{label}-288", C288, p, [d], "ler", refs288[p], CIRCUIT_288_TRIALS)
+            c.gate(f"{label}-288", C288, p, [d], "osd", None, 0)
+
+
+def study_mm_bf16(c: Campaign) -> None:
+    idx = (5, 6, 7)
+    spec = get_preset("study").replace(
+        name="study-mm-bf16", bp_backend="pallas", bp_mm_dtype="bfloat16",
+        trials=MM_BF16_TRIALS, error_rates=[float(LOGSPACE_GRID[i]) for i in idx],
+        per_code_rates=None)
+    for code, cells in c.run(spec, "study-mm-bf16").items():
+        for i in idx:
+            p = float(LOGSPACE_GRID[i])
+            c.gate("study-mm-bf16", code, p, [cells[p]], "ler", MM_BF16_REF[code][i],
+                   MM_BF16_TRIALS)
 
 
 def workload(c: Campaign, name: str, spec) -> None:
@@ -538,7 +591,8 @@ def rework_minsum(c: Campaign) -> None:
             c.gate("rework-minsum-small", code, p, [d], "ler", ler, RM_TRIALS)
 
 
-PRESETS = {"study": study, "paper": paper, "phenomenological": phenomenological,
+PRESETS = {"study": study, "study-mm-bf16": study_mm_bf16, "paper": paper,
+           "phenomenological": phenomenological,
            "space-time": space_time, "complete-bposd": complete_bposd,
            "paper-gpu": paper_gpu, "rework": rework, "different-orders": different_orders,
            "rework-minsum": rework_minsum, "cc-50k": cc_50k,

@@ -17,6 +17,18 @@ Tolerances and why:
     and from the Pallas kernel, for the same reason, at the 25 iterations
     tests/test_pallas.py runs. The two JAX paths differ from each other by
     as many lanes at 50 iterations.
+  * bf16 operands (``mm_dtype="bfloat16"``) against the Pallas kernel's, in
+    interpret mode, held to the JAX test's contract
+    (tests/test_pallas.py:159-182: every converged lane reproduces its
+    syndrome and, for sum-product, the test's method, the converged count is
+    within 8 lanes of the float32 kernel's; min-sum converges on far more
+    lanes in bf16 than in float32, in both packages) and in decision.
+    Min-sum is exact arithmetic after the same roundings: bit-identical
+    (a sum of three bf16 messages is exact in float32 unless their exponents
+    lie 16 apart, so the kernel's matmul order and the port's fold agree).
+    Sum-product adds the last-ulp differences of the float32 tests, each of
+    which can flip a message's rounding to bf16: at most 6 of 256 lanes
+    differ in decision (measured: 2).
 """
 
 import numpy as np
@@ -129,10 +141,16 @@ def test_config_conversion():
         max_iter=20, method="min-sum", alpha=0.7, offset=0.05, dtype="float64"
     )
     assert bp_config_from_reference({"max_iter": 7}) == BPConfig(max_iter=7)
-    with pytest.raises(ValueError, match="mm_dtype"):
-        bp_config_from_reference({"mm_dtype": "bfloat16"})
-    with pytest.raises(ValueError, match="stream_dtype"):
-        bp_config_from_reference({"stream_dtype": "bfloat16"})
+    # the bf16 modes carry over; beside a backend other than pallas they
+    # raise, as the JAX BPConfig does
+    assert bp_config_from_reference({"mm_dtype": "bfloat16"}) == BPConfig(mm_dtype="bfloat16")
+    got = bp_config_from_reference(JaxBPConfig(backend="pallas", mm_dtype="bfloat16"))
+    assert got == BPConfig(mm_dtype="bfloat16")
+    for name in ("mm_dtype", "stream_dtype"):
+        with pytest.raises(ValueError, match=name):
+            JaxBPConfig(backend="xla", **{name: "bfloat16"})
+        with pytest.raises(ValueError, match=name):
+            bp_config_from_reference({name: "bfloat16", "backend": "xla"})
     # the layered schedule and its layer count change the result: they carry over
     got = bp_config_from_reference(JaxBPConfig(schedule="layered", n_layers=3, backend="pallas"))
     assert got == BPConfig(schedule="layered", n_layers=3)
@@ -176,3 +194,101 @@ def test_k1_launch_warps_follow_the_shared_memory(code_name, shared_priors):
     assert launch_warps(1000, 2000, 20, False) == 1  # 177,000 bytes a sample
     with pytest.raises(ValueError, match="exceeds a block's shared memory"):
         launch_warps(2000, 4000, 20, shared_priors)
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_mm_bf16_matches_pallas(rng, method):
+    code = get_code("[[72, 12, 6]]")
+    H, syn, prior = _batch(rng, code, 0.05, 256)
+    prior = prior.astype(np.float32)
+    cfg = dict(max_iter=25, method=method)
+    got = _port(H, syn, prior, mm_dtype="bfloat16", **cfg)
+    f32 = _port(H, syn, prior, **cfg)
+    ref = JaxBPDecoder(H, JaxBPConfig(backend="pallas", batch_tile=128, mm_dtype="bfloat16",
+                                      **cfg))(syn, prior)
+    conv = got.converged.numpy()
+    resid = (got.hard.numpy().astype(np.int64) @ H.T) % 2
+    np.testing.assert_array_equal(resid[conv], syn[conv])
+    diff = _decision_mismatches((got.hard, got.converged, got.iterations),
+                                (ref.hard, ref.converged, ref.iterations))
+    print(f"{method} bf16 operands: converged {conv.sum()} (float32 "
+          f"{int(f32.converged.sum())}), {diff} of 256 lanes differ from pallas in decision")
+    if method == "min-sum":
+        np.testing.assert_array_equal(got.llrs.numpy(), np.asarray(ref.llrs))
+        assert diff == 0
+    else:
+        assert abs(int(conv.sum()) - int(f32.converged.sum())) <= 8
+        assert diff <= 6
+    # the rounding changes the result: bf16 is not float32
+    assert not torch.equal(got.llrs, f32.llrs)
+
+
+def test_mm_bf16_rounds_where_the_tpu_kernel_rounds(rng):
+    """One iteration with damping and clip against the rule applied by hand:
+    Q0 = rd(prior), posterior = fold(rd(R)) + prior, and the second
+    iteration's Q = clip(d (rd(posterior) - R) + (1 - d) rd(prior))."""
+    from qldpc_tpu_torch.ops.bp_cuda import _check_messages, bp_flooding_plain, round_bf16
+
+    code = get_code("[[72, 12, 6]]")
+    H, syn, _ = _batch(rng, code, 0.05, 16)
+    prior = torch.from_numpy(rng.uniform(1.0, 5.0, (16, code.n)).astype(np.float32))
+    cfg = BPConfig(max_iter=2, alpha=0.8, damping=0.7, clip_llr=3.0, mm_dtype="bfloat16")
+    t = BPDecoder(H, cfg).tables()
+    voe, ve = t.check_var.reshape(-1).long(), t.var_edge.long()
+    syn_t = torch.from_numpy(syn)
+    ssign = (1 - 2 * syn_t.to(torch.int32)).float()
+
+    def posterior(R):
+        rv = torch.cat([round_bf16(R), torch.zeros((16, 1))], dim=1)[:, ve]
+        return rv[..., 0] + rv[..., 1] + rv[..., 2] + prior
+
+    Q0 = round_bf16(prior)[:, voe]
+    R1 = _check_messages(Q0, ssign, t, cfg, 0.8)
+    v1 = posterior(R1)
+    Q1 = torch.clamp(0.7 * (round_bf16(v1)[:, voe] - R1) + (1.0 - 0.7) * Q0, -3.0, 3.0)
+    v2 = posterior(_check_messages(Q1, ssign, t, cfg, 0.8))
+    values, conv, iters, _ = bp_flooding_plain(syn_t, prior, t, cfg)
+    want = torch.where((conv & (iters == 0))[:, None], v1, v2)
+    torch.testing.assert_close(values, want, rtol=0, atol=0)
+
+
+_IRREGULAR = np.array([[1, 1, 0, 0], [0, 1, 1, 1], [1, 0, 1, 1]], np.uint8)
+
+
+@pytest.mark.parametrize("case", [
+    "stream-on-regular", "stream-layered-irregular", "stream-damped-irregular",
+    "mm-irregular", "mm-layered",
+])
+def test_bf16_mode_guards_match_jax(case):
+    """Each refusal of the bf16 modes is one the JAX decoder makes
+    (qldpc_tpu/decoders/bp.py:94-110 and :545-580); on an irregular graph
+    both refuse the layered schedule before its stream dtype."""
+    regular = get_code("[[72, 12, 6]]").Hx
+    H, kw, pattern = {
+        "stream-on-regular": (regular, dict(stream_dtype="bfloat16"), "stream_dtype"),
+        "stream-layered-irregular": (
+            _IRREGULAR, dict(stream_dtype="bfloat16", schedule="layered"), "check-regular"),
+        "stream-damped-irregular": (
+            _IRREGULAR, dict(stream_dtype="bfloat16", damping=0.7), "stream_dtype"),
+        "mm-irregular": (_IRREGULAR, dict(mm_dtype="bfloat16"), "mm_dtype"),
+        "mm-layered": (regular, dict(mm_dtype="bfloat16", schedule="layered"), "mm_dtype"),
+    }[case]
+    with pytest.raises(ValueError, match=pattern):
+        JaxBPDecoder(H, JaxBPConfig(max_iter=5, backend="pallas", **kw))
+    with pytest.raises(ValueError, match=pattern):
+        BPDecoder(H, BPConfig(max_iter=5, **kw))
+
+
+def test_bf16_modes_accepted_where_jax_accepts_and_refused_in_float64():
+    regular = get_code("[[72, 12, 6]]").Hx
+    for H, kw in ((regular, dict(mm_dtype="bfloat16", damping=0.7, clip_llr=20.0)),
+                  (_IRREGULAR, dict(stream_dtype="bfloat16", clip_llr=20.0))):
+        JaxBPDecoder(H, JaxBPConfig(max_iter=5, backend="pallas", **kw))
+        BPDecoder(H, BPConfig(max_iter=5, **kw))
+        # the one guard beyond the JAX package's: its kernels compute in
+        # float32 whatever dtype says, the port's float64 is the plain path
+        JaxBPDecoder(H, JaxBPConfig(max_iter=5, backend="pallas", dtype="float64", **kw))
+        with pytest.raises(ValueError, match="float32"):
+            BPConfig(max_iter=5, dtype="float64", **kw)
+    with pytest.raises(ValueError, match="unknown"):
+        BPConfig(stream_dtype="float16")

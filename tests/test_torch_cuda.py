@@ -24,6 +24,10 @@ experiments CLI on the card to the same CLI run on the CPU (min-sum:
 identical counters), a checkpointed run resumed on the card to an
 uninterrupted one, OSD-e on the card (rows and transform paths) to the CPU
 bit for bit, and the card's min-sum Alvarado alpha to the CPU's exactly.
+K1's bf16-operand instances (``mm_dtype="bfloat16"``) and K3's bf16-stream
+instances (``stream_dtype="bfloat16"``, summary and message paths) are held
+to their plain versions in bf16 by the same standards, and K3's two bf16
+paths to each other bit for bit.
 ``test_k6_geometry_follows_the_state_size`` needs no card.
 """
 
@@ -373,6 +377,127 @@ def test_k3_summary_path_propagates_nan_from_a_degree_one_check(cuda):
     torch.cuda.synchronize()
     assert bool(torch.isnan(ref[0]).any())
     _assert_same(got, ref)
+
+
+BF16_DEM_CASES = {name: dataclasses_replace(cfg, stream_dtype="bfloat16")
+                  for name, cfg in DEM_BP_CASES.items() if cfg.damping == 1.0}
+
+
+def _dem_graph(graph, B, seed):
+    if graph == "small-irregular":
+        return _small_irregular(B, seed)
+    dem, syn_np, prior_np = _dem_inputs(graph, B, seed)
+    return dem.H, syn_np, prior_np
+
+
+def _hold_k3(got, ref, method: str, B: int):
+    """K3's standard: min-sum bit for bit; sum-product at most 1 lane in 1024
+    differing in decision, posteriors of the rest within 1e-5."""
+    if method == "min-sum":
+        _assert_same(got, ref)
+        return
+    kv, kc, ki, kh = got
+    rv, rc, ri, rh = ref
+    differ = (kc != rc) | (ki != ri) | (kh != rh).any(1)
+    assert int(differ.sum()) <= max(1, B // 1024)
+    torch.testing.assert_close(kv[~differ], rv[~differ], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("graph", ["steane", "[[72, 12, 6]]", "small-irregular"])
+@pytest.mark.parametrize("case", list(BF16_DEM_CASES))
+def test_k3_bf16_streams_match_plain(cuda, graph, case):
+    """Both paths where the summary path applies (their bits equal), the
+    message path alone on the prefix x suffix rule."""
+    cfg = BF16_DEM_CASES[case]
+    B = 1024
+    H, syn_np, prior_np = _dem_graph(graph, B, seed=21)
+    dec = BPDecoder(H, cfg).to(cuda)
+    syn, prior = torch.from_numpy(syn_np).to(cuda), torch.from_numpy(prior_np).to(cuda)
+    launched = dem_bp_cuda.bf16_launches
+    got = dem_bp_cuda(syn, prior, dec.tables(), cfg)
+    assert dem_bp_cuda.bf16_launches == launched + 1
+    ref = dem_bp_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _hold_k3(got, ref, cfg.method, B)
+    if summary_path(dec.tables(), cfg):
+        _assert_same(got, dem_bp_cuda(syn, prior, dec.tables(), cfg, _store_r=True))
+    # bf16 streams are not float32 streams
+    f32 = dem_bp_cuda(syn, prior, dec.tables(), dataclasses_replace(cfg, stream_dtype="float32"))
+    assert not torch.equal(got[0], f32[0])
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+@pytest.mark.parametrize("B", [1022, 1024])  # one sample a thread, and four
+def test_k3_bf16_summary_path_per_sample_priors(cuda, method, B):
+    dem, syn_np, _ = _dem_inputs("steane", B, seed=22)
+    cfg = BPConfig(max_iter=30, method=method, alpha=0.7, clip_llr=7.0, stream_dtype="bfloat16")
+    dec = BPDecoder(dem.H, cfg).to(cuda)
+    rng = np.random.default_rng(23)
+    prior = torch.from_numpy(rng.uniform(1.0, 9.0, (B, dem.H.shape[1])).astype(np.float32)).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    got = dem_bp_cuda(syn, prior, dec.tables(), cfg, alpha=0.5)
+    _assert_same(got, dem_bp_cuda(syn, prior, dec.tables(), cfg, alpha=0.5, _store_r=True))
+    _hold_k3(got, dem_bp_plain(syn, prior, dec.tables(), cfg, alpha=0.5), method, B)
+
+
+def test_k3_bf16_propagates_nan_from_a_degree_one_check(cuda):
+    H, syn_np, prior_np = _small_irregular(512, seed=8)
+    H = np.vstack([H, np.eye(1, H.shape[1], k=int(np.flatnonzero(H.sum(0))[0]), dtype=np.uint8)])
+    syn_np = np.hstack([syn_np, np.ones((512, 1), np.uint8)])
+    cfg = BPConfig(max_iter=20, method="min-sum", offset=0.1, clip_llr=8.0,
+                   stream_dtype="bfloat16")
+    dec = BPDecoder(H, cfg).to(cuda)
+    syn, prior = torch.from_numpy(syn_np).to(cuda), torch.from_numpy(prior_np).to(cuda)
+    got = dem_bp_cuda(syn, prior, dec.tables(), cfg)
+    ref = dem_bp_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0]).any())
+    _assert_same(got, ref)
+
+
+def test_k3_bf16_streams_refuse_damping(cuda):
+    dem, syn_np, prior_np = _dem_inputs("steane", 32, seed=24)
+    tables = BPDecoder(dem.H).to(cuda).tables()
+    cfg = BPConfig(max_iter=5, damping=0.7, stream_dtype="bfloat16")
+    with pytest.raises(ValueError, match="damping"):
+        dem_bp_cuda(torch.from_numpy(syn_np).to(cuda), torch.from_numpy(prior_np).to(cuda),
+                    tables, cfg)
+
+
+BF16_BP_CASES = {name: dataclasses_replace(cfg, mm_dtype="bfloat16")
+                 for name, cfg in BP_CASES.items()}
+
+
+@pytest.mark.parametrize("code_name", CODES)
+@pytest.mark.parametrize("case", list(BF16_BP_CASES))
+@pytest.mark.parametrize("priors", ["shared", "per-sample"])
+def test_k1_bf16_operands_match_plain(cuda, code_name, case, priors):
+    """K1's bf16 instances (the BB codes' compile-time degrees on [[72]],
+    the run-time instance on Steane; the block's first-iteration table with
+    shared priors) against the plain version in bf16, K1's standard."""
+    cfg = BF16_BP_CASES[case]
+    B, p = 16384, 0.05
+    H, syn_np = _syndromes(code_name, p, B, seed=25)
+    dec = BPDecoder(H, cfg).to(cuda)
+    syn = torch.from_numpy(syn_np).to(cuda)
+    llr = math.log((1 - p) / p)
+    if priors == "shared":
+        prior = torch.full((H.shape[1],), llr, dtype=torch.float32, device=cuda)
+    else:
+        rng = np.random.default_rng(26)
+        prior = torch.from_numpy(
+            rng.uniform(0.5 * llr, 1.5 * llr, (B, H.shape[1])).astype(np.float32)).to(cuda)
+    launched = bp_flooding_cuda.bf16_launches
+    got = bp_flooding_cuda(syn, prior, dec.tables(), cfg)
+    assert bp_flooding_cuda.bf16_launches == launched + 1
+    ref = bp_flooding_plain(syn, prior, dec.tables(), cfg)
+    torch.cuda.synchronize()
+    _hold_bp(got, ref, cfg.method, B)
+    kc, kh = got[1], got[3]
+    s_hat = (kh.double() @ torch.from_numpy(H.astype(np.float64)).to(cuda).T) % 2
+    assert bool((s_hat[kc] == syn[kc].double()).all())
+    f32 = bp_flooding_cuda(syn, prior, dec.tables(), dataclasses_replace(cfg, mm_dtype="float32"))
+    assert not torch.equal(got[0], f32[0])
 
 
 @pytest.mark.parametrize("graph", ["steane", "[[72, 12, 6]]"])

@@ -28,6 +28,23 @@ Tolerances and why:
     its kernels never do, and min-sum's selections carry the different
     roundings on (measured up to 0.064 on a posterior of the Steane DEM).
     Those cases hold the decisions, on at least 98% of lanes.
+
+bf16 streams (``stream_dtype="bfloat16"``) against the Pallas kernel's bf16
+streams, in interpret mode: the same standards, by the same reasons (the
+roundings to bf16 are the same round-to-nearest-even in both packages, so
+min-sum stays exact arithmetic: bit-identical), except the sum-product
+posteriors of agreeing lanes: a last-ulp float32 difference in a message
+(XLA's transcendentals, its sum order) flips that message's rounding to
+bf16 where it lies near a tie, which moves it by a bf16 ulp, 2^-7 of its
+magnitude and at most 2^-4 (|R| <= 2 atanh(0.9999999) < 16.7). Those are
+held within rtol 2^-7 and atol 2^-4 (measured up to 0.039 on the Steane
+DEM, 3% of the entries beyond the float32 standard); beside them the JAX test's
+own contract (tests/test_dem_pallas.py:97-127): every converged lane
+reproduces its syndrome, and on lanes both converge the bf16 posteriors are
+within rtol 0.05 / atol 0.25 of the float32 ones. The comparisons hold on
+graphs without checks of degree 1, where the Pallas kernel's phantom slots
+(pinned to 1e9, rounded in bf16) and the port's (the rules' neutral
+elements) send different messages.
 """
 
 import numpy as np
@@ -41,7 +58,7 @@ from qldpc_tpu.noise.circuit import memory_experiment_dem
 from qldpc_tpu.ops.tanner import TannerGraph
 from qldpc_tpu_torch.convert import bp_config_from_reference
 from qldpc_tpu_torch.decoders import BPConfig, BPDecoder
-from qldpc_tpu_torch.ops.bp_cuda import TANH_CLIP
+from qldpc_tpu_torch.ops.bp_cuda import TANH_CLIP, round_bf16
 from qldpc_tpu_torch.ops.dem_bp_cuda import (
     _check_messages,
     _fold,
@@ -129,6 +146,8 @@ def _hold(got, ref, mode: str):
     assert agree.mean() >= AGREE, f"{int((~agree).sum())} lanes differ"
     if mode == "close":
         np.testing.assert_allclose(gv[agree], rv[agree], rtol=1e-4, atol=1e-3)
+    elif mode == "close-bf16":
+        np.testing.assert_allclose(gv[agree], rv[agree], rtol=2**-7, atol=2**-4)
 
 
 @pytest.mark.parametrize("kind", ["steane-dem", "random-irregular"])
@@ -202,8 +221,9 @@ def test_per_sample_priors_and_alpha_override(rng):
 def test_config_conversion_keeps_dem_fields():
     ref = JaxBPConfig(max_iter=50, backend="pallas", chunk_size=10)
     assert bp_config_from_reference(ref) == BPConfig(max_iter=50)
-    with pytest.raises(ValueError, match="float32"):
-        bp_config_from_reference(JaxBPConfig(backend="pallas", stream_dtype="bfloat16"))
+    # the bf16 streams carry over
+    got = bp_config_from_reference(JaxBPConfig(backend="pallas", stream_dtype="bfloat16"))
+    assert got == BPConfig(stream_dtype="bfloat16")
 
 
 def test_dem_bp_refuses_unknown_devices():
@@ -279,14 +299,23 @@ def _messages(W, summary, tables, cfg, alpha):
 
 
 def _summary_bp(syn, priors, tables, cfg):
-    """dem_bp_plain's loop on slot words and summaries (no stored R)."""
+    """dem_bp_plain's loop on slot words and summaries (no stored R). Under
+    bf16 streams each R rounds in registers, and a word holds
+    clip(rd(posterior) - R), as K3's summary path keeps it."""
     B = syn.shape[0]
     n, m, dc = tables.n, tables.m, tables.dc
     vos, var_slots = tables.var_of_slot.reshape(-1).long(), tables.var_slots.long()
     syn = syn.to(torch.int32)
     priors = priors.expand(B, n)
     ssign = (1 - 2 * syn).to(priors.dtype)
-    W = _encode(priors[:, vos], cfg.method)
+    bf16 = cfg.stream_dtype == "bfloat16"
+    if bf16:
+        Q0 = round_bf16(priors)[:, vos]
+        if cfg.clip_llr is not None:
+            Q0 = torch.clamp(Q0, -cfg.clip_llr, cfg.clip_llr)
+    else:
+        Q0 = priors[:, vos]
+    W = _encode(Q0, cfg.method)
     values, hard = priors.clone(), torch.zeros((B, n), dtype=torch.int8)
     conv = torch.zeros(B, dtype=torch.bool)
     iters = torch.full((B,), cfg.max_iter - 1, dtype=torch.int32)
@@ -296,9 +325,11 @@ def _summary_bp(syn, priors, tables, cfg):
             break
         Wa = W[act]
         R = _messages(Wa, _summaries(Wa, ssign[act], tables, cfg.method), tables, cfg, cfg.alpha)
+        if bf16:
+            R = round_bf16(R)
         rv = torch.cat([R, torch.zeros((act.numel(), 1))], dim=1)[:, var_slots]
         vals = _fold(rv)[..., 0] + priors[act]
-        Qn = vals[:, vos] - R
+        Qn = (round_bf16(vals) if bf16 else vals)[:, vos] - R
         if cfg.damping != 1.0:  # min-sum only here: its word is Q
             Qn = cfg.damping * Qn + (1.0 - cfg.damping) * Wa
         if cfg.clip_llr is not None:
@@ -401,3 +432,72 @@ def test_summary_path_rule():
     assert not summary_path(dem_tables, BPConfig(damping=0.7))  # needs the old Q
     assert not summary_path(small, BPConfig())  # dc <= 16: prefix x suffix
     assert not summary_path(small, BPConfig(method="min-sum"))
+
+
+# ---- bf16 streams ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["steane-dem", "random-irregular"])
+@pytest.mark.parametrize("case", list(CONFIGS))
+def test_bf16_streams_match_pallas(rng, kind, case):
+    cfg = dict(max_iter=30, stream_dtype="bfloat16", **CONFIGS[case])
+    H, syn, prior = _inputs(rng, kind, B=200)
+    assert H.sum(1).min() >= 2  # no check of degree 1 (module docstring)
+    ref = _jax(H, syn, prior, "pallas", **cfg)
+    got = _port(H, syn, prior, **cfg)
+    assert 0 < got[1].sum() < len(syn)
+    mode = _mode(cfg, "pallas")
+    _hold(got, ref, "close-bf16" if mode == "close" else mode)
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_bf16_streams_self_consistent(rng, method):
+    """tests/test_dem_pallas.py:97-127's contract, on the port."""
+    H, syn, prior = _inputs(rng, "steane-dem", B=96)
+    f32 = _port(H, syn, prior, max_iter=15, method=method)
+    bf16 = _port(H, syn, prior, max_iter=15, method=method, stream_dtype="bfloat16")
+    conv, hard = bf16[1], bf16[3]
+    assert conv.any()
+    resid = (hard.astype(np.int64) @ H.T) % 2
+    np.testing.assert_array_equal(resid[conv], syn[conv])
+    both = conv & f32[1]
+    np.testing.assert_allclose(bf16[0][both], f32[0][both], rtol=0.05, atol=0.25)
+
+
+def test_bf16_streams_round_where_the_tpu_kernel_rounds(rng):
+    """Every message the port keeps under bf16 streams is a bf16 number, and
+    one iteration's posterior is the fold of the rounded R's plus the prior:
+    BP(1) min-sum against the rule applied by hand."""
+    H, syn, prior = _inputs(rng, "steane-dem", B=32)
+    cfg = BPConfig(max_iter=1, method="min-sum", clip_llr=6.0, stream_dtype="bfloat16")
+    tables = BPDecoder(H, cfg).tables()
+    syn_t, prior_t = torch.from_numpy(syn), torch.from_numpy(prior)
+    values, *_ = dem_bp_plain(syn_t, prior_t, tables, cfg)
+    Q = torch.clamp(round_bf16(prior_t)[tables.var_of_slot.reshape(-1).long()], -6.0, 6.0)
+    R = round_bf16(_check_messages(Q.expand(32, -1), (1 - 2 * syn_t).float(), tables, cfg, 1.0))
+    rv = torch.cat([R, torch.zeros((32, 1))], dim=1)[:, tables.var_slots.long()]
+    torch.testing.assert_close(values, _fold(rv)[..., 0] + prior_t, rtol=0, atol=0)
+    assert not torch.equal(values, dem_bp_plain(syn_t, prior_t, tables,
+                                                BPConfig(max_iter=1, method="min-sum",
+                                                         clip_llr=6.0))[0])
+
+
+BF16_SUMMARY_CASES = {
+    "sum-product": dict(),
+    "sp-alpha-clip": dict(alpha=0.8, clip_llr=12.0),
+    "ms-alpha-offset-clip": dict(method="min-sum", alpha=0.75, offset=0.1, clip_llr=6.0),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_SUMMARY_CASES))
+def test_bf16_summary_path_decodes_bit_for_bit_like_plain(rng, case):
+    cfg = BPConfig(max_iter=30, stream_dtype="bfloat16", **BF16_SUMMARY_CASES[case])
+    H, syn, prior = _inputs(rng, "steane-dem", B=200)
+    tables = BPDecoder(H, cfg).tables()
+    assert summary_path(tables, cfg)
+    args = (torch.from_numpy(syn), torch.from_numpy(prior), tables, cfg)
+    ref = dem_bp_plain(*args)
+    got = _summary_bp(*args)
+    assert 0 < int(ref[1].sum()) < len(syn)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)

@@ -7,6 +7,10 @@ which is exact arithmetic, every counter and histogram must then agree. The
 JAX engine runs on a one-device mesh with its XLA BP path and its
 transform OSD; the port runs its plain torch paths on the CPU.
 
+With bf16 streams the JAX engine runs its Pallas DEM kernel (interpret
+mode here) and the port its plain torch path in bf16: min-sum stays exact
+arithmetic after the same roundings, so the counters are identical too.
+
 The parametric priors are float32 closed forms through exp and log, whose
 XLA CPU versions differ from torch's in the last bit at some rates (ROADMAP
 Queue 3); the tested rates are ones where the priors agree bit for bit,
@@ -126,10 +130,11 @@ def test_dem_engine_config_conversion():
     got = dem_engine_config_from_reference(ref)
     assert isinstance(got, DEMEngineConfig) and got.channel == "dem"
     assert got.batch_size == 1024 and got.bp.max_iter == 50 and got.osd.order == 0
-    with pytest.raises(ValueError, match="stream_dtype"):
-        dem_engine_config_from_reference(
-            JaxDEMEngineConfig(bp=BPConfig(backend="pallas", stream_dtype="bfloat16"))
-        )
+    # the bf16 streams carry over
+    got = dem_engine_config_from_reference(
+        JaxDEMEngineConfig(bp=BPConfig(backend="pallas", stream_dtype="bfloat16"))
+    )
+    assert got.bp.stream_dtype == "bfloat16" and got.bp.mm_dtype == "float32"
     # rescue_iters is ported now and carries over
     assert dem_engine_config_from_reference(JaxDEMEngineConfig(rescue_iters=10)).rescue_iters == 10
 
@@ -144,3 +149,19 @@ def test_rescue_iters_match_a_single_run_and_jax(steane_parametric):
     assert got["BPs_fault"] > 0
     assert _same(got, single.run(shots=512, seed=2, p=RATES[1]))
     assert _same(got, jax_eng.run(shots=512, seed=2, p=RATES[1]))
+
+
+@pytest.mark.parametrize("p", RATES)
+def test_bf16_stream_counters_match_jax(steane_parametric, p):
+    bf16 = dataclasses.replace(MS, backend="pallas", stream_dtype="bfloat16")
+    jax_eng, port = _engines(steane_parametric, bp=bf16)
+    assert port.config.bp.stream_dtype == "bfloat16"
+    ref = jax_eng.run(shots=512, seed=3, p=p)
+    got = port.run(shots=512, seed=3, p=p)
+    assert got["BPs_fault"] > 0 and got["residual_logicals"] > 0
+    assert _same(got, ref), [k for k in ref if not np.array_equal(got[k], ref[k])]
+    # the streams change the result: the float32 engine's counters differ
+    f32 = DEMEngine(port.dem, dataclasses.replace(
+        port.config, bp=dataclasses.replace(port.config.bp, stream_dtype="float32")),
+        device="cpu")
+    assert not _same(got, f32.run(shots=512, seed=3, p=p))

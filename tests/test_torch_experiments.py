@@ -9,7 +9,8 @@ last-ulp tanh/atanh (ROADMAP.md, Queue 3), so its rates are held within 4
 sigma of the two-sample binomial difference. The rates are ones where XLA's
 float32 log gives torch's priors (test_torch_engine.py,
 test_torch_dem_engine.py). The JAX ``complete`` presets run their Pallas DEM
-kernel in interpret mode here.
+kernel in interpret mode here, ``complete-bposd`` with its bf16 streams,
+which the port runs too (min-sum identical after the same roundings).
 """
 
 import dataclasses
@@ -113,14 +114,14 @@ def test_study_sum_product_within_bars(tmp_path):
 def test_circuit_level_presets_on_the_steane_dem(preset, tmp_path, capsys):
     args = ["run", preset, "--codes", "steane", "--trials", "256", "--batch-size", "128",
             "--error-rates", "0.005", "0.006", "--set", "bp_method=min-sum"]
-    # the JAX run is told float32 streams; the port runs them by itself
-    jax_out, out = _both(tmp_path, args, ["--set", "bp_stream_dtype=float32"])
+    # both CLIs run the preset as shipped: complete-bposd with bf16 streams
+    jax_out, out = _both(tmp_path, args)
     a, b = _load(jax_out, preset), _load(out, preset)
     _identical(a, b)
     assert b["steane"][0.006]["BPs_fault"] > 0
-    assert b["_meta"]["spec"]["bp_stream_dtype"] == "float32"
-    err = capsys.readouterr().err
-    assert ("not ported: running float32 streams" in err) == (preset == "complete-bposd")
+    streams = "bfloat16" if preset == "complete-bposd" else "float32"
+    assert b["_meta"]["spec"]["bp_stream_dtype"] == streams
+    assert "not ported" not in capsys.readouterr().err
 
 
 def test_space_time_on_72_identical(tmp_path):
@@ -216,23 +217,29 @@ def test_unported_presets_refuse_before_any_engine(preset, tmp_path):
 
 
 def test_mm_dtype_refuses_before_any_engine(tmp_path, monkeypatch):
+    """bp_mm_dtype with the layered schedule: the JAX BPConfig refuses it,
+    and so does the port, before any engine is built."""
     def no_engine(*a, **kw):
         raise AssertionError("an engine was built")
 
+    args = ["run", "study", "--set", "bp_backend=pallas", "--set", "bp_schedule=layered",
+            "--set", "bp_mm_dtype=bfloat16"]
+    with pytest.raises(ValueError, match="mm_dtype"):
+        jax_main([*args, "--out", str(tmp_path / "jax")])
     monkeypatch.setattr(runners, "build_engine", no_engine)
-    with pytest.raises(ValueError, match="bp_mm_dtype"):
-        main(["run", "study", "--device", "cpu", "--out", str(tmp_path),
-              "--set", "bp_mm_dtype=bfloat16"])
-    assert not list(tmp_path.iterdir())  # nothing was written
+    out = tmp_path / "port"
+    with pytest.raises(ValueError, match="mm_dtype"):
+        main([*args, "--device", "cpu", "--out", str(out)])
+    assert not out.exists()  # nothing was written
 
 
 @pytest.mark.parametrize("preset", sorted(JAX_PRESETS))
 def test_runner_configs_are_converts_mapping_of_the_jax_runners(preset):
     """The runner's BP and OSD configs are convert.py's mapping of the JAX
-    runner's, for every preset the port runs (streams set to float32 first,
-    as check_spec sets them)."""
+    runner's, for every preset as shipped (complete-bposd's bf16 streams
+    included)."""
     spec = runners.check_spec(get_preset(preset))
-    jax_spec = jax_preset(preset).replace(bp_stream_dtype="float32")
+    jax_spec = jax_preset(preset)
     assert runners._bp_config(spec) == bp_config_from_reference(
         jax_runners._bp_config(jax_spec))
     jax_osd = jax_runners._osd_config(jax_spec)
@@ -283,3 +290,34 @@ def test_trace_writes_a_chrome_trace(tmp_path):
                  "--no-checkpoint", "--quiet", "--trace", str(tmp_path / "t")]) == 0
     trace = json.loads((tmp_path / "t" / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+def test_checkpointed_grid_entries_keep_their_own_counters(tmp_path):
+    """Each max_iter_grid entry resumes its own checkpoint files: the
+    checkpointed sweep equals the same sweep without checkpoints (BP(30)
+    fails on none of the 256 Steane trials, BP(1) on some)."""
+    args = ["run", "bp-iteration", "--codes", "steane", "--trials", "256",
+            "--batch-size", "64", "--error-rates", "0.05", "--set", "max_iter_grid=[1, 30]",
+            "--device", "cpu", "--quiet"]
+    assert main([*args, "--out", str(tmp_path / "ckpt")]) == 0
+    assert main([*args, "--out", str(tmp_path / "plain"), "--no-checkpoint"]) == 0
+    got, ref = _load(tmp_path / "ckpt", "bp-iteration"), _load(tmp_path / "plain", "bp-iteration")
+    _identical(got, ref)
+    assert ref["steane"][(1, 0.05)]["BPs_fault"] > 0
+    assert got["steane"][(30, 0.05)]["BPs_fault"] == 0
+    ckpt = tmp_path / "ckpt" / "bp-iteration_ckpt"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["max_iter1", "max_iter30"]
+    # a second run resumes each entry's finished files to the same counters
+    assert main([*args, "--out", str(tmp_path / "ckpt")]) == 0
+    _identical(_load(tmp_path / "ckpt", "bp-iteration"), ref)
+
+
+def test_checkpoint_layout_without_grids(tmp_path):
+    """A spec without grids keeps its files in <name>_ckpt itself, where the
+    JAX runner writes them (tests/test_torch_checkpoint.py resumes them
+    across the packages)."""
+    args = ["run", "study", "--codes", "steane", "--trials", "64", "--batch-size", "64",
+            "--error-rates", "0.05", "--device", "cpu", "--quiet", "--out", str(tmp_path)]
+    assert main(args) == 0
+    files = list((tmp_path / "study_ckpt").iterdir())
+    assert len(files) == 1 and files[0].suffix == ".npz"

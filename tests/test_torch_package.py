@@ -190,5 +190,5 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr
     code, trials, loaded = proc.stdout.strip().splitlines()[-1].split(" ", 2)
     assert (code, trials, loaded) == ("0", "32", "[]")
-    assert "not ported: running float32 streams" in proc.stderr
+    assert "not ported" not in proc.stderr  # the preset's bf16 streams run as shipped
     assert (tmp_path / "complete-bposd_ckpt").is_dir()
