@@ -5,9 +5,10 @@
 Phases (any failure raises and the script exits non-zero):
   1. toolchain: torch, CUDA, the card, its power limit, nvcc, triton;
   2. build the kernels K1 (fused BP), K2 (GF(2) elimination), K3 (DEM BP),
-     K4 (transform GF(2) elimination), K5a-d (factored GF(2) elimination),
-     K6 (structured space-time BP) and K7 (layered BP) with nvcc from
-     qldpc_tpu_torch/ops/csrc/, one nvcc per source, all at once;
+     K4 and K4g (transform GF(2) elimination, T in shared or global
+     memory), K5a-d (factored GF(2) elimination), K6 (structured space-time
+     BP) and K7 (layered BP) with nvcc from qldpc_tpu_torch/ops/csrc/, one
+     nvcc per source, all at once;
   code capacity, [[144,12,12]]:
   3. K1 (one warp a sample, samples from a work counter; warps a block and
      grid logged) against its plain torch version;
@@ -49,7 +50,7 @@ Phases (any failure raises and the script exits non-zero):
       solutions against the plain transform elimination's on 32;
   13. the DEM engine's sweep at p = 0.001 and 0.002 (launches K3 and K5a-d,
       never K4), held against docs/circuit_ler.md, and its counters held
-      against the CPU DEM engine on 32 trials;
+      against the CPU DEM engine on 16 trials;
   14. steady-state trials/s of the DEM engine;
   14b. K3's bf16-stream instances (``stream_dtype="bfloat16"``) on the
       batch of phase 11, sum-product and min-sum, against the plain version
@@ -58,6 +59,21 @@ Phases (any failure raises and the script exits non-zero):
       timed in turns, their device ms per pass and bytes per iteration; the
       DEM engine's trials/s at p = 0.001 with float32 and with bf16 streams,
       in turns;
+  14c. OSD-e(7) past K4's block (the route "factored+transform") on 128
+      BP failures of phase 11's engine at p = 0.002, each with a detector
+      flipped that a dependency of H's rows involves (outside H's image):
+      K4g (T in global memory) against its plain version, T, b, rank and
+      piv bit for bit, every lane at rank(H), both timed; the OSD-e stage
+      through the decoder (K5a-d, K4g, the search), its ms, K4g's launches
+      (the kernels line's) and peak memory; no cost above the transform's
+      OSD-0; after those timings, the card's solutions against the CPU
+      decoder's on 32 of the lanes; K4g's bound from the work this input
+      needs (the plain run's row operations);
+  14d. the experiments CLI's ``complete-bposd`` on the [[144]] DEM, one
+      batch of 1,024 at p = 0.002, with ``--set osd_order=7`` and with 0 at
+      the same seed: equal counters (in-image syndromes: OSD-e is OSD-0
+      after the consistency test; K5a-d launch, K4g does not), the OSD
+      stage's ms under both;
   space-time, [[144,12,12]] at T = 12 (H_st 864 x 2592), the space-time
   preset's BP(100) + OSD-0 at batch 512:
   15. K6 (one sample over a cluster of blocks) against its plain torch
@@ -92,12 +108,18 @@ Phases (any failure raises and the script exits non-zero):
       [[72]] DEM engine interrupted after 2 batches and resumed, equal to an
       uninterrupted run and to the same rate run through the CLI;
   23. the [[288,12,18]] DEM (5,184 x 204,765): one batch of 1,024 at p =
-      0.003 through run_experiment (obs-err, OSD rate, peak memory, stage
-      times), K3 against its plain version on 256 samples of a batch
+      0.003 through run_experiment with OSD-e(7), whose in-image syndromes
+      take OSD-0 after the consistency test, and K4g where they pass the
+      factored column budget (obs-err, OSD rate, the samples past the
+      budget, peak memory, stage times), K3 against its plain version on 256 samples of a batch
       (sum-product and min-sum), K5a-d against their plain versions at
       blocks 0 and 1 of one
       OSD call, and K5's device ms over a whole OSD call (``at_288`` in K5's
       rows of the kernels line);
+  23b. OSD-e(7) past K4's block on 4 BP failures of phase 23's engine, as
+      in 14c with the engine's decoder and without the CPU decoder: K4g
+      against its plain version (the lanes walk up to 95,481 columns: the
+      plain version's loop takes about a minute) and the OSD-e stage;
   24. [[288,12,18]] space-time at T = 18 (H_st 2,592 x 7,776): the card
       engine's min-sum counters against the CPU engine's on 16 trials, K5a-d
       at blocks 0 and 1 on H_st, the OSD-0 solutions against the plain row
@@ -118,7 +140,7 @@ Phases (any failure raises and the script exits non-zero):
   27. OSD-e(7) on the transform path: the [[72]] DEM's BP failures at
       p = 0.002 with a detector flipped each: K4 (b-exit on) against its
       plain version on 128 inconsistent lanes, every inconsistent lane at
-      rank(H), the solutions against the CPU's on 32, costs at most OSD-0's;
+      rank(H), the solutions against the CPU's on 16, costs at most OSD-0's;
   28. estimate_alpha min-sum on [[144]] at p = 0.1 on the card, equal to the
       CPU's and to the JAX package's recorded value;
   several processes (``qldpc_tpu_torch.parallel``, gloo; a process a rank):
@@ -148,7 +170,11 @@ p = 0.050119, K2's (its ordered loader's, the path's) its packed-rows
 entry's and the packed-rows loader's launches and device ms on the OSD-e
 path (phase 26), K4's its record on the space-time failures and its
 launches on the OSD-e path (phase 27), and K5a-d's their device ms over one
-OSD call at the [[288]] DEM (phase 23). The rows ``bp_flooding_bf16`` and
+OSD call at the [[288]] DEM (phase 23). The row ``gf2_transform_elim_global``
+is K4g, which computes the JAX package's XLA transform elimination
+(qldpc_tpu/decoders/osd.py:492), not a Pallas kernel: its launches are the
+OSD-e stage's of phase 14c, its times phase 14c's and, under ``at_288``,
+phase 23b's. The rows ``bp_flooding_bf16`` and
 ``dem_bp_bf16`` are K1's and K3's bf16 instances: their launches are those of
 the CLI runs of phases 6b and 21, their times those of phases 6b and 14b
 (beside the float32 instance's device ms in turns, and for K3 its message
@@ -193,6 +219,9 @@ DEM144_REF = {0.001: (0.0009, 0.894, 46.5), 0.002: (0.0264, 0.993, 48.9)}
 DEM_REF_TRIALS = 10_000
 DEM_BATCH, DEM_TRIALS = 1024, 10_240  # per error rate
 K3_DECISION_TOL = 1  # lanes in 1024 allowed to differ in decision (K3)
+# trials on which the card's DEM engines are held to the CPU's, bit for bit
+# (cut from 256 and 32 to make room for OSD-e past K4's block)
+DEM_CPU_TRIALS, DEM144_CPU_TRIALS = 128, 16
 # BP(50)+OSD-0 LER of [[144,12,12]] at p = 0.05012 from the JAX package's
 # TPU run with bf16 matmul operands, 10,000 trials
 # (results/validation_r5_bf16mxu/validation.md)
@@ -236,7 +265,10 @@ JAX_LAYERED = {"trials": 65536, "ler": 0.0420684814453125, "osd": 0.047653198242
 # pattern search runs on almost every BP failure), BP(50) min-sum + OSD-e(7)
 PH_CODE, PH_P, PH_BATCH, PH_ORDER = "[[144, 12, 12]]", 0.03, 4096, 7
 OSDE_CPU_LANES = 512  # of the batch's failures, decoded again on the CPU
-OSDE_DEM_CPU_LANES = 32  # of the [[72]] DEM's flipped failures, on the CPU
+OSDE_DEM_CPU_LANES = 16  # of the [[72]] DEM's flipped failures, on the CPU
+# OSD-e past K4's block: BP failures whose syndromes leave H's image, K4g
+# held on them (all of them at [[144]], 4 at [[288]]), 32 decoded on the CPU
+OSDE_WIDE_P, OSDE_WIDE_LANES, OSDE_288_LANES, OSDE_WIDE_CPU_LANES = 0.002, 128, 4, 32
 # The JAX engine's counters there at batch 512, 512 trials, seed 0 (every
 # counter, histograms as {weight: count}), recorded on the CPU (XLA, 5.6 s)
 # with `python3 scripts/jax_reference_counters.py --only ph144-osde7`.
@@ -404,6 +436,7 @@ def phase_build() -> None:
 
     libs = [m._LIB for m in (bp_cuda, osd_cuda, dem_bp_cuda, osd_transform_cuda,
                              osd_factored_cuda, spacetime_bp_cuda, bp_layered_cuda)]
+    libs.append(osd_transform_cuda._GLOBAL_LIB)
 
     def build(lib):
         t0 = time.perf_counter()
@@ -1930,33 +1963,42 @@ def k5_device_ms(osd, syn, llrs, hard) -> dict:
 
 def phase_dem288(dev, card_line: str, out_dir: str) -> dict:
     """The [[288]] DEM: one batch of 1,024 at p = 0.003 through
-    run_experiment (obs-err, OSD rate, peak memory, stage times), K3 held to
-    its plain version on K3_288_LANES samples of a batch (the preset's
-    BP(50), sum-product and min-sum), K5a-d held to their plain versions at
-    blocks 0 and 1 of one OSD call, and K5's device ms over a whole OSD
-    call. Returns K5's records at [[288]]."""
+    run_experiment with OSD-e(7) (obs-err, OSD rate, peak memory, stage
+    times, K4g's launches): its syndromes are in H's image, so every sample
+    within the factored column budget keeps its OSD-0 solution and the
+    transform (K4g) solves those past it, which OSD-0 returns unsolved.
+    Then K3 held to its plain version on K3_288_LANES samples of a batch
+    (the preset's BP(50), sum-product and min-sum), K5a-d held to their
+    plain versions at blocks 0 and 1 of one OSD call, the failures past
+    the budget counted, and K5's device ms over a whole OSD call. Returns
+    K5's records at [[288]] and the engine."""
     from qldpc_tpu_torch.experiments import get_preset, run_experiment
+    from qldpc_tpu_torch.ops import osd_factored_cuda, osd_transform_cuda
     from qldpc_tpu_torch.utils import rng
 
     spec = get_preset("complete-bposd").replace(
         codes=[DEM288_CODE], error_rates=[DEM288_P], trials=DEM288_BATCH,
-        batch_size=DEM288_BATCH, bp_stream_dtype="float32", output_dir=out_dir)
+        batch_size=DEM288_BATCH, bp_stream_dtype="float32", osd_order=PH_ORDER,
+        output_dir=out_dir)
     patch, engines, _ = capture_engines()
+    k4g = osd_transform_cuda.eliminate_transform_global_cuda
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    k4g.launches = 0
     t0 = time.perf_counter()
     with patch:
         res = run_experiment(spec, device=dev, checkpoint=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    k4g_launches = k4g.launches
     peak = torch.cuda.max_memory_allocated()
     d = res[DEM288_CODE][DEM288_P]
     eng = engines[0]
     log(f"[[288]] DEM {eng.m_checks} x {eng.n_vars}, rank {eng.osd.h_rank}, elimination "
         f"{eng.osd.elimination}, column budget {eng.osd.max_cols}: one batch of "
         f"{DEM288_BATCH} at p={DEM288_P} through run_experiment in {wall:.1f} s (the host's "
-        f"DEM and engine build included), peak device memory {peak / 2**30:.2f} GiB, on "
-        f"{card_line}")
+        f"DEM and engine build included), peak device memory {peak / 2**30:.2f} GiB, K4g "
+        f"launched {k4g_launches} time(s), on {card_line}")
     log(f"  {json.dumps(scalars(d))}")
     log(f"  obs-err {d['ler']:.5f}, OSD rate {d['osd']:.5f} (docs/circuit_ler.md:34: "
         f"0.0384 obs-err at 10,000 trials, float32)")
@@ -1972,11 +2014,14 @@ def phase_dem288(dev, card_line: str, out_dir: str) -> dict:
                 f"[[288]] DEM p={DEM288_P}, {K3_288_LANES} of the batch's {DEM288_BATCH} samples")
     syn, llrs, hard = dem_failures(eng, DEM288_P, seed=7)
     k5_checked_blocks(eng.osd, syn, llrs, hard, "[[288]] DEM")
-    recs = k5_device_ms(eng.osd, syn, llrs, hard)
-    del engines[:], eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return recs
+    osd = eng.osd
+    overflow = osd_factored_cuda.eliminate_factored_cuda(
+        torch.argsort(llrs.abs(), dim=1, stable=True), osd._residual(syn, hard.to(torch.int32)),
+        osd.Hc, osd.h_rank, osd.max_cols)[3]
+    log(f"  BP failures of a batch past the factored column budget ({osd.max_cols}): "
+        f"{int(overflow.sum())} of {len(syn)} (OSD-0 returns them unsolved; OSD-e's route "
+        f"solves them by the transform)")
+    return k5_device_ms(osd, syn, llrs, hard), eng
 
 
 def phase_st288(dev, card_line: str) -> dict:
@@ -2216,7 +2261,7 @@ def phase_osde_transform(dev) -> dict:
     plain version on 128 of the inconsistent lanes (T, b, rank, piv), and
     every inconsistent lane at rank(H) (it never b-exits, so its T is the
     full-rank transform the search reads); the card's OSD-e solutions
-    against the CPU's on 32; costs at most OSD-0's."""
+    against the CPU's on 16; costs at most OSD-0's."""
     from qldpc_tpu_torch.decoders import OSDConfig, OSDDecoder
     from qldpc_tpu_torch.ops import osd_transform_cuda
     from qldpc_tpu_torch.ops.osd_transform_cuda import eliminate_transform_plain
@@ -2267,6 +2312,222 @@ def phase_osde_transform(dev) -> dict:
     hold_osde("  card OSD-e against the CPU's", sol[lanes].cpu(), ref, llrs[lanes].cpu(),
               hard[lanes].cpu())
     return dict(launches=launches, systems=len(sel))
+
+
+def left_null_space(H: np.ndarray) -> np.ndarray:
+    """A basis (d, m) 0/1 of the dependencies of H's rows, {y : y H = 0}:
+    H's rows packed 64 columns a word beside the identity and eliminated as
+    ``decoders.osd.gf2_rank`` does; a row whose H part clears carries a
+    dependency in its identity part."""
+    H = np.asarray(H)
+    m, n = H.shape
+    hw, iw = -(-n // 64), -(-m // 64)
+    R = np.zeros((m, (hw + iw) * 8), np.uint8)
+    R[:, : -(-n // 8)] = np.packbits(H & 1, axis=1, bitorder="little")
+    eye = np.zeros((m, iw * 64), np.uint8)
+    eye[np.arange(m), np.arange(m)] = 1
+    R[:, hw * 8:] = np.packbits(eye, axis=1, bitorder="little")
+    R = R.view("<u8")
+    dependent = []
+    for i in range(m):
+        nz = np.flatnonzero(R[i, :hw])
+        if not nz.size:
+            dependent.append(i)
+            continue
+        w = nz[0]
+        word = int(R[i, w])
+        bit = np.uint64((word & -word).bit_length() - 1)  # the row's lowest set bit
+        below = i + 1 + np.flatnonzero((R[i + 1:, w] >> bit) & np.uint64(1))
+        R[below, w:] ^= R[i, w:]
+    return np.unpackbits(R[dependent, hw:].view(np.uint8), axis=1, bitorder="little")[:, :m]
+
+
+def out_of_image(eng, p: float, seed: int, lanes: int):
+    """The first ``lanes`` BP failures of one batch of the DEM engine at p,
+    each with one detector flipped that a dependency of H's rows involves,
+    so that every syndrome leaves H's image (a BP failure's syndrome is in
+    it) and OSD-e searches every lane; and whether each one is outside by
+    the dependencies' parities (syndromes, LLRs, hard decisions, outside)."""
+    syn, llrs, hard = (x[:lanes] for x in dem_failures(eng, p, seed))
+    Y = left_null_space(eng.dem.H)
+    support = np.flatnonzero(Y.any(axis=0))
+    flip = np.random.default_rng(seed).choice(support, size=len(syn))
+    dev = syn.device
+    syn = syn.clone()
+    syn[torch.arange(len(syn), device=dev), torch.from_numpy(flip).to(dev)] ^= 1
+    Yt = torch.from_numpy(Y.astype(np.float32)).to(dev)
+    outside = torch.remainder(syn.float() @ Yt.T, 2.0).any(dim=1)
+    log(f"  H has {Y.shape[0]} dependencies, over {len(support)} of its {Y.shape[1]} rows")
+    return syn, llrs, hard, outside
+
+
+def timed_call(fn):
+    """Host ms (to a synchronize) and device ms (CUDA events) of one call of
+    ``fn``, long enough that its launch work does not matter, and its result."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, ev[0].elapsed_time(ev[1]), out
+
+
+def phase_osde_wide(eng, card_line: str, p: float, lanes: int, cpu_lanes: int = 0):
+    """OSD-e(7) past K4's block (the route "factored+transform") on ``lanes``
+    BP failures of the DEM engine at p whose syndromes leave H's image: K4g
+    against its plain version (T, b, rank and piv bit for bit, every lane at
+    rank(H)), both timed once; the OSD-e stage through the decoder (K5a-d,
+    K4g, the search) with its ms, K4g's launches and peak memory; no cost
+    above the lanes path's OSD-0 (the transform's, the search's zero
+    pattern). The engine's OSD decoder serves where it is OSD-e(7)'s.
+    With ``cpu_lanes``, after the card's timings, the CPU decoder's OSD-e(7)
+    on that many lanes, to which the card's solutions are held. Returns
+    K4g's record; its bound counts the work this input needs (the plain
+    run's row operations)."""
+    from qldpc_tpu_torch.decoders import OSDConfig, OSDDecoder
+    from qldpc_tpu_torch.ops import osd_transform_cuda as otc
+
+    H, dev = eng.dem.H, eng.device
+    t0 = time.perf_counter()
+    osd = eng.osd
+    if osd.config.order != PH_ORDER:
+        osd = OSDDecoder(H, OSDConfig(order=PH_ORDER)).to(dev)
+    log(f"OSD-e({PH_ORDER}) past K4's block, {eng.code.name} ({osd.m} x {osd.n}, rank "
+        f"{osd.h_rank}, {otc.t_bytes(osd.m)} B of T a sample): the decoder "
+        f"{'built' if osd is not eng.osd else 'of the engine'} ({time.perf_counter() - t0:.1f}"
+        f" s), route {osd.elimination}")
+    if osd.elimination != "factored+transform":
+        raise AssertionError(f"OSD-e took {osd.elimination}, not the factored elimination and K4g")
+    syn, llrs, hard, outside = out_of_image(eng, p, 7, lanes)
+    hard = hard.to(torch.int32)
+    resid = osd._residual(syn, hard)
+    order = torch.argsort(llrs.abs(), dim=1, stable=True)
+    k4g = otc.eliminate_transform_global_cuda
+    args = (order, resid, osd.Hc[:osd.n], osd.h_rank, True)
+    ms, dev_ms, (T, b, rank, piv) = timed_call(lambda: k4g(*args))
+    cleared = torch.zeros((), dtype=torch.int64, device=dev)
+    plain_ms, _, ref = timed_call(lambda: otc.eliminate_transform_plain(*args, cleared=cleared))
+    same = all(torch.equal(x, y) for x, y in zip((T, b, rank, piv), ref))
+    searched = ((piv < 0) & (b != 0)).any(dim=1)
+    full = bool((rank == osd.h_rank).all())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads, per_sm, waves = otc.launch_shape(osd.m, len(syn), sms)
+    last = piv.max(dim=1).values.to(torch.int64)
+    log(f"  K4g on {len(syn)} BP failures at p={p} with a detector flipped each (all outside "
+        f"H's image: {bool(outside.all())}, all inconsistent: {bool(searched.all())}): T, b, "
+        f"rank and piv bit-identical to the plain version's (b-exit on): {same}; every lane at "
+        f"rank(H): {full}; last pivot column {last.float().mean().item():.0f} mean, "
+        f"{int(last.max())} max, past the factored column budget ({osd.max_cols}) on "
+        f"{int((last >= osd.max_cols).sum())} lanes; {threads} threads a block "
+        f"({otc.global_smem_bytes(osd.m)} B of shared memory), {per_sm} a SM, {waves} "
+        f"wave(s); K4g {ms:.1f} ms ({dev_ms:.1f} on the device), plain {plain_ms:.1f} ms, on {card_line}")
+    if not (same and full and bool(searched.all()) and bool(outside.all())):
+        raise AssertionError("K4g disagrees with its plain version, or a lane left H's image "
+                             "without reaching rank(H)")
+
+    torch.cuda.synchronize()
+    k4g.launches = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stage_ms, stage_dev_ms, sol = timed_call(lambda: osd(syn, llrs, hard))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = k4g.launches
+    osd0 = transform_osd0(order, b, piv, hard)
+    worse = more_costly(sol, osd0, llrs, hard)
+    log(f"  the OSD-e stage on them: {stage_ms:.1f} ms ({stage_dev_ms:.1f} between device "
+        f"events), K4g launched {launches} time(s), peak {peak / 2**30:.3f} GiB above the "
+        f"inputs; changed from OSD-0's: {int((sol != osd0).any(dim=1).sum())}; costing more: "
+        f"{int(worse.sum())}")
+    if bool(worse.any()) or launches < 1:
+        raise AssertionError("an OSD-e solution costs more than OSD-0's, or K4g never launched")
+    if cpu_lanes:
+        t0 = time.perf_counter()
+        cpu = OSDDecoder(H, OSDConfig(order=PH_ORDER))
+        cpu_in = [x[:cpu_lanes].cpu() for x in (syn, llrs, hard)]
+        cpu_sol = cpu(*cpu_in)
+        log(f"  the CPU's OSD-e on {cpu_lanes} of them, after the card's timings: "
+            f"{time.perf_counter() - t0:.1f} s on {torch.get_num_threads()} threads (the "
+            f"decoder's build included)")
+        hold_osde("  card OSD-e against the CPU's", sol[:cpu_lanes].cpu(), cpu_sol, *cpu_in[1:])
+    # the work this input needs: each lane's order entries and packed
+    # columns up to its last pivot and the residuals read, T, b, rank and
+    # piv written, once; per column up to the last pivot, an AND and a XOR
+    # on every row for each word the column is nonzero in (its bits in the
+    # reduced rows); per row a pivot clears (the plain run's count), a XOR
+    # per word of T
+    within = torch.arange(osd.n, device=dev) < (last + 1)[:, None]
+    cols = float(within.sum())
+    nz_words = (osd.Hc[:osd.n] != 0).sum(dim=1)
+    tested = float((nz_words[order] * within).sum())
+    moved = cols * 4 * (1 + osd.m_words) + nbytes(resid, T, b, rank, piv)
+    ops = 2 * osd.m * tested + osd.m_words * float(cleared)
+    log(f"  the work this input needs: {cols:.0f} columns, {tested:.0f} nonzero words of "
+        f"them, {int(cleared)} rows cleared by pivots; {moved / 1e9:.3f} GB, {ops / 1e9:.3f} G "
+        f"operations")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0, lanes=len(syn),
+                launches=launches, stage_ms=stage_ms, **bound(moved, ops))
+
+
+def transform_osd0(order, b, piv, hard) -> torch.Tensor:
+    """OSD-0 from the transform elimination's (b, piv_col) in permuted
+    columns, ``e[piv_col[r]] = b[r]`` un-permuted into ``hard``: the JAX
+    lanes path's, and the OSD-e search's zero pattern."""
+    B, n = hard.shape
+    rows = torch.arange(B, device=hard.device)[:, None]
+    e = torch.zeros((B, n + 1), dtype=torch.int32, device=hard.device)
+    e[rows, torch.where(piv >= 0, piv, n).long()] = b
+    corr = torch.zeros_like(hard)
+    corr[rows, order] = e[:, :n]
+    return hard ^ corr
+
+
+def phase_cli_osde(dev, card_line: str, out_dir: str) -> None:
+    """complete-bposd on the [[144]] DEM, one batch of 1,024 at p = 0.002,
+    with ``--set osd_order=7`` and with ``osd_order=0`` at the same seed: its
+    syndromes are in H's image, so OSD-e is OSD-0 and the counters are
+    equal; K4g never launches there, K5a-d do. The OSD stage's ms under
+    both."""
+    from qldpc_tpu_torch.experiments.cli import main as cli_main
+    from qldpc_tpu_torch.experiments.results_io import load_results
+    from qldpc_tpu_torch.ops import osd_factored_cuda, osd_transform_cuda
+
+    wrappers = {"gf2_transform_elim_global": osd_transform_cuda.eliminate_transform_global_cuda,
+                "factored_y": osd_factored_cuda.factored_y_cuda}
+    res = {}
+    for order in (PH_ORDER, 0):
+        patch, engines, _ = capture_engines()
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with patch:
+            code = cli_main(["run", "complete-bposd", "--codes", DEM144_CODE, "--error-rates",
+                             str(OSDE_WIDE_P), "--trials", str(DEM_BATCH), "--set",
+                             f"osd_order={order}", "--out", f"{out_dir}/o{order}",
+                             "--no-checkpoint", "--quiet"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        if code != 0:
+            raise AssertionError(f"the CLI exited {code}")
+        eng = engines[0]
+        stages = eng.stage_times(OSDE_WIDE_P, reps=2)
+        res[order] = load_results(f"{out_dir}/o{order}/complete-bposd.npz")[DEM144_CODE][OSDE_WIDE_P]
+        log(f"CLI complete-bposd {DEM144_CODE} DEM, osd_order={order}, one batch of {DEM_BATCH} at "
+            f"p={OSDE_WIDE_P}: {wall:.1f} s (the DEM build included), route "
+            f"{eng.osd.elimination}, launches {json.dumps(launches)}; a batch's stages, median ms "
+            f"of 2: {json.dumps(stages)} on {card_line}")
+        if launches["factored_y"] < 1 or launches["gf2_transform_elim_global"]:
+            raise AssertionError("the CLI's OSD did not take K5 alone on in-image syndromes")
+        del engines[:], eng
+    differ = [k for k in res[0] if not np.array_equal(np.asarray(res[PH_ORDER][k]),
+                                                      np.asarray(res[0][k]))]
+    log(f"  osd_order={PH_ORDER} counters identical to osd_order=0's: {not differ} "
+        f"({json.dumps(scalars(res[0]))})")
+    if differ:
+        raise AssertionError(f"OSD-e's counters differ from OSD-0's on in-image syndromes: {differ}")
 
 
 def phase_alpha(dev, card_line: str) -> None:
@@ -2406,7 +2667,7 @@ def main() -> int:
     dem_launches = timed(phase_dem_engine, eng, card_line, DEM_REF,
                          {"dem_bp": k3_wrapper, "gf2_transform_elim": k4_wrapper}, {})
     for backend in ("auto", "factored"):
-        timed(phase_dem_engine_vs_cpu, dev, 256, backend=backend)
+        timed(phase_dem_engine_vs_cpu, dev, DEM_CPU_TRIALS, backend=backend)
     timed(phase_dem_throughput, eng, card_line)
     del eng
     torch.cuda.empty_cache()
@@ -2421,11 +2682,16 @@ def main() -> int:
     dem144_launches = timed(phase_dem_engine, eng144, card_line, DEM144_REF,
                             {"dem_bp": k3_wrapper, **k5_wrappers},
                             {"gf2_transform_elim": k4_wrapper})
-    timed(phase_dem_engine_vs_cpu, dev, 32, code=DEM144_CODE, rounds=DEM144_ROUNDS)
+    timed(phase_dem_engine_vs_cpu, dev, DEM144_CPU_TRIALS, code=DEM144_CODE,
+          rounds=DEM144_ROUNDS)
     timed(phase_dem144_throughput, eng144, card_line)
     k3_bf16 = timed(phase_k3_bf16, eng144, dev, card_line)
+    k4g = timed(phase_osde_wide, eng144, card_line, OSDE_WIDE_P, OSDE_WIDE_LANES,
+                OSDE_WIDE_CPU_LANES)
     del eng144
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        timed(phase_cli_osde, dev, card_line, tmp)
 
     k6, st_failures = timed(phase_k6, dev)
     k4["h_st"] = timed(phase_st_osd, dev, st_failures)
@@ -2439,7 +2705,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = timed(phase_cli_dems, dev, card_line, f"{tmp}/cli")
         timed(phase_checkpoints, dev, tmp)
-        k5_288 = timed(phase_dem288, dev, card_line, f"{tmp}/dem288")
+        k5_288, eng288 = timed(phase_dem288, dev, card_line, f"{tmp}/dem288")
+    k4g["at_288"] = timed(phase_osde_wide, eng288, card_line, DEM288_P, OSDE_288_LANES)
+    del eng288
+    gc.collect()
+    torch.cuda.empty_cache()
     timed(phase_st288, dev, card_line)
     timed(phase_rescue, dev, card_line)
     k2["osde_rows"] = timed(phase_osde_rows, dev, card_line)
@@ -2479,13 +2749,16 @@ def main() -> int:
          k1_bf16_launches, k1_bf16),
         ("dem_bp_bf16", "dem_bp.cu", "qldpc_tpu/ops/dem_bp_pallas.py:78",
          cli_launches["dem_bp_bf16"], k3_bf16),
+        # K4g computes an XLA function of the JAX package, not a Pallas kernel
+        ("gf2_transform_elim_global", "gf2_transform_elim_global.cu",
+         "qldpc_tpu/decoders/osd.py:492", k4g["launches"], k4g),
     ]
     # K1 where samples iterate, K2's packed-rows entry and its launches on
     # the OSD-e path, K4 on the space-time failures and on the OSD-e path, K5
     # at the [[288]] DEM; beside the bf16 instances the float32 instance's
     # device ms in turns and K3's bf16 message path's
     extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288",
-             "f32_device_ms", "message_device_ms")
+             "f32_device_ms", "message_device_ms", "lanes", "stage_ms")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

@@ -34,31 +34,47 @@ are for every sample that stays within its budget.
 OSD-e (``order > 0``): a system is consistent when every row without a
 pivot carries a zero syndrome bit, and a consistent system returns its
 OSD-0 solution untouched (the reference's early return). Only the
-inconsistent samples are searched, ``chunk`` at a time: the flip patterns of
-weight <= order over the ``order + extra_positions`` least reliable columns
-without a pivot (``make_flip_patterns``, the zero pattern first) are scored
-by the LLR cost ``F @ w_test + piv_vals @ w_piv`` with
-``piv_vals = (F @ Tmat^T + b) mod 2``, and the first minimum wins. The
-costs are summed in float64, where sums of float32 LLRs are exact in any
-order (unless their magnitudes span more than 2^29), so that the card and
-the CPU break ties alike (the first pattern of equal cost); the JAX package
-sums them in float32 in XLA's order, so where two patterns flip the same
+inconsistent samples are searched: the flip patterns of weight <= order
+over the ``order + extra_positions`` least reliable columns without a pivot
+(``make_flip_patterns``, the zero pattern first) are scored by the LLR cost
+``F @ w_test + piv_vals @ w_piv`` with ``piv_vals = (F @ Tmat^T + b) mod 2``,
+and the first minimum wins. A step takes ``chunk`` samples, or fewer where
+their float64 ``piv_vals`` would pass ``SEARCH_BYTES`` (3 samples a step at
+the [[144,12,12]] DEM with order 7, 1 at [[288,12,18]]). The costs are
+summed in float64, where sums of float32 LLRs are exact in any order
+(unless their magnitudes span more than 2^29), so that the card and the CPU
+break ties alike (the first pattern of equal cost); the JAX package sums
+them in float32 in XLA's order, so where two patterns flip the same
 multiset of LLRs its rounding may pick the later one (ROADMAP.md Queue 3).
 The search reads each test column's bits in the reduced system: on the
 rows path from K2's packed-rows loader (``eliminate_rows``), run on those
 samples' permuted rows alone, so that a workload of consistent syndromes
 pays nothing for OSD-e; on the transform path from T, as
-``parity(T[r] & Hc[order[c]])``. An inconsistent sample never b-exits (a
-syndrome bit stays on a row without a pivot), so its T is the full-rank
-transform. The search is XLA code in the JAX package, outside any Pallas
-kernel, and stays torch here (``torch.bmm`` and elementwise ops). The
-factored elimination keeps no T and implements OSD-0 only: ``backend=
-"factored"`` with ``order > 0`` raises ``ValueError``, as in the JAX
-package, and ``auto`` raises ``NotImplementedError`` where it would pick it
-(ROADMAP.md, Queue 1 item 6), where the JAX package runs its XLA transform.
+``parity(T[r] & Hc[order[c]])`` folded a word at a time. An inconsistent
+sample never b-exits (a syndrome bit stays on a row without a pivot), so
+its T is the full-rank transform. The search is XLA code in the JAX
+package, outside any Pallas kernel, and stays torch here (``torch.bmm`` and
+elementwise ops).
+
+Past K4's block ``auto`` takes the route ``"factored+transform"`` for
+OSD-e, where the JAX package runs its XLA transform on every sample: the
+factored elimination's OSD-0 on the whole batch, and its (b, pivoted) tell
+the consistent samples apart (the transform's test on the same rows: a
+sample that b-exits has cleared b at and below its rank, an inconsistent
+one runs to rank(H) in both). The consistent samples keep their OSD-0
+solution; the inconsistent ones, and any that ran out of the column budget,
+take the transform elimination with the b-exit on (K4g on CUDA: T in global
+memory, ``T_BYTES`` of it at a time), whose solution replaces the factored
+one: OSD-0 for an out-of-budget sample that proves consistent (the JAX
+path, which has no budget, gives the same), the search for the rest. A
+batch of syndromes in H's image pays the test, and the transform only for
+its samples past the budget. ``backend="factored"`` with ``order > 0``
+raises ``ValueError``, as in the JAX package.
 
 ``OSDConfig.backend`` forces the transform or the factored elimination on a
 system the row elimination does not take; no path falls back to another.
+``OSDDecoder.elimination`` names the route taken: ``"rows"``,
+``"transform"``, ``"factored"`` or ``"factored+transform"``.
 """
 
 from __future__ import annotations
@@ -82,13 +98,24 @@ from qldpc_tpu_torch.ops.osd_cuda import (
 from qldpc_tpu_torch.ops.osd_factored_cuda import eliminate_factored, factored_columns
 from qldpc_tpu_torch.ops.osd_transform_cuda import (
     SMEM_LIMIT,
-    _parity,
+    column_bits,
     eliminate_transform,
     pack_columns,
     smem_bytes,
+    t_bytes,
 )
 
 __all__ = ["OSDConfig", "OSDDecoder", "gf2_rank", "make_flip_patterns"]
+
+# the factored elimination's column budget past rank(H): the JAX decoder's
+# (qldpc_tpu/decoders/osd.py, ``max_elim_cols``: b-exits at rank + ~150)
+BUDGET_SLACK = 512
+# OSD-e past K4's block: the transform of the samples it takes, at most
+# this many bytes of T at a time (320 samples of the [[288,12,18]] DEM)
+T_BYTES = 1 << 30
+# the search's float64 piv_vals (samples x patterns x m) in one step: 64
+# samples at [[144,12,12]] code capacity with order 7, 3 at its DEM
+SEARCH_BYTES = 2 << 30
 
 
 _BACKENDS = ("auto", "transform", "factored")
@@ -127,11 +154,12 @@ class OSDConfig:
     extra_positions: int = 10  # OSD-e: test set size = order + extra_positions
     backend: str = "auto"  # wide systems: "auto" picks the transform
     # elimination when a sample's transform fits one block's shared memory
-    # and the factored one otherwise; "transform" and "factored" force one
+    # and the factored one otherwise (OSD-e: then the transform on the
+    # samples it searches); "transform" and "factored" force one
     max_elim_cols: int = 2048  # factored elimination: column budget floor,
     # raised to min(n, rank(H) + 512) (decoders/osd.py of the JAX package)
-    chunk: int = 64  # OSD-e: samples a search step takes (bounds its
-    # chunk x patterns x m workspace)
+    chunk: int = 64  # OSD-e: samples a search step takes at most (fewer
+    # where their patterns x m workspace would pass SEARCH_BYTES)
 
     def __post_init__(self):
         if self.order < 0:
@@ -209,19 +237,18 @@ class OSDDecoder(nn.Module):
             if self.elimination == "auto":
                 fits = smem_bytes(self.m) <= SMEM_LIMIT
                 self.elimination = "transform" if fits else "factored"
-            if self.elimination == "factored" and config.order > 0:
-                raise NotImplementedError(
-                    f"OSD-e on a {self.m}-row system, whose transform exceeds one "
-                    "K4 block, is not ported yet (ROADMAP.md, Queue 1 item 6: "
-                    "OSD-e past K4's block)"
-                )
+                if not fits and config.order > 0:
+                    self.elimination = "factored+transform"
             vos, self.dc_parity = parity_tables(H)
             self.register_buffer("vos_parity", torch.from_numpy(vos.astype(np.int64)))
             if self.elimination == "transform":
                 self.register_buffer("Hc", torch.from_numpy(pack_columns(H)))
             else:
+                # factored_columns(H)[:n] is pack_columns(H): the transform
+                # of the searched samples reads the same buffer
                 self.register_buffer("Hc", torch.from_numpy(factored_columns(H)))
-                self.max_cols = max(config.max_elim_cols, min(self.n, self.h_rank + 512))
+                self.max_cols = max(config.max_elim_cols,
+                                    min(self.n, self.h_rank + BUDGET_SLACK))
         else:
             self.elimination = "rows"
             self.register_buffer("Hc", torch.from_numpy(pack_columns(H)))
@@ -251,51 +278,76 @@ class OSDDecoder(nn.Module):
         B, n = hard.shape
         resid = self._residual(syndromes, hard)
         order = torch.argsort(llrs.abs(), dim=1, stable=True)  # (B, n)
-        bidx = torch.arange(B, device=dev)[:, None]
-        if self.elimination == "factored":
-            # piv_col comes back in original column ids: no un-permuting
-            b, _, piv, overflow = eliminate_factored(order, resid, self.Hc, self.h_rank,
-                                                     self.max_cols)
-            corr = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
-            corr[bidx, torch.where(piv >= 0, piv, n).long()] = b
-            sol = hard ^ corr[:, :n]
-            return torch.where(overflow[:, None], hard, sol).to(torch.int8)
-        # OSD-0 reads only (b, piv_col): the transform elimination's b-exit
-        # leaves them exact, and the row elimination returns nothing else
-        T = None
         if self.elimination == "transform":
-            T, b, _, piv = eliminate_transform(order, resid, self.Hc, self.h_rank,
-                                               b_exit=True)
-        else:
+            return self._transform_osd(order, resid, llrs, hard).to(torch.int8)
+        if self.elimination == "rows":
+            # OSD-0 reads only (b, piv_col), all the ordered loader returns;
+            # the search reads K2's packed-rows loader on the samples it takes:
+            # it pivots as the ordered loader does, so (b, piv) are the same
             b, piv = eliminate_ordered(order, resid, self.Hc, self.h_rank)
-        tgt = torch.where(piv >= 0, piv, n).long()
+
+            def reduced(sel):
+                rows = pack_permuted_rows(order[sel], self.Hc, self.m)
+                return eliminate_rows(rows, resid[sel], n, self.h_rank)[0]
+
+            return self._solve(b, piv, order, llrs, hard, reduced).to(torch.int8)
+        # piv_col comes back in original column ids: no un-permuting
+        b, pivoted, piv, overflow = eliminate_factored(order, resid, self.Hc, self.h_rank,
+                                                       self.max_cols)
+        bidx = torch.arange(B, device=dev)[:, None]
+        corr = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
+        corr[bidx, torch.where(piv >= 0, piv, n).long()] = b
+        sol = torch.where(overflow[:, None], hard, hard ^ corr[:, :n])
+        if self.elimination == "factored+transform":
+            # the transform's test (a row without a pivot carrying a syndrome
+            # bit) on the factored (b, pivoted): the same verdict for every
+            # sample within the budget. Inconsistent samples, and those out of
+            # budget, take the transform elimination, ``T_BYTES`` of T at a time
+            redo = torch.nonzero(((pivoted == 0) & (b != 0)).any(dim=1) | overflow).flatten()
+            group = max(1, T_BYTES // t_bytes(self.m))
+            for s in range(0, len(redo), group):
+                g = redo[s:s + group]
+                sol[g] = self._transform_osd(order[g], resid[g], llrs[g], hard[g])
+        return sol.to(torch.int8)
+
+    def _transform_osd(self, order, resid, llrs, hard):
+        """The transform elimination with the b-exit on, then the search on
+        its inconsistent samples, which never b-exit (a syndrome bit stays on
+        a row without a pivot), so that their T is the full-rank transform."""
+        T, b, _, piv = eliminate_transform(order, resid, self.Hc[:self.n], self.h_rank,
+                                           b_exit=True)
+        return self._solve(b, piv, order, llrs, hard, lambda sel: T[sel])
+
+    def _solve(self, b, piv, order, llrs, hard, reduced):
+        """``hard ^ e`` (B, n) int32 from an elimination's (b, piv_col) in
+        permuted columns: OSD-0's ``e_perm[piv_col[r]] = b[r]``, searched on
+        the inconsistent samples with ``reduced(sel)``, their reduced rows
+        or transforms."""
+        B, n = hard.shape
+        dev = hard.device
+        bidx = torch.arange(B, device=dev)[:, None]
         e_perm = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
-        e_perm[bidx, tgt] = b
+        e_perm[bidx, torch.where(piv >= 0, piv, n).long()] = b
         e_perm = e_perm[:, :n]
         if self.config.order:
-            inconsistent = ((piv < 0) & (b != 0)).any(dim=1)
-            sel = torch.nonzero(inconsistent).flatten()
+            sel = torch.nonzero(((piv < 0) & (b != 0)).any(dim=1)).flatten()
             if len(sel):
-                if T is None:
-                    # K2's packed-rows loader on these samples alone: it pivots
-                    # as the ordered loader does, so (b, piv) are the same
-                    rows = pack_permuted_rows(order[sel], self.Hc, self.m)
-                    R, b_s, piv_s = eliminate_rows(rows, resid[sel], n, self.h_rank)
-                else:
-                    R, b_s, piv_s = T[sel], b[sel], piv[sel]
                 w = llrs[sel].abs() * (1.0 - 2.0 * hard[sel].to(llrs.dtype))
-                e_perm[sel] = self._search(R, b_s, piv_s, order[sel],
+                e_perm[sel] = self._search(reduced(sel), b[sel], piv[sel], order[sel],
                                            torch.gather(w, 1, order[sel]))
         corr = torch.zeros((B, n), dtype=torch.int32, device=dev)
         corr[bidx, order] = e_perm
-        return (hard ^ corr).to(torch.int8)
+        return hard ^ corr
 
     def _search(self, R, b, piv, order, w_perm):
         """OSD-e corrections (k, n) int32 in permuted columns of k
-        inconsistent samples, ``chunk`` at a time: ``_search_single`` (R their
-        reduced rows) or ``_search_single_T`` (R their transforms) of the JAX
-        package. ``w_perm`` = |llr| * (1 - 2 * hard) in permuted columns."""
-        ch = self.config.chunk
+        inconsistent samples: ``_search_single`` (R their reduced rows) or
+        ``_search_single_T`` (R their transforms) of the JAX package. A step
+        takes at most ``chunk`` samples, and fewer where their (patterns x m)
+        float64 ``piv_vals`` would pass ``SEARCH_BYTES``. ``w_perm`` = |llr|
+        * (1 - 2 * hard) in permuted columns."""
+        per_sample = self.patterns.shape[0] * self.m * 8
+        ch = max(1, min(self.config.chunk, SEARCH_BYTES // per_sample))
         return torch.cat([
             self._search_chunk(R[s:s + ch], b[s:s + ch], piv[s:s + ch], order[s:s + ch],
                                w_perm[s:s + ch])
@@ -322,12 +374,8 @@ class OSDDecoder(nn.Module):
             words = torch.gather(R, 2, (test_cols // WORD)[:, None, :].expand(k, m, t))
             bits = (words >> (test_cols % WORD).to(torch.int32)[:, None, :]) & 1
         else:
-            hc = self.Hc[torch.gather(order, 1, test_cols)]  # (k, t, mw)
-            x = R[:, :, None, :] & hc[:, None, :, :]  # (k, m, t, mw)
-            z = x[..., 0]
-            for wd in range(1, x.shape[-1]):
-                z = z ^ x[..., wd]
-            bits = _parity(z)  # (k, m, t): the RREF bits of the test columns
+            # (k, m, t): the RREF bits of the test columns, parity(T[r] & hc[c])
+            bits = column_bits(R, self.Hc, torch.gather(order, 1, test_cols))
         Tmat = bits.to(dtype) * valid[:, None, :]
         F = self.patterns.to(dtype)[None] * valid[:, None, :]  # (k, C, t)
         piv_vals = torch.bmm(F, Tmat.transpose(1, 2))  # (k, C, m), exact

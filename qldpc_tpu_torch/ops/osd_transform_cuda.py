@@ -1,5 +1,5 @@
-"""Transform GF(2) elimination for wide systems: the CUDA kernel K4 and its
-plain torch version.
+"""Transform GF(2) elimination for wide systems: the CUDA kernels K4 and
+K4g and their plain torch version.
 
 K4 (``csrc/gf2_transform_elim.cu``) replaces
 qldpc_tpu/ops/osd_transform_pallas.py::_kernel; its header says what bounds
@@ -7,6 +7,12 @@ it on the card and how the design answers (panels of 32 columns, each
 eliminated by one warp on one word per row, only the rows holding a panel
 bit and the 32 from the rank, transposed to a column a lane, then applied to
 T once). ``launch_shape`` gives its threads a block, blocks an SM and waves.
+K4g (``csrc/gf2_transform_elim_global.cu``) is the same algorithm with T in
+global memory, for systems whose T does not fit a block's shared memory
+(``smem_bytes(m) > SMEM_LIMIT``: the [[144,12,12]] and [[288,12,18]] DEMs,
+[[288,12,18]] space-time at T = 18); it has no TPU kernel to replace, since
+the JAX package runs XLA there (qldpc_tpu/decoders/osd.py::
+_eliminate_lanes_T). Its caller bounds T's memory: ``t_bytes(m)`` a sample.
 ``eliminate_transform_plain`` is
 qldpc_tpu/decoders/osd.py::_eliminate_lanes_T in torch, sample-major: each
 sample carries the packed m x m row transform T instead of its permuted
@@ -22,7 +28,7 @@ an OSD-0 builds from ``(b, piv_col)``, they equal its batched run too.
 Words are int32 tensors holding uint32 bit patterns, as in ``osd_cuda``.
 
 ``eliminate_transform`` is the entry point: the plain version for CPU
-tensors, K4 for CUDA tensors, never a fallback.
+tensors, K4 or, past its block, K4g for CUDA tensors, never a fallback.
 """
 
 from __future__ import annotations
@@ -38,10 +44,14 @@ from qldpc_tpu_torch.ops.osd_cuda import WORD
 __all__ = [
     "pack_columns",
     "smem_bytes",
+    "global_smem_bytes",
+    "t_bytes",
     "launch_shape",
     "eliminate_transform",
     "eliminate_transform_plain",
+    "column_bits",
     "eliminate_transform_cuda",
+    "eliminate_transform_global_cuda",
 ]
 
 # dynamic shared memory one block may opt in to on sm_90 (227 KB), less the
@@ -52,6 +62,11 @@ _COL_BLOCK = 32
 _SM_SMEM = 228 * 1024  # shared memory of one SM, 1 KB of it reserved per block
 _SM_THREADS = 2048  # threads one SM holds
 _SM_BLOCKS = 32  # blocks one SM holds
+# K4g: T in global memory, a block of 512 threads a sample; its static
+# shared memory is one panel table and three scalars
+_GLOBAL_THREADS = 512
+_GLOBAL_STATIC_SMEM = 144
+GLOBAL_SMEM_LIMIT = 227 * 1024 - _GLOBAL_STATIC_SMEM
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _LIB = KernelLibrary(
@@ -59,6 +74,14 @@ _LIB = KernelLibrary(
     {
         "gf2_transform_elim_launch": [
             _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp,
+        ]
+    },
+)
+_GLOBAL_LIB = KernelLibrary(
+    "gf2_transform_elim_global.cu",
+    {
+        "gf2_transform_elim_global_launch": [
+            _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp,
         ]
     },
 )
@@ -92,17 +115,37 @@ def smem_bytes(m: int) -> int:
         + 4 * m_pad + m_pad
 
 
+def global_smem_bytes(m: int) -> int:
+    """Dynamic shared memory of one K4g block: K4's less T (the staged
+    panel columns, their word lists, the per-row state) plus, per word, the
+    panel columns nonzero there and the list of such words."""
+    mw = -(-m // WORD)
+    m_pad = mw * WORD
+    return 4 * (_COL_BLOCK * (mw | 1) + _COL_BLOCK * mw + 3 * m_pad + mw) \
+        + 2 * (2 * m_pad + mw) + m_pad
+
+
+def t_bytes(m: int) -> int:
+    """Bytes of one sample's packed transform T, (m, m_words) int32."""
+    return m * -(-m // WORD) * 4
+
+
 def launch_shape(m: int, B: int, sms: int) -> tuple[int, int, int]:
-    """K4's (threads a block, blocks an SM, waves) for B samples of m rows
-    on ``sms`` SMs. A block per sample; the kernel instance for m's row
-    groups fixes the threads: 256 up to 512 rows (its registers bounded for
-    six blocks an SM), 512 beyond (two, or one past 1,024 rows), never more
-    than a thread a row. Blocks an SM: what the shared memory and the
-    threads allow (registers may allow fewer where m is small)."""
+    """The transform elimination's (threads a block, blocks an SM, waves)
+    for B samples of m rows on ``sms`` SMs, a block per sample. K4, where T
+    fits a block: the kernel instance for m's row groups fixes the threads,
+    256 up to 512 rows (its registers bounded for six blocks an SM), 512
+    beyond (two, or one past 1,024 rows), never more than a thread a row.
+    K4g, past it: 512 threads, registers bounded for two blocks an SM.
+    Blocks an SM: what the shared memory and the threads allow (registers
+    may allow fewer)."""
     groups = -(-m // WORD)
-    threads = min(256 if groups <= 16 else 512, groups * WORD)
-    fit = max(1, min(_SM_SMEM // (smem_bytes(m) + _STATIC_SMEM + 1024),
-                     _SM_THREADS // threads, _SM_BLOCKS))
+    if smem_bytes(m) <= SMEM_LIMIT:
+        threads = min(256 if groups <= 16 else 512, groups * WORD)
+        smem, cap = smem_bytes(m) + _STATIC_SMEM, _SM_BLOCKS
+    else:
+        threads, smem, cap = _GLOBAL_THREADS, global_smem_bytes(m) + _GLOBAL_STATIC_SMEM, 2
+    fit = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads, cap))
     return threads, max(1, min(fit, -(-B // sms))), -(-B // (sms * fit))
 
 
@@ -127,62 +170,122 @@ def _parity(x: torch.Tensor) -> torch.Tensor:
     return x & 1
 
 
+def column_bits(T: torch.Tensor, Hc: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The RREF bits parity(T[s, r] & Hc[cols[s, j]]) of every row r, (k, m,
+    J) 0/1 int32, for T (k, m, mw) and columns cols (k, J), folded a word at
+    a time into a (k, m, J) accumulator."""
+    hc = Hc[cols]  # (k, J, mw)
+    z = T[:, :, None, 0] & hc[:, None, :, 0]
+    for w in range(1, hc.shape[-1]):
+        z ^= T[:, :, None, w] & hc[:, None, :, w]
+    return _parity(z)
+
+
 def eliminate_transform_plain(order: torch.Tensor, b: torch.Tensor,
                               Hc: torch.Tensor, h_rank: int,
-                              b_exit: bool = False):
+                              b_exit: bool = False, cleared: torch.Tensor | None = None):
     """Transform RREF in plain torch, sample-major.
 
     order (B, n) integer column permutation per sample; b (B, m) int32 0/1
-    residual syndromes; Hc (n, m_words) int32 packed columns of H;
-    ``h_rank`` = rank(H). Returns ``(T (B, m, m_words) int32, b (B, m)
-    int32, rank (B,) int32, piv_col (B, m) int32)``; piv_col is -1 for rows
-    without a pivot.
+    residual syndromes; Hc (n, m_words) int32 packed columns of H (rows past
+    n are never read); ``h_rank`` = rank(H). Returns ``(T (B, m, m_words)
+    int32, b (B, m) int32, rank (B,) int32, piv_col (B, m) int32)``; piv_col
+    is -1 for rows without a pivot. ``cleared``, a 0-d int64 tensor on b's
+    device, if given, has the number of rows the pivots clear added to it
+    (the row operations this input needs).
+
+    The loop runs the lanes path's column steps on the samples still
+    running: at each 32-column boundary the samples that exit are written
+    out and dropped, and the panel's RREF bits of every row are read from T
+    once and carried through the panel's row operations beside T and b,
+    which leaves every output as the step-by-step loop gives it.
     """
     B, n = order.shape
     m = b.shape[1]
     mw = Hc.shape[1]
     dev = b.device
-    T = _identity(B, m, mw, dev)
-    b = b.to(torch.int32).clone()
-    rows = torch.arange(m, device=dev)[None, :]
-    bidx = torch.arange(B, device=dev)
+    T_out = _identity(B, m, mw, dev)
+    b_out = b.to(torch.int32).clone()
+    rank_out = torch.zeros(B, dtype=torch.int32, device=dev)
+    piv_out = torch.full((B, m), -1, dtype=torch.int32, device=dev)
+    live = torch.arange(B, device=dev)  # the running samples' rows of the outputs
+    T, bb, piv, order = T_out, b_out, piv_out, order.long()
     rank = torch.zeros(B, dtype=torch.long, device=dev)
-    piv = torch.full((B, m), -1, dtype=torch.int32, device=dev)
-    order = order.long()
-    active = torch.ones(B, dtype=torch.bool, device=dev)
-    for col in range(n):
-        if col % _COL_BLOCK == 0:
-            done = rank >= h_rank
-            if b_exit:
-                done = done | ~((b != 0) & (rows >= rank[:, None])).any(dim=1)
-            active = ~done
-            if not bool(active.any()):
-                break
-        hcol = Hc[order[:, col]]  # (B, mw)
-        x = T & hcol[:, None, :]
-        z = x[..., 0]
-        for w in range(1, mw):
-            z = z ^ x[..., w]
-        bits = _parity(z)  # (B, m)
-        cand = (bits == 1) & (rows >= rank[:, None]) & active[:, None]
-        has = cand.any(dim=1)
-        p = cand.to(torch.int8).argmax(dim=1)  # first eligible row
-        r = rank.clamp(max=m - 1)
-        hs = has[:, None]
-        row_p, row_r = T[bidx, p], T[bidx, r]
-        T[bidx, p] = torch.where(hs, row_r, row_p)
-        T[bidx, r] = torch.where(hs, row_p, row_r)
-        for v in (b, bits):
-            v_p, v_r = v[bidx, p], v[bidx, r]
-            v[bidx, p] = torch.where(has, v_r, v_p)
-            v[bidx, r] = torch.where(has, v_p, v_r)
-        elim = (bits == 1) & (rows != r[:, None]) & hs
-        prow, pb = T[bidx, r], b[bidx, r]
-        T = torch.where(elim[:, :, None], T ^ prow[:, None, :], T)
-        b = torch.where(elim, b ^ pb[:, None], b)
-        piv[bidx, r] = torch.where(has, col, piv[bidx, r])
-        rank = rank + has.long()
-    return T, b, rank.to(torch.int32), piv
+    rows = torch.arange(m, device=dev)
+
+    def write_out(which):
+        T_out[live[which]] = T[which]
+        b_out[live[which]] = bb[which]
+        rank_out[live[which]] = rank[which].to(torch.int32)
+        piv_out[live[which]] = piv[which]
+
+    for col0 in range(0, n, _COL_BLOCK):
+        done = rank >= h_rank
+        if b_exit:
+            done = done | ~((bb != 0) & (rows >= rank[:, None])).any(dim=1)
+        if bool(done.any()):
+            write_out(done)
+            keep = ~done
+            live, T, bb, piv, order, rank = (x[keep] for x in (live, T, bb, piv, order, rank))
+            if not len(live):
+                return T_out, b_out, rank_out, piv_out
+        # the panel's steps on the rows of [T | W | b], W (k, m, J) the
+        # panel's RREF bits of every row: a row operation acts alike on T's
+        # words, the bits and b, so they stay current together
+        W = column_bits(T, Hc, order[:, col0:col0 + _COL_BLOCK])
+        A = torch.cat([T, W, bb[:, :, None]], dim=2)
+        for j in range(W.shape[2]):
+            cand = (A[:, :, mw + j] != 0) & (rows >= rank[:, None])
+            has = cand.any(dim=1)
+            r = rank.clamp(max=m - 1)
+            p = torch.where(has, cand.to(torch.int8).argmax(dim=1), r)  # first eligible row
+            # the pivot row to the rank row: a swap of p and r, a no-op where
+            # p == r; the rank row then holds old row p, the pivot row
+            pr = torch.stack([p, r], dim=1)[:, :, None]
+            old_rows = A.gather(1, pr.flip(1).expand(-1, -1, A.shape[2]))
+            A.scatter_(1, pr.expand(-1, -1, A.shape[2]), old_rows)
+            elim = (A[:, :, mw + j] != 0) & (rows != r[:, None]) & has[:, None]
+            if cleared is not None:
+                cleared += elim.sum()
+            if A.is_cuda:  # no host sync a column
+                A ^= elim[:, :, None] * old_rows[:, 1, None, :]
+            else:  # only the rows it clears
+                eb, er = torch.nonzero(elim, as_tuple=True)
+                A[eb, er] ^= old_rows[eb, 1]
+            piv.scatter_(1, r[:, None],
+                         torch.where(has[:, None], col0 + j, piv.gather(1, r[:, None])))
+            rank += has
+        T, bb = A[:, :, :mw].contiguous(), A[:, :, -1].contiguous()
+    write_out(torch.ones(len(live), dtype=torch.bool, device=dev))
+    return T_out, b_out, rank_out, piv_out
+
+
+def _operands(name: str, order, b, Hc, smem: int, limit: int):
+    """Both kernels' checks, their contiguous operands and their outputs
+    ``(order32, Hc, b, T, rank, piv)``, each of which must outlive the
+    launch. Hc may hold rows past n (``factored_columns``' sentinel), which
+    no kernel reads."""
+    dev = b.device
+    if dev.type != "cuda" or order.device != dev or Hc.device != dev:
+        raise ValueError(f"{name} needs its operands on one CUDA device")
+    if Hc.dtype != torch.int32:
+        raise TypeError("packed columns must be int32")
+    B, n = order.shape
+    m = b.shape[1]
+    mw = Hc.shape[1]
+    if b.shape != (B, m) or Hc.shape[0] < n or mw != -(-m // WORD):
+        raise ValueError(
+            f"shapes do not fit: order {tuple(order.shape)}, b {tuple(b.shape)}, "
+            f"Hc {tuple(Hc.shape)}"
+        )
+    if smem > limit:
+        raise ValueError(f"{name}: a {m}-row system needs {smem} bytes of shared memory "
+                         f"per sample, over the {limit} one block can hold")
+    return (order.to(torch.int32).contiguous(), Hc.contiguous(),
+            b.to(torch.int32).contiguous().clone(),
+            torch.empty((B, m, mw), dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty((B, m), dtype=torch.int32, device=dev))
 
 
 def eliminate_transform_cuda(order: torch.Tensor, b: torch.Tensor,
@@ -190,38 +293,16 @@ def eliminate_transform_cuda(order: torch.Tensor, b: torch.Tensor,
                              b_exit: bool = False):
     """Launch K4. Same contract as ``eliminate_transform_plain``. Raises for
     a system whose transform does not fit one block's shared memory."""
-    dev = b.device
-    if dev.type != "cuda" or order.device != dev or Hc.device != dev:
-        raise ValueError("eliminate_transform_cuda needs its operands on one CUDA device")
-    if Hc.dtype != torch.int32:
-        raise TypeError("packed columns must be int32")
-    B, n = order.shape
     m = b.shape[1]
-    mw = Hc.shape[1]
-    if b.shape != (B, m) or Hc.shape[0] != n or mw * WORD < m:
-        raise ValueError(
-            f"shapes do not fit: order {tuple(order.shape)}, b {tuple(b.shape)}, "
-            f"Hc {tuple(Hc.shape)}"
-        )
-    if smem_bytes(m) > SMEM_LIMIT:
-        raise ValueError(
-            f"the transform of a {m}-row system needs {smem_bytes(m)} bytes of "
-            f"shared memory per sample, over the {SMEM_LIMIT} one block can hold"
-        )
-    # contiguous operands bound to names: each must outlive the launch
-    order32 = order.to(torch.int32).contiguous()
-    Hc = Hc.contiguous()
-    b = b.to(torch.int32).contiguous().clone()
-    T = torch.empty((B, m, mw), dtype=torch.int32, device=dev)
-    rank = torch.empty(B, dtype=torch.int32, device=dev)
-    piv = torch.empty((B, m), dtype=torch.int32, device=dev)
-    threads = launch_shape(m, B, _sm_count(dev))[0]
+    order32, Hc, b, T, rank, piv = _operands("eliminate_transform_cuda", order, b, Hc,
+                                             smem_bytes(m), SMEM_LIMIT)
+    B, n = order.shape
     _LIB.call(
         "gf2_transform_elim_launch",
         order32.data_ptr(), Hc.data_ptr(), T.data_ptr(),
         b.data_ptr(), rank.data_ptr(), piv.data_ptr(),
-        B, m, mw, n, h_rank, int(b_exit), threads,
-        torch.cuda.current_stream(dev).cuda_stream,
+        B, m, Hc.shape[1], n, h_rank, int(b_exit), launch_shape(m, B, _sm_count(b.device))[0],
+        torch.cuda.current_stream(b.device).cuda_stream,
     )
     eliminate_transform_cuda.launches += 1
     return T, b, rank, piv
@@ -230,9 +311,35 @@ def eliminate_transform_cuda(order: torch.Tensor, b: torch.Tensor,
 eliminate_transform_cuda.launches = 0
 
 
+def eliminate_transform_global_cuda(order: torch.Tensor, b: torch.Tensor,
+                                    Hc: torch.Tensor, h_rank: int,
+                                    b_exit: bool = False):
+    """Launch K4g. Same contract as ``eliminate_transform_plain``. Allocates
+    T, ``t_bytes(m)`` a sample: the caller bounds B."""
+    m = b.shape[1]
+    order32, Hc, b, T, rank, piv = _operands("eliminate_transform_global_cuda", order, b, Hc,
+                                             global_smem_bytes(m), GLOBAL_SMEM_LIMIT)
+    B, n = order.shape
+    _GLOBAL_LIB.call(
+        "gf2_transform_elim_global_launch",
+        order32.data_ptr(), Hc.data_ptr(), T.data_ptr(),
+        b.data_ptr(), rank.data_ptr(), piv.data_ptr(),
+        B, m, Hc.shape[1], n, h_rank, int(b_exit),
+        torch.cuda.current_stream(b.device).cuda_stream,
+    )
+    eliminate_transform_global_cuda.launches += 1
+    return T, b, rank, piv
+
+
+eliminate_transform_global_cuda.launches = 0
+
+
 def eliminate_transform(order, b, Hc, h_rank: int, b_exit: bool = False):
-    """Transform RREF: plain torch for CPU tensors, K4 for CUDA tensors."""
+    """Transform RREF: plain torch for CPU tensors; for CUDA tensors K4, or
+    K4g where T does not fit K4's block."""
     if b.device.type == "cuda":
+        if smem_bytes(b.shape[1]) > SMEM_LIMIT:
+            return eliminate_transform_global_cuda(order, b, Hc, h_rank, b_exit)
         return eliminate_transform_cuda(order, b, Hc, h_rank, b_exit)
     if b.device.type != "cpu":
         raise ValueError(f"unsupported device {b.device}")

@@ -22,8 +22,11 @@ width gives the default width's bits. K5a-d are also held at every block
 of one OSD call on the [[288,12,18]] space-time matrix at T = 18, the
 experiments CLI on the card to the same CLI run on the CPU (min-sum:
 identical counters), a checkpointed run resumed on the card to an
-uninterrupted one, OSD-e on the card (rows and transform paths) to the CPU
-bit for bit, and the card's min-sum Alvarado alpha to the CPU's exactly.
+uninterrupted one, OSD-e on the card (rows and transform paths, and the
+route past K4's block) to the CPU bit for bit, and the card's min-sum
+Alvarado alpha to the CPU's exactly. K4g (T in global memory) is held to the
+plain version at the [[72]] DEM and on a 1,300-row system past K4's block,
+with and without the b-exit, and the entry point takes it past the block.
 K1's bf16-operand instances (``mm_dtype="bfloat16"``) and K3's bf16-stream
 instances (``stream_dtype="bfloat16"``, summary and message paths) are held
 to their plain versions in bf16 by the same standards, and K3's two bf16
@@ -519,6 +522,102 @@ def test_k4_matches_plain(cuda, graph, b_exit):
     torch.cuda.synchronize()
     for g, r_ in zip(got, ref):
         assert torch.equal(g, r_)
+
+
+def _rank_deficient_wide(rng, m: int, n: int, dependent: int):
+    """Columns of weight 3-6 (a DEM's mechanisms flip a few detectors) on
+    the first m - dependent rows; the last ``dependent`` rows are XORs of
+    pairs of earlier rows."""
+    H = np.zeros((m, n), np.uint8)
+    rows = rng.integers(0, m - dependent, (n, 6))
+    weight = rng.integers(3, 7, n)
+    for k in range(6):
+        on = weight > k
+        H[rows[on, k], np.flatnonzero(on)] ^= 1
+    H[m - dependent:] = H[:dependent] ^ H[dependent:2 * dependent]
+    return H
+
+
+@pytest.mark.parametrize("graph", ["[[72, 12, 6]]", "wide-1300"])
+@pytest.mark.parametrize("b_exit", [False, True])
+def test_k4g_matches_plain(cuda, graph, b_exit):
+    """K4g (T in global memory) against the plain version, bit for bit on
+    T, b, rank and piv: at the [[72]] DEM, where K4 also runs, and past K4's
+    block on a 1,300-row system with flipped syndrome bits."""
+    if graph == "wide-1300":
+        H = _rank_deficient_wide(np.random.default_rng(4), 1300, 5400, 10)
+        rng = np.random.default_rng(5)
+        e = (rng.random((48, H.shape[1])) < 0.002).astype(np.int64)
+        syn = (e @ H.T) % 2
+        syn[::2, -1] ^= 1  # a dependent row: outside H's image
+        llrs = torch.from_numpy(rng.normal(4.0, 2.0, e.shape).astype(np.float32)).to(cuda)
+        hard = (llrs < 0).to(torch.int8)
+        syn = torch.from_numpy(syn.astype(np.int8)).to(cuda)
+    else:
+        dem, syn_np, prior_np = _dem_inputs(graph, 256, seed=7)
+        H = dem.H
+        syn = torch.from_numpy(syn_np).to(cuda)
+        r = BPDecoder(H, BPConfig(max_iter=10)).to(cuda)(syn, torch.from_numpy(prior_np).to(cuda))
+        syn, llrs, hard = syn[~r.converged], r.llrs[~r.converged], r.hard[~r.converged]
+    osd = OSDDecoder(H).to(cuda)
+    resid = osd._residual(syn, hard.to(torch.int32))
+    order = torch.argsort(llrs.abs(), dim=1, stable=True)
+    Hc = torch.from_numpy(osd_transform_cuda.pack_columns(H)).to(cuda)
+    got = osd_transform_cuda.eliminate_transform_global_cuda(order, resid, Hc, osd.h_rank, b_exit)
+    ref = eliminate_transform_plain(order, resid, Hc, osd.h_rank, b_exit)
+    torch.cuda.synchronize()
+    for g, r_ in zip(got, ref):
+        assert torch.equal(g, r_)
+    if graph == "wide-1300":
+        assert bool((got[2][::2] == osd.h_rank).all())  # the inconsistent ones
+
+
+def test_eliminate_transform_takes_k4g_past_the_block(cuda):
+    """The entry point launches K4 where T fits a block and K4g past it."""
+    k4 = osd_transform_cuda.eliminate_transform_cuda
+    k4g = osd_transform_cuda.eliminate_transform_global_cuda
+    for m, kernel in ((1200, k4), (1300, k4g)):
+        H = _rank_deficient_wide(np.random.default_rng(m), m, 4 * 32 * (-(-m // 32)) + 64, 4)
+        Hc = torch.from_numpy(osd_transform_cuda.pack_columns(H)).to(cuda)
+        rng = np.random.default_rng(m)
+        order = torch.from_numpy(np.argsort(rng.random((4, H.shape[1])), axis=1)).to(cuda)
+        resid = torch.from_numpy(rng.integers(0, 2, (4, m)).astype(np.int32)).to(cuda)
+        before = (k4.launches, k4g.launches)
+        osd_transform_cuda.eliminate_transform(order, resid, Hc, m - 4, b_exit=True)
+        torch.cuda.synchronize()
+        launched = (k4.launches - before[0], k4g.launches - before[1])
+        assert launched == ((1, 0) if kernel is k4 else (0, 1))
+
+
+def test_osde_past_the_block_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """OSD-e on the route past K4's block (the factored elimination, then
+    K4g and the search on the inconsistent samples), reached on a small wide
+    system by lowering both modules' limits, and on the 1,300-row one at
+    the real limits: the card's solutions equal the CPU's bit for bit."""
+    from qldpc_tpu_torch.decoders import osd as osd_module
+
+    big = _rank_deficient_wide(np.random.default_rng(6), 1300, 5400, 10)
+    rng = np.random.default_rng(8)
+    small = np.zeros((40, 700), np.uint8)
+    for j in range(700):
+        small[rng.choice(40, size=rng.integers(1, 4), replace=False), j] = 1
+    small[-6:] = small[:6] ^ small[6:12]
+    for H, order, B, patched in ((small, 3, 128, True), (big, 3, 12, False)):
+        if patched:
+            monkeypatch.setattr(osd_module, "SMEM_LIMIT", 0)
+            monkeypatch.setattr(osd_transform_cuda, "SMEM_LIMIT", 0)
+        syn, llrs, hard = _flipped_case(H, B, seed=3, p=0.05 if patched else 0.002)
+        if not patched:
+            syn[::2, -1] ^= 1  # a dependent row: outside H's image
+        cpu = OSDDecoder(H, OSDConfig(order=order))
+        card = OSDDecoder(H, OSDConfig(order=order)).to(cuda)
+        assert card.elimination == "factored+transform"
+        k4g = osd_transform_cuda.eliminate_transform_global_cuda
+        before = k4g.launches
+        got = card(syn.to(cuda), llrs.to(cuda), hard.to(cuda)).cpu()
+        assert k4g.launches > before
+        assert torch.equal(got, cpu(syn, llrs, hard))
+        monkeypatch.undo()
 
 
 def test_dem_engine_on_card_matches_cpu_engine(cuda):

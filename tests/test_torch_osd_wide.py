@@ -148,6 +148,44 @@ def test_b_exit_matches_jax_per_sample(rng, steane_dem, kind):
                         np.asarray(r3)[0], np.asarray(p3).T))
 
 
+def _rows_cleared(H, order, resid, h_rank, b_exit):
+    """The rows the pivots clear, by a dense column-by-column elimination of
+    [H[:, order] | b] with the exits at 32-column boundaries."""
+    total = 0
+    for o, b in zip(order, resid):
+        A = np.concatenate([H[:, o], b[:, None]], axis=1).astype(np.uint8)
+        rank = 0
+        for j in range(H.shape[1]):
+            if j % 32 == 0 and (rank >= h_rank or (b_exit and not A[rank:, -1].any())):
+                break
+            cand = np.flatnonzero(A[rank:, j]) + rank
+            if not cand.size:
+                continue
+            A[[rank, cand[0]]] = A[[cand[0], rank]]
+            clear = np.flatnonzero(A[:, j])
+            clear = clear[clear != rank]
+            A[clear] ^= A[rank]
+            total += clear.size
+            rank += 1
+    return total
+
+
+@pytest.mark.parametrize("b_exit", [False, True])
+@pytest.mark.parametrize("kind", ["steane-dem", "random-wide"])
+def test_plain_transform_counts_the_rows_it_clears(rng, steane_dem, kind, b_exit):
+    """``cleared`` counts the row operations a dense elimination makes, and
+    leaves the outputs as they are without it."""
+    H, syn, llrs, hard = _inputs(rng, kind, steane_dem, 24)
+    dec, order, resid = _system(H, syn, llrs, hard)
+    args = (torch.from_numpy(order), torch.from_numpy(resid.astype(np.int32)),
+            torch.from_numpy(otc.pack_columns(H)), int(dec._H_rank), b_exit)
+    cleared = torch.zeros((), dtype=torch.int64)
+    got = otc.eliminate_transform_plain(*args, cleared=cleared)
+    _assert_equal(got, otc.eliminate_transform_plain(*args))
+    expect = _rows_cleared(H, order, resid, int(dec._H_rank), b_exit)
+    assert expect > 0 and int(cleared) == expect
+
+
 @pytest.mark.parametrize("kind", ["steane-dem", "random-wide"])
 def test_wide_osd_solutions_match_jax(rng, steane_dem, kind):
     H, syn, llrs, hard = _inputs(rng, kind, steane_dem, 96)

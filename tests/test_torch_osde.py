@@ -199,19 +199,33 @@ def test_space_time_matrix_transform_path_matches_jax():
 
 
 def test_factored_and_past_the_transform_block_refuse():
+    """backend="factored" refuses OSD-e, as in JAX; past K4's block ``auto``
+    no longer refuses it (``tests/test_torch_osde_wide.py`` holds the route
+    to the JAX decoder)."""
     wide = np.zeros((8, 32 * 5 + 1), np.uint8)
     wide[np.arange(8), np.arange(8)] = 1
     # OSD-0 takes the factored elimination when asked; OSD-e cannot, as in JAX
     assert OSDDecoder(wide, OSDConfig(backend="factored")).elimination == "factored"
     with pytest.raises(ValueError, match="OSD-0 only"):
         OSDDecoder(wide, OSDConfig(order=1, backend="factored"))
-    # a 1,300-row wide system: its transform exceeds K4's block, and auto
-    # would take the factored elimination
+    # a 1,300-row wide system: its transform exceeds K4's block, so OSD-0
+    # takes the factored elimination and OSD-e the factored one, then the
+    # transform where it searches; every syndrome is in H's image here
     m = 1300
     big = np.zeros((m, 32 * 4 * 41 * 2), np.uint8)
     big[np.arange(m), np.arange(m)] = 1
     assert OSDDecoder(big).elimination == "factored"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6: OSD-e past K4's block"):
-        OSDDecoder(big, OSDConfig(order=1))
+    dec = OSDDecoder(big, OSDConfig(order=1))
+    assert dec.elimination == "factored+transform"
+    rng = np.random.default_rng(1)
+    syn = torch.from_numpy(rng.integers(0, 2, (2, m)).astype(np.int8))
+    # H's nonzero columns the least reliable: within the column budget
+    llrs = rng.uniform(5.0, 9.0, (2, big.shape[1])).astype(np.float32)
+    llrs[:, :m] = rng.normal(0.5, 1.0, (2, m))
+    llrs = torch.from_numpy(llrs)
+    hard = (llrs < 0).to(torch.int8)
+    got = dec(syn, llrs, hard)
+    assert torch.equal(got, OSDDecoder(big)(syn, llrs, hard))
+    assert consistent(big, syn.numpy(), got.numpy()).all()
     with pytest.raises(ValueError):
         OSDConfig(order=1, chunk=0)
