@@ -62,13 +62,15 @@ Phases (any failure raises and the script exits non-zero):
   14c. OSD-e(7) past K4's block (the route "factored+transform") on 128
       BP failures of phase 11's engine at p = 0.002, each with a detector
       flipped that a dependency of H's rows involves (outside H's image):
-      K4g (T in global memory) against its plain version, T, b, rank and
-      piv bit for bit, every lane at rank(H), both timed; the OSD-e stage
+      K4g (a cluster of blocks a sample, pivot-first panels; its cluster
+      width and where T lives logged) against its plain version, T, b, rank
+      and piv bit for bit, every lane at rank(H), both timed; the OSD-e stage
       through the decoder (K5a-d, K4g, the search), its ms, K4g's launches
       (the kernels line's) and peak memory; no cost above the transform's
       OSD-0; after those timings, the card's solutions against the CPU
       decoder's on 32 of the lanes; K4g's bound from the work this input
-      needs (the plain run's row operations);
+      needs (the plain run's row operations; in a panel without a pivot
+      only the rows at or below the rank);
   14d. the experiments CLI's ``complete-bposd`` on the [[144]] DEM, one
       batch of 1,024 at p = 0.002, with ``--set osd_order=7`` and with 0 at
       the same seed: equal counters (in-image syndromes: OSD-e is OSD-0
@@ -124,7 +126,11 @@ Phases (any failure raises and the script exits non-zero):
       engine's min-sum counters against the CPU engine's on 16 trials, K5a-d
       at blocks 0 and 1 on H_st, the OSD-0 solutions against the plain row
       elimination's, and the LER and OSD rate at p = 0.004 and 0.008 on
-      1,024 trials each (K6 and K5);
+      1,024 trials each (K6 and K5); then K4g and OSD-e(7) on 8 of the
+      batch's BP failures at p = 0.008, as in 14c, but in H_st's image (its
+      rows are independent) and K4g without the b-exit, so that every lane
+      walks to rank(H): a configuration off the main path (OSD-e on H_st
+      never launches K4g), held bit for bit and timed as such;
   25. rescue_iters = 10 on the [[144]] code-capacity engine: counters equal
       to a single BP(50) run's, both timed;
   OSD-e and the Alvarado alpha:
@@ -173,8 +179,10 @@ launches on the OSD-e path (phase 27), and K5a-d's their device ms over one
 OSD call at the [[288]] DEM (phase 23). The row ``gf2_transform_elim_global``
 is K4g, which computes the JAX package's XLA transform elimination
 (qldpc_tpu/decoders/osd.py:492), not a Pallas kernel: its launches are the
-OSD-e stage's of phase 14c, its times phase 14c's and, under ``at_288``,
-phase 23b's. The rows ``bp_flooding_bf16`` and
+OSD-e stage's of phase 14c, its times phase 14c's and, under ``at_288``
+and ``h_st``, phase 23b's and 24's (``h_st`` with ``on_main_path`` false:
+K4g without the b-exit on in-image lanes, a call the decoder never makes).
+The rows ``bp_flooding_bf16`` and
 ``dem_bp_bf16`` are K1's and K3's bf16 instances: their launches are those of
 the CLI runs of phases 6b and 21, their times those of phases 6b and 14b
 (beside the float32 instance's device ms in turns, and for K3 its message
@@ -1696,6 +1704,7 @@ CLI_TRIALS = 10_240
 CKPT_INTERRUPT = 2  # batches before the interruption
 DEM288_CODE, DEM288_P, DEM288_BATCH = "[[288, 12, 18]]", 0.003, 1024
 K5_CHECK_BLOCKS, K5_CHECK_FAILURES = 2, 64
+ST288_K4G_LANES = 8  # [[288]] space-time BP failures K4g and OSD-e(7) are held on
 K3_288_LANES = 256  # samples of a [[288]] DEM batch K3 is held on
 ST288_ROUNDS, ST288_RATES, ST288_TRIALS, ST288_CPU_TRIALS = 18, (0.004, 0.008), 1024, 16
 
@@ -2029,7 +2038,10 @@ def phase_st288(dev, card_line: str) -> dict:
     min-sum counters against the CPU engine's, K5a-d against their plain
     versions at blocks 0 and 1 of one OSD call on H_st, the card's OSD-0
     solutions against the plain row elimination's, and the LER and OSD rate
-    at p = 0.004 and 0.008 (K6 and K5 launch, K4 and K2 never)."""
+    at p = 0.004 and 0.008 (K6 and K5 launch, K4 and K2 never); then K4g
+    and OSD-e(7) on a few BP failures (``k4g_osde``, K4g without the
+    b-exit, off the main path: the decoder never launches K4g on H_st).
+    Returns K4g's record there."""
     from qldpc_tpu_torch.decoders import BPConfig
     from qldpc_tpu_torch.mc import counters_to_dict
     from qldpc_tpu_torch.ops import osd_cuda, osd_factored_cuda, osd_transform_cuda
@@ -2102,7 +2114,15 @@ def phase_st288(dev, card_line: str) -> dict:
             f"{d['average_iterations']:.3f}; {json.dumps(scalars(d))}")
         if d["trials"] != ST288_TRIALS or d["BPs_fault"] != round(d["osd"] * ST288_TRIALS):
             raise AssertionError("[[288]] space-time counters are inconsistent")
-    return launches
+
+    # K4g and OSD-e(7) on H_st's BP failures: H_st's rows are independent,
+    # so no syndrome leaves its image; K4g runs without the b-exit, every
+    # lane to rank(H), a call the decoder never makes
+    Hst_np = space_time_matrix(get_code(code).Hx, T)
+    lanes = min(ST288_K4G_LANES, syn_f.shape[0])
+    rec = k4g_osde(f"{code} H_st T={T}", Hst_np, None, syn_f[:lanes], llrs_f[:lanes],
+                   hard_f[:lanes], None, card_line, b_exit=False)
+    return dict(rec, on_main_path=False)
 
 
 def phase_rescue(dev, card_line: str) -> None:
@@ -2376,36 +2396,78 @@ def timed_call(fn):
 
 def phase_osde_wide(eng, card_line: str, p: float, lanes: int, cpu_lanes: int = 0):
     """OSD-e(7) past K4's block (the route "factored+transform") on ``lanes``
-    BP failures of the DEM engine at p whose syndromes leave H's image: K4g
-    against its plain version (T, b, rank and piv bit for bit, every lane at
-    rank(H)), both timed once; the OSD-e stage through the decoder (K5a-d,
-    K4g, the search) with its ms, K4g's launches and peak memory; no cost
+    BP failures of the DEM engine at p whose syndromes leave H's image
+    (``k4g_osde``). The engine's OSD decoder serves where it is OSD-e(7)'s."""
+    syn, llrs, hard, outside = out_of_image(eng, p, 7, lanes)
+    osd = eng.osd if eng.osd.config.order == PH_ORDER else None
+    return k4g_osde(eng.code.name, eng.dem.H, osd, syn, llrs, hard, outside, card_line,
+                    cpu_lanes)
+
+
+def k4g_needs(osd, order, piv, cleared, moved_extra: int):
+    """The work the transform elimination needs on these lanes: each lane's
+    order entries and packed columns up to its last pivot read once, and
+    ``moved_extra`` bytes (the residuals and the outputs); per column up to
+    the last pivot, an AND and a XOR for each word the column is nonzero in
+    on every row in a panel with a pivot, on the rows at or below the rank
+    in a panel without one (K4g's pivot-first panels: no other row can
+    change); per row a pivot clears (the plain run's count), a XOR per word
+    of T. Returns (bytes, operations, columns, panels without a pivot)."""
+    B, n = order.shape
+    dev = order.device
+    last = piv.max(dim=1).values.to(torch.int64)
+    cols = torch.arange(n, device=dev)
+    within = cols < (last + 1)[:, None]
+    panels = -(-n // 32)
+    pivots = torch.zeros((B, panels + 1), dtype=torch.int64, device=dev)
+    pc = torch.where(piv >= 0, piv.long() // 32, panels)
+    pivots.scatter_add_(1, pc, torch.ones_like(pc))
+    pivots = pivots[:, :panels]
+    rank0 = torch.cumsum(pivots, dim=1) - pivots  # the rank at each panel's start
+    rows = torch.where(pivots > 0, osd.m, osd.m - rank0)  # (B, panels)
+    nz_words = (osd.Hc[:osd.n] != 0).sum(dim=1)
+    per_col = nz_words[order] * rows.gather(1, (cols // 32).expand(B, n)) * within
+    tested = float(per_col.sum())
+    walked = (cols[::32] < (last + 1)[:, None])
+    no_pivot = int(((pivots == 0) & walked).sum())
+    moved = float(within.sum()) * 4 * (1 + osd.m_words) + moved_extra
+    ops = 2 * tested + osd.m_words * float(cleared)
+    return moved, ops, float(within.sum()), no_pivot
+
+
+def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_lanes: int = 0,
+             b_exit: bool = True):
+    """K4g and OSD-e(7) past K4's block on lanes of H: K4g against its plain
+    version (T, b, rank and piv bit for bit), both timed once, with the
+    b-exit as the decoder calls it (``outside``: which lanes left H's image;
+    those must reach rank(H) and be inconsistent) or, with ``outside`` None,
+    without it (in-image lanes walked to rank(H)); the OSD-e stage through
+    the decoder (K5a-d, K4g where a lane is inconsistent or past the column
+    budget, the search) with its ms, K4g's launches and peak memory; no cost
     above the lanes path's OSD-0 (the transform's, the search's zero
-    pattern). The engine's OSD decoder serves where it is OSD-e(7)'s.
-    With ``cpu_lanes``, after the card's timings, the CPU decoder's OSD-e(7)
-    on that many lanes, to which the card's solutions are held. Returns
-    K4g's record; its bound counts the work this input needs (the plain
-    run's row operations)."""
+    pattern). ``osd`` is H's OSD-e(7) decoder, built here if None. With
+    ``cpu_lanes``, after the card's timings, the CPU decoder's OSD-e(7) on
+    that many lanes, to which the card's solutions are held. Returns K4g's
+    record; its bound counts the work this input needs (``k4g_needs``)."""
     from qldpc_tpu_torch.decoders import OSDConfig, OSDDecoder
     from qldpc_tpu_torch.ops import osd_transform_cuda as otc
 
-    H, dev = eng.dem.H, eng.device
+    dev = syn.device
     t0 = time.perf_counter()
-    osd = eng.osd
-    if osd.config.order != PH_ORDER:
+    built = osd is None
+    if built:
         osd = OSDDecoder(H, OSDConfig(order=PH_ORDER)).to(dev)
-    log(f"OSD-e({PH_ORDER}) past K4's block, {eng.code.name} ({osd.m} x {osd.n}, rank "
+    log(f"OSD-e({PH_ORDER}) past K4's block, {label} ({osd.m} x {osd.n}, rank "
         f"{osd.h_rank}, {otc.t_bytes(osd.m)} B of T a sample): the decoder "
-        f"{'built' if osd is not eng.osd else 'of the engine'} ({time.perf_counter() - t0:.1f}"
+        f"{'built' if built else 'of the engine'} ({time.perf_counter() - t0:.1f}"
         f" s), route {osd.elimination}")
     if osd.elimination != "factored+transform":
         raise AssertionError(f"OSD-e took {osd.elimination}, not the factored elimination and K4g")
-    syn, llrs, hard, outside = out_of_image(eng, p, 7, lanes)
     hard = hard.to(torch.int32)
     resid = osd._residual(syn, hard)
     order = torch.argsort(llrs.abs(), dim=1, stable=True)
     k4g = otc.eliminate_transform_global_cuda
-    args = (order, resid, osd.Hc[:osd.n], osd.h_rank, True)
+    args = (order, resid, osd.Hc[:osd.n], osd.h_rank, b_exit)
     ms, dev_ms, (T, b, rank, piv) = timed_call(lambda: k4g(*args))
     cleared = torch.zeros((), dtype=torch.int64, device=dev)
     plain_ms, _, ref = timed_call(lambda: otc.eliminate_transform_plain(*args, cleared=cleared))
@@ -2413,17 +2475,23 @@ def phase_osde_wide(eng, card_line: str, p: float, lanes: int, cpu_lanes: int = 
     searched = ((piv < 0) & (b != 0)).any(dim=1)
     full = bool((rank == osd.h_rank).all())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    threads, per_sm, waves = otc.launch_shape(osd.m, len(syn), sms)
+    C, t_smem, waves = otc.global_launch_shape(osd.m, len(syn), sms)
     last = piv.max(dim=1).values.to(torch.int64)
-    log(f"  K4g on {len(syn)} BP failures at p={p} with a detector flipped each (all outside "
-        f"H's image: {bool(outside.all())}, all inconsistent: {bool(searched.all())}): T, b, "
-        f"rank and piv bit-identical to the plain version's (b-exit on): {same}; every lane at "
-        f"rank(H): {full}; last pivot column {last.float().mean().item():.0f} mean, "
-        f"{int(last.max())} max, past the factored column budget ({osd.max_cols}) on "
-        f"{int((last >= osd.max_cols).sum())} lanes; {threads} threads a block "
-        f"({otc.global_smem_bytes(osd.m)} B of shared memory), {per_sm} a SM, {waves} "
-        f"wave(s); K4g {ms:.1f} ms ({dev_ms:.1f} on the device), plain {plain_ms:.1f} ms, on {card_line}")
-    if not (same and full and bool(searched.all()) and bool(outside.all())):
+    moved, ops, cols, no_pivot = k4g_needs(osd, order, piv, cleared, nbytes(resid, T, b, rank, piv))
+    where = "in H's image" if outside is None else (
+        f"a detector flipped each, all outside H's image: {bool(outside.all())}")
+    log(f"  K4g on {len(syn)} BP failures ({where}; all inconsistent: {bool(searched.all())}): "
+        f"T, b, rank and piv bit-identical to the plain version's (b-exit "
+        f"{'on' if b_exit else 'off'}): {same}; every lane at rank(H): "
+        f"{full}; last pivot column {last.float().mean().item():.0f} mean, {int(last.max())} "
+        f"max, past the factored column budget ({osd.max_cols}) on "
+        f"{int((last >= osd.max_cols).sum())} lanes; panels without a pivot {no_pivot} of "
+        f"{int(-(-(last + 1) // 32).sum())}; a cluster of {C} block(s) of "
+        f"{otc._GLOBAL_THREADS} threads a sample, T in {'shared' if t_smem else 'global'} "
+        f"memory ({otc.global_smem_bytes(osd.m, C, t_smem)} B of shared memory a block), "
+        f"{waves} wave(s); K4g {ms:.2f} ms ({dev_ms:.2f} on the device), plain {plain_ms:.1f} "
+        f"ms, on {card_line}")
+    if not (same and full and (outside is None or bool(searched.all() and outside.all()))):
         raise AssertionError("K4g disagrees with its plain version, or a lane left H's image "
                              "without reaching rank(H)")
 
@@ -2440,7 +2508,7 @@ def phase_osde_wide(eng, card_line: str, p: float, lanes: int, cpu_lanes: int = 
         f"events), K4g launched {launches} time(s), peak {peak / 2**30:.3f} GiB above the "
         f"inputs; changed from OSD-0's: {int((sol != osd0).any(dim=1).sum())}; costing more: "
         f"{int(worse.sum())}")
-    if bool(worse.any()) or launches < 1:
+    if bool(worse.any()) or (outside is not None and launches < 1):
         raise AssertionError("an OSD-e solution costs more than OSD-0's, or K4g never launched")
     if cpu_lanes:
         t0 = time.perf_counter()
@@ -2451,23 +2519,12 @@ def phase_osde_wide(eng, card_line: str, p: float, lanes: int, cpu_lanes: int = 
             f"{time.perf_counter() - t0:.1f} s on {torch.get_num_threads()} threads (the "
             f"decoder's build included)")
         hold_osde("  card OSD-e against the CPU's", sol[:cpu_lanes].cpu(), cpu_sol, *cpu_in[1:])
-    # the work this input needs: each lane's order entries and packed
-    # columns up to its last pivot and the residuals read, T, b, rank and
-    # piv written, once; per column up to the last pivot, an AND and a XOR
-    # on every row for each word the column is nonzero in (its bits in the
-    # reduced rows); per row a pivot clears (the plain run's count), a XOR
-    # per word of T
-    within = torch.arange(osd.n, device=dev) < (last + 1)[:, None]
-    cols = float(within.sum())
-    nz_words = (osd.Hc[:osd.n] != 0).sum(dim=1)
-    tested = float((nz_words[order] * within).sum())
-    moved = cols * 4 * (1 + osd.m_words) + nbytes(resid, T, b, rank, piv)
-    ops = 2 * osd.m * tested + osd.m_words * float(cleared)
-    log(f"  the work this input needs: {cols:.0f} columns, {tested:.0f} nonzero words of "
-        f"them, {int(cleared)} rows cleared by pivots; {moved / 1e9:.3f} GB, {ops / 1e9:.3f} G "
-        f"operations")
+    log(f"  the work this input needs: {cols:.0f} columns, {int(cleared)} rows cleared by "
+        f"pivots; {moved / 1e9:.3f} GB, {ops / 1e9:.3f} G operations; K4g at "
+        f"{100 * bound(moved, ops)['bound_ms'] / dev_ms:.2f}% of its bound")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0, lanes=len(syn),
-                launches=launches, stage_ms=stage_ms, **bound(moved, ops))
+                launches=launches, stage_ms=stage_ms, cluster=C, t_smem=t_smem,
+                no_pivot_panels=no_pivot, **bound(moved, ops))
 
 
 def transform_osd0(order, b, piv, hard) -> torch.Tensor:
@@ -2710,7 +2767,7 @@ def main() -> int:
     del eng288
     gc.collect()
     torch.cuda.empty_cache()
-    timed(phase_st288, dev, card_line)
+    k4g["h_st"] = timed(phase_st288, dev, card_line)
     timed(phase_rescue, dev, card_line)
     k2["osde_rows"] = timed(phase_osde_rows, dev, card_line)
     k4["osde"] = timed(phase_osde_transform, dev)
@@ -2758,7 +2815,8 @@ def main() -> int:
     # at the [[288]] DEM; beside the bf16 instances the float32 instance's
     # device ms in turns and K3's bf16 message path's
     extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288",
-             "f32_device_ms", "message_device_ms", "lanes", "stage_ms")
+             "f32_device_ms", "message_device_ms", "lanes", "stage_ms", "cluster", "t_smem",
+             "no_pivot_panels")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

@@ -63,8 +63,8 @@ the consistent samples apart (the transform's test on the same rows: a
 sample that b-exits has cleared b at and below its rank, an inconsistent
 one runs to rank(H) in both). The consistent samples keep their OSD-0
 solution; the inconsistent ones, and any that ran out of the column budget,
-take the transform elimination with the b-exit on (K4g on CUDA: T in global
-memory, ``T_BYTES`` of it at a time), whose solution replaces the factored
+take the transform elimination with the b-exit on (K4g on CUDA: a cluster
+of blocks a sample, ``T_BYTES`` of T at a time), whose solution replaces the factored
 one: OSD-0 for an out-of-budget sample that proves consistent (the JAX
 path, which has no budget, gives the same), the search for the rest. A
 batch of syndromes in H's image pays the test, and the transform only for
@@ -100,6 +100,7 @@ from qldpc_tpu_torch.ops.osd_transform_cuda import (
     SMEM_LIMIT,
     column_bits,
     eliminate_transform,
+    global_fits,
     pack_columns,
     smem_bytes,
     t_bytes,
@@ -257,6 +258,23 @@ class OSDDecoder(nn.Module):
         if config.order:
             patterns = make_flip_patterns(self.num_test, config.order, config.max_combinations)
             self.register_buffer("patterns", torch.from_numpy(patterns.astype(np.float32)))
+
+    def _apply(self, fn, *args, **kwargs):
+        super()._apply(fn, *args, **kwargs)
+        self._check_device(self.Hc.device)
+        return self
+
+    def _check_device(self, device) -> None:
+        """Past K4's block OSD-e's transform runs K4g on the card, whose
+        cluster holds at most ``global_fits``' rows: a larger system is
+        refused when the decoder moves to the card, not at its first call.
+        The CPU's plain version takes any size."""
+        if self.elimination == "factored+transform" and torch.device(device).type == "cuda" \
+                and not global_fits(self.m):
+            raise ValueError(
+                f"OSD-e on a {self.m}-row system past K4's block needs K4g, whose cluster "
+                "of 16 blocks does not hold that many rows on the card; decode it on the "
+                "CPU or with order 0")
 
     def _residual(self, syndromes, hard):
         B = hard.shape[0]

@@ -1,232 +1,683 @@
-// Transform GF(2) elimination with T in global memory (K4g).
+// Transform GF(2) elimination past K4's block (K4g): a sample on a cluster
+// of C blocks, pivot-first panels.
 //
 // Computes qldpc_tpu/decoders/osd.py::_eliminate_lanes_T, the JAX package's
 // XLA transform elimination of wide systems (not a Pallas kernel: the TPU
 // kernel K4 replaces, osd_transform_pallas.py::_kernel, keeps a tile of T
 // in VMEM and the JAX decoder leaves it past about 6 MB). It is K4's
 // algorithm (gf2_transform_elim.cu: panels of 32 columns, the panel's bits
-// of every row on one word, one warp eliminating the panel on the rows
-// holding a bit and the 32 from the rank, T updated once a panel from the
-// pivots' panel-start rows U) for systems whose T does not fit one block's
-// shared memory: 373 KB a sample at the [[144,12,12]] DEM (1,728 rows),
-// 3.36 MB at the [[288,12,18]] DEM (5,184 rows), against 227 KB.
+// of every row on one word, one warp eliminating the panel, T updated once
+// a panel from the pivots' panel-start rows U) for systems whose T does not
+// fit one block's shared memory: 373 KB a sample at the [[144,12,12]] DEM
+// (1,728 rows), 840 KB at [[288,12,18]] space-time (2,592 rows), 3.36 MB at
+// the [[288,12,18]] DEM (5,184 rows), against 227 KB.
 //
-// T lives in the output buffer, indexed by slot (logical row i in slot
-// phys[i], as in K4); everything else K4 keeps stays in shared memory: the
-// per-row panel word, mask, piv_col, slot, list row and b, the staged panel
-// columns and their word lists (130 KB at 5,184 rows).
+// What bounds it on the card: the chain of panels of one sample, each
+// reading the rows of T where a panel column is nonzero and rewriting the
+// rows a pivot eliminates. Lanes outside H's image walk to rank(H): 10^4 to
+// 10^5 columns, most panels with no pivot once the rank is near rank(H).
+// The design:
 //
-// What bounds it on the card: T's traffic. Each panel reads, for every row,
-// the words of T where a panel column is nonzero (H is sparse: a DEM column
-// touches a few detectors), and reads and writes every row a pivot
-// eliminates once, whatever the number of pivots (the masks fold them).
-// Where T is dense that is about 2 m * m_words words a panel, and one
-// sample's panels run in series on one block. The design keeps the reads
-// coalesced: a warp takes a row, its lanes the row's words (a lane's share
-// of the panel bits, XOR-reduced over the warp in step 2; a lane's words
-// of the row in step 4), and the pivot rows U are read from shared memory.
-// A block of 512 threads a sample.
+// * A cluster of C blocks a sample (``cg::this_cluster``). Slot r (T's row
+//   r; logical row i lives in slot pslot[i], a swap moves pslot, not data)
+//   belongs to block r / R, R = ceil(m / C), for the whole walk: each block
+//   computes its slots' panel words and applies the row operations to its
+//   slots. T stays in the blocks' shared memory where the cluster holds it
+//   (TS), else in the output buffer by slot. C blocks multiply the SMs
+//   reading a sample's T.
+// * Pivot-first panels. Only rows at or below the rank give a pivot, and a
+//   panel has one iff such a row holds a panel bit (the first such column
+//   finds it). So the blocks first compute the words of their slots at or
+//   below the rank; a cluster barrier and a flag a block tell every block
+//   whether any is nonzero, and (the b-exit) whether any of those slots
+//   still carries a syndrome bit. If none holds a word, the panel changes
+//   nothing: next panel, one cluster barrier. Rows above the rank are read
+//   only in panels with a pivot.
+// * The leader (block 0) gathers the words and b of the rows at or below
+//   the rank through distributed shared memory (pslot, the slot of each
+//   logical row, is spread over the blocks like the slots), compacts the
+//   list (those holding a bit and the 32 from the rank) with a block-wide
+//   scan, and one warp eliminates the panel on it (gf2_transform_panel.cuh's
+//   eliminate_panel, without the rows above the rank, which never take part
+//   in a pivot's choice and never swap). At each pivot k it records the
+//   pivot row's panel word PW_k, its mask over U PM_k and its b, and writes
+//   the list rows' masks, b and logical rows back to their slots' blocks and
+//   their slots to pslot. Meanwhile every other warp of the cluster computes
+//   its block's rows above the rank's panel words (a warp a row). The only
+//   per-row arrays a block holds beyond its own R slots are the leader's
+//   list (its words, masks, slots and logical rows), so that a cluster of 16
+//   takes 9,312 rows.
+// * Each row above the rank then replays the panel's pivots in column order
+//   (a thread a row): if it holds pivot k's column bit it XORs in PW_k,
+//   PM_k with bit k, and b_k. By linearity that is the mask and b the
+//   sequential walk gives it (tests/test_torch_k4g_cluster.py holds the
+//   claim).
+// * Each block stages U (the pivots' panel-start rows) in its own shared
+//   memory; a cluster barrier; then each row whose mask is set takes its U
+//   rows (a warp a row, a lane a word). Three cluster barriers a panel with
+//   a pivot, one without.
 //
-// At the end T is put in logical order in place: a few words of every row
-// at a time are staged in the shared memory the loop no longer needs, then
-// written back to the rows whose slot they held. The exits are K4's (at
-// every 32nd column: rank(H) reached, or with the b-exit no syndrome bit
-// at or below the rank), so T, b, rank and piv_col equal the plain
-// version's (ops/osd_transform_cuda.py::eliminate_transform_plain).
+// At the end each block writes its slots' b, and its rows of T to their
+// logical rows: from shared memory directly; from global memory in place,
+// a few words of every slot at a time staged in the shared memory the walk
+// no longer needs, a cluster barrier between staging and writing. The exits
+// are K4's (at every 32nd column: rank(H) reached, or with the b-exit no
+// syndrome bit at or below the rank), so T, b, rank and piv_col equal the
+// plain version's (ops/osd_transform_cuda.py::eliminate_transform_plain).
+//
+// Built with K4G_PROBE defined (scripts/probe_k4g.py's copy only), thread 0
+// of every block adds clock64() cycles per step and counts into a buffer
+// set by gf2_transform_elim_global_set_probe.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gf2_transform_panel.cuh"
 
-#define THREADS 512
-#define MAX_ROWS 65536  // slots and list rows are 16-bit
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(THREADS, 2) gf2_transform_elim_global_kernel(
+#ifndef THREADS
+#define THREADS 1024  // a probe's build may pick another block size
+#endif
+#define MAX_ROWS 65536  // slots and list rows are 16-bit
+#define MAX_CLUSTER 16
+
+#ifdef K4G_PROBE
+#define NPROBE 24
+__device__ unsigned long long* k4g_probe_buf = nullptr;
+#define PROBE_MARK(idx)                                   \
+    do {                                                  \
+        if (tid == 0) {                                   \
+            const long long now_ = clock64();             \
+            pacc[idx] += (unsigned long long)(now_ - t_); \
+            t_ = now_;                                    \
+        }                                                 \
+    } while (0)
+#define PROBE_ADD(idx, v) \
+    do {                  \
+        if (tid == 0) pacc[idx] += (unsigned long long)(v); \
+    } while (0)
+#else
+#define PROBE_MARK(idx) do {} while (0)
+#define PROBE_ADD(idx, v) do {} while (0)
+#endif
+
+// The panel bits of one row of T: a warp, a lane a listed (word, column)
+// pair (pwj: the word above the low 5 bits, the panel column in them; pm:
+// the column's word there), the lanes' bits XORed together (every lane gets
+// the word). Every lane does the same work whatever the columns' weights.
+__device__ __forceinline__ uint32_t panel_word(
+    const uint32_t* row, const uint16_t* pwj, const uint32_t* pm, int np, int lane)
+{
+    uint32_t wv = 0;
+#pragma unroll 4
+    for (int p = lane; p < np; p += 32) {
+        const uint32_t wj = pwj[p];
+        wv ^= (uint32_t)(__popc(row[wj >> 5] & pm[p]) & 1) << (wj & 31u);
+    }
+    return __reduce_xor_sync(FULL, wv);
+}
+
+// The panel words of a block's own rows above the rank into Wsl: warps
+// first, first + step, ... a row each.
+__device__ __forceinline__ void above_words(
+    const uint32_t* Town, int nr, int rank, const uint16_t* lrow, uint32_t* Wsl,
+    const uint16_t* pwj, const uint32_t* pm, int np, int mw, int first, int step, int lane)
+{
+    for (int r = first; r < nr; r += step) {
+        if (lrow[r] >= rank) continue;
+        const uint32_t wv = panel_word(Town + (size_t)r * mw, pwj, pm, np, lane);
+        if (lane == 0) Wsl[r] = wv;
+    }
+}
+
+// One warp of the leader eliminates the panel on the rows at or below the
+// rank: eliminate_panel (gf2_transform_panel.cuh) on a list without the
+// rows above the rank (its prank is 0; the block compacted the L list rows'
+// words into W and their slots, b in bit 16, into cX, in logical order),
+// which also records each pivot's column, panel word, mask over U, slot and
+// b, and writes piv_col to global memory. Leaves each list position's slot
+// and b in W[q] and its mask in cX[q].
+__device__ __forceinline__ void eliminate_below(
+    uint32_t* W, uint32_t* cW, uint32_t* cX,
+    int* piv_g, int* s_pcol, uint32_t* s_pw, uint32_t* s_pm, int* s_src, uint32_t* s_pb,
+    int* s_rank, int* s_npiv, int L, int ncols, int col0, int rank0, int lane)
+{
+    const int LG = (L + 31) >> 5;
+    uint32_t* cM = W;  // once the list's words are in cW
+    for (int g = 0; g < LG; ++g) {
+        const int q = 32 * g + lane;
+        const uint32_t x = q < L ? W[q] : 0u, sb = q < L ? cX[q] : 0u;
+        cW[32 * g + lane] = transpose32(x, lane);
+        cX[32 * g + lane] = transpose32(sb, lane);
+    }
+    __syncwarp();
+    for (int g = 0; g < LG; ++g) cM[32 * g + lane] = 0u;
+    __syncwarp();
+
+    uint32_t* myW = cW + lane;  // word g of my columns at my?[32 g]
+    uint32_t* myM = cM + lane;
+    uint32_t* myX = cX + lane;
+    int k = 0, mypiv = -1;
+    uint32_t pb = 0;
+    for (int j = 0; j < ncols; ++j) {
+        const int pr = k;  // the rank row's position
+        // the columns from j on with a bit at or after the rank row, each
+        // lane its own; the columns before the first of them hold no pivot
+        // and nothing changes until it, so the walk goes there at once
+        int first = L;
+        if (lane >= j && lane < ncols) {
+            for (int g = pr >> 5; g < LG; ++g) {
+                uint32_t x = myW[32 * g];
+                if (g == pr >> 5) x &= FULL << (pr & 31);
+                if (x) {
+                    first = 32 * g + __ffs(x) - 1;
+                    break;
+                }
+            }
+        }
+        const uint32_t cand = __ballot_sync(FULL, first < L);
+        if (!cand) break;  // no pivot in the rest of the panel
+        j = __ffs(cand) - 1;
+        const int q = __shfl_sync(FULL, first, j);
+        const int gq = q >> 5, gr = pr >> 5;
+        const uint32_t eq = 1u << (q & 31), er = 1u << (pr & 31);
+        // the pivot row's bits in my vectors, then the swap of q and pr
+        const uint32_t wq = myW[32 * gq], wr = myW[32 * gr];
+        const uint32_t mq = myM[32 * gq], mr = myM[32 * gr];
+        const uint32_t xq = myX[32 * gq], xr = myX[32 * gr];
+        const bool hw = wq & eq, hm = mq & eq, hx = xq & eq;
+        if (q != pr) {
+            if (hw != (bool)(wr & er)) {
+                myW[32 * gq] = wq ^ eq;
+                myW[32 * gr] = (gq == gr ? wq ^ eq : wr) ^ er;
+            }
+            if (hm != (bool)(mr & er)) {
+                myM[32 * gq] = mq ^ eq;
+                myM[32 * gr] = (gq == gr ? mq ^ eq : mr) ^ er;
+            }
+            if (hx != (bool)(xr & er)) {
+                myX[32 * gq] = xq ^ eq;
+                myX[32 * gr] = (gq == gr ? xq ^ eq : xr) ^ er;
+            }
+        }
+        // the pivot row as the rows above the rank replay it
+        const uint32_t pw = __ballot_sync(FULL, hw), pm = __ballot_sync(FULL, hm);
+        const uint32_t sx = __ballot_sync(FULL, hx);  // the pivot's slot, and its b in bit 16
+        if (lane == 0) {
+            s_pcol[k] = j;
+            s_pw[k] = pw;
+            s_pm[k] = pm;
+            s_src[k] = (int)(sx & 0xffffu);
+        }
+        pb |= ((sx >> 16) & 1u) << k;
+        if (lane == k) mypiv = col0 + j;
+        __syncwarp();  // column j after the swap
+        // every other row holding bit j takes the pivot row: its W bits,
+        // its mask over U with pivot k, its b
+        const bool doW = hw && lane != j, doM = hm || lane == k, doX = lane == 16 && hx;
+        for (int g = 0; g < LG; g += 4) {
+            uint32_t s[4], a[4], b[4], c[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const bool in = g + u < LG;
+                s[u] = in ? cW[32 * (g + u) + j] : 0u;
+                if (g + u == gr) s[u] &= ~er;
+                a[u] = in && doW ? myW[32 * (g + u)] : 0u;
+                b[u] = in && doM ? myM[32 * (g + u)] : 0u;
+                c[u] = in && doX ? myX[32 * (g + u)] : 0u;
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                if (g + u >= LG) break;
+                if (doW) myW[32 * (g + u)] = a[u] ^ s[u];
+                if (doM) myM[32 * (g + u)] = b[u] ^ s[u];
+                if (doX) myX[32 * (g + u)] = c[u] ^ s[u];
+            }
+        }
+        __syncwarp();
+        ++k;
+    }
+
+    // each list position's slot and b (cX transposed back) to W, its mask
+    // (cM transposed back) to cX
+    for (int g = 0; g < LG; ++g) {
+        const uint32_t y = transpose32(cX[32 * g + lane], lane);
+        const uint32_t mk = transpose32(cM[32 * g + lane], lane);
+        const int q = 32 * g + lane;
+        if (q < L) {
+            W[q] = y;
+            cX[q] = mk;
+        }
+    }
+    if (lane < k) piv_g[rank0 + lane] = mypiv;
+    if (lane == 0) {
+        *s_pb = pb;
+        *s_rank = rank0 + k;
+        *s_npiv = k;
+    }
+}
+
+// Dynamic shared memory of one block (the Python mirror is
+// ops/osd_transform_cuda.py::global_smem_bytes): the staged panel columns at
+// an odd stride, the (word, column) pairs' words, U (the leader's cW while
+// it eliminates); per own slot (R) the panel word and the mask; the
+// leader's list (m_pad): the gathered words (then cM), cX; with TS the
+// block's R rows of T; then 16-bit: the pairs' places, per own slot its
+// logical row and per own logical row its slot, the list's logical rows;
+// per own slot b.
+static size_t k4g_smem_bytes(int m, int mw, int C, int ts)
+{
+    const size_t m_pad = (size_t)((m + 31) / 32) * 32, R = (size_t)((m + C - 1) / C);
+    const size_t words = PANEL * (size_t)(mw | 1) + 2 * PANEL * (size_t)mw + 2 * R
+                         + 2 * m_pad + (ts ? R * mw : 0);
+    return 4 * words + 2 * (PANEL * (size_t)mw + 2 * R + m_pad) + R;
+}
+
+template <bool TS>
+__global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
     const int* __restrict__ order, const uint32_t* __restrict__ Hc,
     uint32_t* T_out, int* __restrict__ b_io,
     int* __restrict__ rank_out, int* __restrict__ piv_out,
-    int m, int mw, int n, int h_rank, int b_exit)
+    int m, int mw, int n, int h_rank, int b_exit, int C)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    __shared__ int s_src[PANEL];  // slot of each pivot's panel-start row
-    __shared__ int s_rank, s_npiv, s_nz;
+    // the leader's panel record, copied by every block once a panel pivots
+    __shared__ int s_pcol[PANEL], s_src[PANEL];
+    __shared__ uint32_t s_pw[PANEL], s_pm[PANEL], s_pb;
+    __shared__ int s_rank, s_npiv, s_np[2], s_any[2], s_wcnt[32];
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int crank = (int)cluster.block_rank();
+    const bool leader = crank == 0;
     const int G = (m + 31) >> 5, m_pad = G * 32;
     const int stride = mw | 1;
-    uint32_t* hc = (uint32_t*)smem_raw;              // PANEL * stride, staged columns
-    uint32_t* lm = hc + PANEL * stride;              // PANEL * mw, word masks; then cW
-    uint32_t* W = lm + PANEL * mw;                   // m_pad panel words; then cM; then U
-    uint32_t* Msk = W + m_pad;                       // m_pad, cX; then pivots' U rows of each row
-    int* piv = (int*)(Msk + m_pad);                  // m_pad
-    uint32_t* s_cols = (uint32_t*)(piv + m_pad);     // mw, the staged columns nonzero in each word
-    uint16_t* phys = (uint16_t*)(s_cols + mw);       // m_pad, slot of each logical row
-    uint16_t* lab = phys + m_pad;                    // m_pad, the list's logical rows
-    uint16_t* nzw = lab + m_pad;                     // mw, the words some panel column touches
-    uint8_t* bb = (uint8_t*)(nzw + mw);              // m_pad
+    const int R = (m + C - 1) / C, r0 = crank * R, nr = max(0, min(R, m - r0));
+    uint32_t* hc = (uint32_t*)smem_raw;               // PANEL * stride, staged columns
+    uint32_t* pm = hc + PANEL * stride;               // PANEL * mw, the (word, column) pairs' words
+    uint32_t* U = pm + PANEL * mw;                    // PANEL * mw, pivots' rows; leader: cW
+    uint32_t* Wsl = U + PANEL * mw;                   // R, own slots' panel words
+    uint32_t* Msl = Wsl + R;                          // R, own slots' masks over U
+    uint32_t* Wl = Msl + R;                           // m_pad, leader: the list's words, then cM
+    uint32_t* cX = Wl + m_pad;                        // m_pad, leader: the list's slots and b
+    uint32_t* Tsm = cX + m_pad;                       // TS: R * mw, own rows of T
+    uint16_t* pwj = (uint16_t*)(Tsm + (TS ? (size_t)R * mw : 0));  // PANEL * mw, pairs' word, column
+    uint16_t* lrow = pwj + PANEL * mw;                // R, logical row of each own slot
+    uint16_t* pslot = lrow + R;                       // R, slot of each own logical row r0 + r
+    uint16_t* lab = pslot + R;                        // m_pad, leader: the list's logical rows
+    uint8_t* bsl = (uint8_t*)(lab + m_pad);           // R, own slots' b
 
-    const int s = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+    const int s = blockIdx.x / C, tid = threadIdx.x, nt = blockDim.x;
     const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5, stager = nwarps - 1;
     const int* ord = order + (size_t)s * n;
     int* b_s = b_io + (size_t)s * m;
-    uint32_t* T = T_out + (size_t)s * m * mw;  // row of slot r at T + r * mw
+    int* piv_g = piv_out + (size_t)s * m;
+    uint32_t* Tg = T_out + (size_t)s * m * mw;        // row of slot r at Tg + r * mw
+    uint32_t* Town = TS ? Tsm : Tg + (size_t)r0 * mw; // own slot r0 + r at Town + r * mw
+#ifdef K4G_PROBE
+    unsigned long long pacc[NPROBE];
+    for (int k = 0; k < NPROBE; ++k) pacc[k] = 0;
+    long long t_ = clock64();
+    const long long t_start = t_;
+    __shared__ unsigned int s_count;
+    if (tid == 0) s_count = 0;
+#endif
 
-    for (int idx = tid; idx < m * mw; idx += nt) {
-        const int i = idx / mw, w = idx - i * mw;
-        T[idx] = (i >> 5) == w ? (1u << (i & 31)) : 0u;
+    for (int idx = tid; idx < nr * mw; idx += nt) {
+        const int r = idx / mw, w = idx - r * mw, slot = r0 + r;
+        Town[idx] = (slot >> 5) == w ? (1u << (slot & 31)) : 0u;
     }
-    for (int i = tid; i < m_pad; i += nt) {
-        bb[i] = i < m ? (uint8_t)b_s[i] : 0;
-        piv[i] = -1;
-        phys[i] = (uint16_t)i;
+    for (int r = tid; r < nr; r += nt) {
+        lrow[r] = (uint16_t)(r0 + r);
+        pslot[r] = (uint16_t)(r0 + r);
+        bsl[r] = (uint8_t)b_s[r0 + r];
+        piv_g[r0 + r] = -1;
     }
+    if (tid < 2) s_np[tid] = 0;
     if (warp == stager && n > 0) stage_panel(hc, stride, ord, Hc, 0, n, mw, lane);
-    __syncthreads();
+    cluster.sync();  // every block set up before any reads another
 
-    int rank = 0;
-    for (int col0 = 0; col0 < n; col0 += PANEL) {
-        bool done = rank >= h_rank;
-        if (b_exit && !done) {
-            int unresolved = 0;
-            for (int i = rank + tid; i < m; i += nt) unresolved |= bb[i];
-            done = !__syncthreads_or(unresolved);
-        }
-        if (done) break;
+    // the exits at each panel's start: rank(H) reached here, the b-exit (no
+    // syndrome bit at or below the rank) once step 2 has looked
+    int rank = 0, par = 0;
+    for (int col0 = 0; col0 < n && rank < h_rank; col0 += PANEL, par ^= 1) {
         const int ncols = min(PANEL, n - col0);
         cp_async_wait_all();
         __syncthreads();  // the panel's columns have landed
+        if (tid == 0) s_np[par ^ 1] = 0;  // the next panel's count
+        PROBE_ADD(0, 1);
+        PROBE_MARK(1);
 
-        // 1. for each word w of a row, the panel's columns nonzero there
-        //    (ascending, a bit each in s_cols[w]) and their masks; the words
-        //    with any, listed in nzw
-        if (warp == 0) {
-            int nz = 0;
-            for (int w0 = 0; w0 < mw; w0 += 32) {
-                const int w = w0 + lane;
-                uint32_t cols = 0;
-                if (w < mw) {
-                    uint32_t* mk = lm + w * PANEL;
-                    int len = 0;
-                    for (int j = 0; j < ncols; ++j) {
-                        const uint32_t x = hc[j * stride + w];
-                        if (x) {
-                            mk[len++] = x;
-                            cols |= 1u << j;
-                        }
-                    }
-                    s_cols[w] = cols;
-                }
-                const uint32_t bal = __ballot_sync(FULL, cols != 0u);
-                if (cols) nzw[nz + __popc(bal & ((1u << lane) - 1u))] = (uint16_t)w;
-                nz += __popc(bal);
+        // 1. the (word, column) pairs where a panel column is nonzero, a
+        //    thread a word: its pairs at a place its atomicAdd reserves (the
+        //    order of the pairs does not matter, their bits are XORed)
+        for (int w0 = 0; w0 < mw; w0 += nt) {
+            const int w = w0 + tid;
+            if (w >= mw) continue;
+            uint32_t cols = 0;
+            for (int j = 0; j < ncols; ++j) cols |= (uint32_t)(hc[j * stride + w] != 0u) << j;
+            if (!cols) continue;
+            int at = atomicAdd(&s_np[par], __popc(cols));
+            for (; cols; cols &= cols - 1, ++at) {
+                const int j = __ffs(cols) - 1;
+                pm[at] = hc[j * stride + w];
+                pwj[at] = (uint16_t)((w << 5) | j);
             }
-            if (lane == 0) s_nz = nz;
         }
         __syncthreads();
         if (warp == stager && col0 + PANEL < n)
             stage_panel(hc, stride, ord, Hc, col0 + PANEL, n, mw, lane);
+        const int np = s_np[par];
+        PROBE_MARK(2);
 
-        // 2. the panel's bits of every logical row: a warp a row, a lane a
-        //    listed word, the lanes' bits XORed together
-        const int nz = s_nz;
-        for (int i = warp; i < m_pad; i += nwarps) {
-            uint32_t wv = 0;
-            if (i < m) {
-                const uint32_t* row = T + (size_t)phys[i] * mw;
-                for (int q = lane; q < nz; q += 32) {
-                    const int w = nzw[q];
-                    const uint32_t x = row[w];
-                    const uint32_t* mk = lm + w * PANEL;
-                    uint32_t cols = s_cols[w];
-                    for (int t = 0; cols; ++t, cols &= cols - 1)
-                        wv ^= (uint32_t)(__popc(x & mk[t]) & 1) << (__ffs(cols) - 1);
-                }
-                wv = __reduce_xor_sync(FULL, wv);
+        // 2. the panel words of own slots at or below the rank, and whether
+        //    any of them carries a syndrome bit
+        int any = 0, unres = 0;
+        for (int r = warp; r < nr; r += nwarps) {
+            if (lrow[r] < rank) continue;
+            const uint32_t wv = panel_word(Town + (size_t)r * mw, pwj, pm, np, lane);
+            if (lane == 0) {
+                Wsl[r] = wv;
+                Msl[r] = 0u;
             }
-            if (lane == 0) W[i] = wv;
+            any |= wv != 0u;
+            unres |= bsl[r];
+#ifdef K4G_PROBE
+            if (lane == 0) atomicAdd(&s_count, 1u);
+#endif
+        }
+        any = __syncthreads_or(any);
+        unres = __syncthreads_or(unres);
+        if (tid == 0) s_any[par] = any | (unres << 1);
+#ifdef K4G_PROBE
+        if (tid == 0) {
+            pacc[14] += s_count;
+            s_count = 0;
+        }
+#endif
+        PROBE_MARK(3);
+        cluster.sync();  // barrier 1: the words and the flags
+        int flags = 0;
+        if (tid < C) flags = *cluster.map_shared_rank(&s_any[par], tid);
+        const int pivots = __syncthreads_or(flags & 1);
+        const int unresolved = __syncthreads_or(flags & 2);
+        PROBE_MARK(4);
+        if (b_exit && !unresolved) break;  // the b-exit, before the panel changes anything
+        if (!pivots) continue;  // no row at or below the rank holds a panel bit
+        PROBE_ADD(5, 1);
+
+        // 3. the leader: the words, slots and b of the logical rows at or
+        //    below the rank gathered and the list (those holding a bit and
+        //    the 32 from the rank) compacted in logical order, a block-wide
+        //    scan a chunk of rows; the panel's pivots on the list (warp 0);
+        //    the list rows' masks, b and logical rows back to their slots'
+        //    blocks, their slots to pslot. Meanwhile every other warp of the
+        //    cluster computes the panel words of its block's rows above the
+        //    rank.
+        if (leader) {
+            int L = 0;
+            for (int base = rank; base < m; base += nt) {
+                const int i = base + tid;
+                uint32_t w = 0, x = 0;
+                if (i < m) {
+                    const int ci = i / R;
+                    const int sl = cluster.map_shared_rank(pslot, ci)[i - ci * R];
+                    const int c = sl / R, loc = sl - c * R;
+                    w = cluster.map_shared_rank(Wsl, c)[loc];
+                    x = (uint32_t)sl | ((uint32_t)cluster.map_shared_rank(bsl, c)[loc] << 16);
+                }
+                const bool in = i < m && (w != 0u || i < rank + PANEL);
+                const uint32_t bal = __ballot_sync(FULL, in);
+                if (lane == 0) s_wcnt[warp] = __popc(bal);
+                __syncthreads();
+                int off = L, tot = 0;
+                for (int v = 0; v < nwarps; ++v) {
+                    const int cnt = s_wcnt[v];
+                    off += v < warp ? cnt : 0;
+                    tot += cnt;
+                }
+                if (in) {
+                    const int q = off + __popc(bal & ((1u << lane) - 1u));
+                    Wl[q] = w;
+                    cX[q] = x;
+                    lab[q] = (uint16_t)i;
+                }
+                L += tot;
+                __syncthreads();  // s_wcnt read before the next chunk's counts
+            }
+            PROBE_MARK(6);
+            if (warp == 0)
+                eliminate_below(Wl, U, cX, piv_g, s_pcol, s_pw, s_pm, s_src, &s_pb, &s_rank,
+                                &s_npiv, L, ncols, col0, rank, lane);
+            else
+                above_words(Town, nr, rank, lrow, Wsl, pwj, pm, np, mw, warp - 1, nwarps - 1,
+                            lane);
+            __syncthreads();
+            PROBE_MARK(7);
+            for (int q = tid; q < L; q += nt) {
+                const int i = lab[q], ci = i / R;
+                const uint32_t y = Wl[q];
+                const int sl = (int)(y & 0xffffu), c = sl / R, loc = sl - c * R;
+                cluster.map_shared_rank(Msl, c)[loc] = cX[q];
+                cluster.map_shared_rank(bsl, c)[loc] = (uint8_t)((y >> 16) & 1u);
+                cluster.map_shared_rank(lrow, c)[loc] = (uint16_t)i;
+                cluster.map_shared_rank(pslot, ci)[i - ci * R] = (uint16_t)sl;
+            }
+            PROBE_ADD(12, L);
+            PROBE_ADD(13, m - rank);
+            PROBE_MARK(8);
+        } else {
+            above_words(Town, nr, rank, lrow, Wsl, pwj, pm, np, mw, warp, nwarps, lane);
+        }
+        cluster.sync();  // barrier 2: the panel's record and the masks written
+        if (!leader && tid < PANEL + 1) {
+            const int* src_pcol = cluster.map_shared_rank(s_pcol, 0);
+            const int* src_src = cluster.map_shared_rank(s_src, 0);
+            const uint32_t* src_pw = cluster.map_shared_rank(s_pw, 0);
+            const uint32_t* src_pm = cluster.map_shared_rank(s_pm, 0);
+            if (tid < PANEL) {
+                s_pcol[tid] = src_pcol[tid];
+                s_src[tid] = src_src[tid];
+                s_pw[tid] = src_pw[tid];
+                s_pm[tid] = src_pm[tid];
+            } else {
+                s_pb = *cluster.map_shared_rank(&s_pb, 0);
+                s_rank = *cluster.map_shared_rank(&s_rank, 0);
+                s_npiv = *cluster.map_shared_rank(&s_npiv, 0);
+            }
         }
         __syncthreads();
-
-        // 3. the panel's pivots on W, one warp
-        if (warp == 0)
-            eliminate_panel(W, lm, lab, Msk, bb, phys, piv, s_src, &s_rank, &s_npiv, m, G, ncols,
-                            col0, rank, lane);
-        __syncthreads();
-        rank = s_rank;
         const int npiv = s_npiv;
-        if (npiv == 0) continue;
+        PROBE_MARK(9);
 
-        // 4. U (the pivots' panel-start rows) into W, then every row whose
-        //    mask is set takes its U rows: a warp a row, a lane a word
-        for (int idx = tid; idx < npiv * mw; idx += nt) {
-            const int k = idx / mw, w = idx - k * mw;
-            W[idx] = T[(size_t)s_src[k] * mw + w];
+        // 4. own rows above the rank replay the panel's pivots in column
+        //    order (mask and b), a thread a row; U staged
+        for (int r = tid; r < nr; r += nt) {
+            if (lrow[r] >= rank) continue;
+            uint32_t wv = Wsl[r], mk = 0, bit = bsl[r];
+#ifdef K4G_PROBE
+            if (wv) atomicAdd(&s_count, 1u);
+#endif
+            for (int k = 0; wv && k < npiv; ++k) {
+                if ((wv >> s_pcol[k]) & 1u) {
+                    wv ^= s_pw[k];
+                    mk ^= s_pm[k] ^ (1u << k);
+                    bit ^= (s_pb >> k) & 1u;
+                }
+            }
+            Msl[r] = mk;
+            bsl[r] = (uint8_t)bit;
         }
-        __syncthreads();
-        for (int i = warp; i < m; i += nwarps) {
-            const uint32_t mk = Msk[i];
+        for (int idx = tid; idx < npiv * mw; idx += nt) {
+            const int k = idx / mw, w = idx - k * mw, sl = s_src[k];
+            if (TS) {
+                const int c = sl / R;
+                U[idx] = cluster.map_shared_rank(Tsm, c)[(size_t)(sl - c * R) * mw + w];
+            } else {
+                U[idx] = __ldcg(Tg + (size_t)sl * mw + w);
+            }
+        }
+        PROBE_MARK(10);
+        cluster.sync();  // barrier 3: U staged in every block before any row changes
+        PROBE_MARK(11);
+#ifdef K4G_PROBE
+        if (tid == 0) {
+            pacc[15] += s_count;
+            s_count = 0;
+        }
+#endif
+
+        // 5. every own row whose mask is set takes its U rows: a warp a row,
+        //    a lane a word
+        for (int r = warp; r < nr; r += nwarps) {
+            const uint32_t mk = Msl[r];
             if (!mk) continue;
-            uint32_t* row = T + (size_t)phys[i] * mw;
+            uint32_t* row = Town + (size_t)r * mw;
             for (int w = lane; w < mw; w += 32) {
                 uint32_t x = row[w];
-                for (uint32_t bits = mk; bits; bits &= bits - 1) x ^= W[(__ffs(bits) - 1) * mw + w];
+                for (uint32_t bits = mk; bits; bits &= bits - 1) x ^= U[(__ffs(bits) - 1) * mw + w];
                 row[w] = x;
             }
+#ifdef K4G_PROBE
+            if (lane == 0) atomicAdd(&s_count, 1u);
+#endif
         }
-        __syncthreads();  // T's rows written before the next panel reads them
+        rank = s_rank;
+        __syncthreads();  // own rows written before the next panel reads them
+#ifdef K4G_PROBE
+        if (tid == 0) {
+            pacc[16] += s_count;
+            s_count = 0;
+        }
+#endif
+        PROBE_MARK(17);
     }
     cp_async_wait_all();  // a staged panel the exit left unread
-    __syncthreads();
+    cluster.sync();  // no block reads another's shared memory past here
+    PROBE_MARK(18);
 
-    for (int i = tid; i < m; i += nt) {
-        b_s[i] = bb[i];
-        piv_out[(size_t)s * m + i] = piv[i];
-    }
-    if (tid == 0) rank_out[s] = rank;
-
-    // T into logical order: cw words of every slot staged in hc .. Msk (no
-    // longer read), then written to the row that slot holds
-    uint32_t* stage = hc;
-    const int cw = min(mw, (PANEL * stride + PANEL * mw + 2 * m_pad) / m);
-    for (int w0 = 0; w0 < mw; w0 += cw) {
-        const int c = min(cw, mw - w0);
-        for (int idx = tid; idx < m * c; idx += nt) {
-            const int r = idx / c, j = idx - r * c;
-            stage[idx] = T[(size_t)r * mw + w0 + j];
+    if (leader && tid == 0) rank_out[s] = rank;
+    for (int r = tid; r < nr; r += nt) b_s[lrow[r]] = bsl[r];
+    // T into logical order: each own slot's row to the row it holds
+    if (TS) {
+        for (int r = warp; r < nr; r += nwarps) {
+            uint32_t* dst = Tg + (size_t)lrow[r] * mw;
+            const uint32_t* src = Tsm + (size_t)r * mw;
+            for (int w = lane; w < mw; w += 32) dst[w] = src[w];
         }
-        __syncthreads();
-        for (int idx = tid; idx < m * c; idx += nt) {
-            const int i = idx / c, j = idx - i * c;
-            T[(size_t)i * mw + w0 + j] = stage[phys[i] * c + j];
+    } else {
+        // in place: cw words of every own slot staged in hc .. cX (no longer
+        // read), a cluster barrier, then written to the rows they hold
+        uint32_t* stage = hc;
+        const int room = (int)(Tsm - hc);
+        const int cw = max(1, min(mw, room / max(nr, 1)));
+        for (int w0 = 0; w0 < mw; w0 += cw) {
+            const int c = min(cw, mw - w0);
+            for (int idx = tid; idx < nr * c; idx += nt) {
+                const int r = idx / c, j = idx - r * c;
+                stage[idx] = __ldcg(Town + (size_t)r * mw + w0 + j);
+            }
+            cluster.sync();
+            for (int idx = tid; idx < nr * c; idx += nt) {
+                const int r = idx / c, j = idx - r * c;
+                Tg[(size_t)lrow[r] * mw + w0 + j] = stage[idx];
+            }
+            cluster.sync();
         }
-        __syncthreads();
     }
+    PROBE_MARK(19);
+#ifdef K4G_PROBE
+    if (tid == 0 && k4g_probe_buf) {
+        pacc[20] = (unsigned long long)(clock64() - t_start);
+        pacc[21] = (unsigned long long)nr;
+        pacc[22] = (unsigned long long)rank;
+        pacc[23] = (unsigned long long)C;
+        unsigned long long* out = k4g_probe_buf + (size_t)blockIdx.x * NPROBE;
+        for (int k = 0; k < NPROBE; ++k) out[k] = pacc[k];
+    }
+#endif
 }
 
-extern "C" int gf2_transform_elim_global_smem_bytes(int m, int mw)
+extern "C" int gf2_transform_elim_global_smem_bytes(int m, int mw, int C, int ts)
 {
-    const size_t m_pad = (size_t)((m + 31) / 32) * 32;
-    return (int)(4 * (PANEL * (size_t)(mw | 1) + PANEL * (size_t)mw + 3 * m_pad + mw)
-                 + 2 * (2 * m_pad + mw) + m_pad);
+    return (int)k4g_smem_bytes(m, mw, C, ts);
 }
+
+#ifdef K4G_PROBE
+extern "C" int gf2_transform_elim_global_set_probe(void* buf)
+{
+    unsigned long long* p = (unsigned long long*)buf;
+    return (int)cudaMemcpyToSymbol(k4g_probe_buf, &p, sizeof(p));
+}
+#endif
+
+#ifdef K4G_PROBE
+// The kernel's instance for T in shared memory (ts) or global memory, its
+// shared memory opted in, and the clusters of width C that fit the card at
+// once (0 if none: the launch would fail).
+extern "C" int gf2_transform_elim_global_max_clusters(int m, int mw, int C, int ts)
+{
+    const size_t smem = k4g_smem_bytes(m, mw, C, ts);
+    auto kernel = ts ? &gf2_transform_elim_global_kernel<true>
+                     : &gf2_transform_elim_global_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && C > 8)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return -(int)err;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(C);
+    config.blockDim = dim3(THREADS);
+    config.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &config);
+    return err == cudaSuccess ? clusters : -(int)err;
+}
+#endif
 
 extern "C" int gf2_transform_elim_global_launch(
     const void* order, const void* Hc, void* T_out, void* b_io,
     void* rank_out, void* piv_out, int B, int m, int mw, int n, int h_rank,
-    int b_exit, void* stream_)
+    int b_exit, int C, int ts, void* stream_)
 {
     const int G = (m + 31) / 32;
-    if (m < 1 || G * 32 > MAX_ROWS || mw != G) return (int)cudaErrorInvalidValue;
+    if (m < 1 || G * 32 > MAX_ROWS || mw != G || C < 1 || C > MAX_CLUSTER)
+        return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaSuccess;
-    const int smem = gf2_transform_elim_global_smem_bytes(m, mw);
-    auto kernel = &gf2_transform_elim_global_kernel;
+    const size_t smem = k4g_smem_bytes(m, mw, C, ts);
+    auto kernel = ts ? &gf2_transform_elim_global_kernel<true>
+                     : &gf2_transform_elim_global_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<B, THREADS, smem, (cudaStream_t)stream_>>>(
+    if (C > 8) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(B * C);
+    config.blockDim = dim3(THREADS);
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream_;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &config, kernel,
         (const int*)order, (const uint32_t*)Hc, (uint32_t*)T_out, (int*)b_io,
-        (int*)rank_out, (int*)piv_out, m, mw, n, h_rank, b_exit);
+        (int*)rank_out, (int*)piv_out, m, mw, n, h_rank, b_exit, C);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -7,11 +7,14 @@ it on the card and how the design answers (panels of 32 columns, each
 eliminated by one warp on one word per row, only the rows holding a panel
 bit and the 32 from the rank, transposed to a column a lane, then applied to
 T once). ``launch_shape`` gives its threads a block, blocks an SM and waves.
-K4g (``csrc/gf2_transform_elim_global.cu``) is the same algorithm with T in
-global memory, for systems whose T does not fit a block's shared memory
-(``smem_bytes(m) > SMEM_LIMIT``: the [[144,12,12]] and [[288,12,18]] DEMs,
-[[288,12,18]] space-time at T = 18); it has no TPU kernel to replace, since
-the JAX package runs XLA there (qldpc_tpu/decoders/osd.py::
+K4g (``csrc/gf2_transform_elim_global.cu``) is the same algorithm for
+systems whose T does not fit a block's shared memory (``smem_bytes(m) >
+SMEM_LIMIT``: the [[144,12,12]] and [[288,12,18]] DEMs, [[288,12,18]]
+space-time at T = 18), a sample on a cluster of C blocks that split its
+rows, in pivot-first panels (its header says how); T lives in the
+cluster's shared memory where it fits, else in global memory.
+``global_launch_shape`` picks C and where T lives. K4g has no TPU kernel to
+replace, since the JAX package runs XLA there (qldpc_tpu/decoders/osd.py::
 _eliminate_lanes_T). Its caller bounds T's memory: ``t_bytes(m)`` a sample.
 ``eliminate_transform_plain`` is
 qldpc_tpu/decoders/osd.py::_eliminate_lanes_T in torch, sample-major: each
@@ -45,8 +48,10 @@ __all__ = [
     "pack_columns",
     "smem_bytes",
     "global_smem_bytes",
+    "global_fits",
     "t_bytes",
     "launch_shape",
+    "global_launch_shape",
     "eliminate_transform",
     "eliminate_transform_plain",
     "column_bits",
@@ -62,11 +67,15 @@ _COL_BLOCK = 32
 _SM_SMEM = 228 * 1024  # shared memory of one SM, 1 KB of it reserved per block
 _SM_THREADS = 2048  # threads one SM holds
 _SM_BLOCKS = 32  # blocks one SM holds
-# K4g: T in global memory, a block of 512 threads a sample; its static
-# shared memory is one panel table and three scalars
-_GLOBAL_THREADS = 512
-_GLOBAL_STATIC_SMEM = 144
+# K4g: a cluster of C blocks of 1,024 threads a sample, a block an SM; its
+# static shared memory is the panel's pivot record, a count a warp and
+# seven scalars (668 B)
+_GLOBAL_THREADS = 1024
+_GLOBAL_STATIC_SMEM = 768
 GLOBAL_SMEM_LIMIT = 227 * 1024 - _GLOBAL_STATIC_SMEM
+_MAX_CLUSTER = 16  # past 8 a non-portable cluster size
+_CLUSTER_CAP = 8  # the widest portable cluster
+_WIDE_CLUSTERS = 7  # clusters of 16 such blocks an H100 holds at once
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _LIB = KernelLibrary(
@@ -81,8 +90,9 @@ _GLOBAL_LIB = KernelLibrary(
     "gf2_transform_elim_global.cu",
     {
         "gf2_transform_elim_global_launch": [
-            _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp,
-        ]
+            _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
+        ],
+        "gf2_transform_elim_global_smem_bytes": [_i, _i, _i, _i],
     },
 )
 
@@ -115,14 +125,26 @@ def smem_bytes(m: int) -> int:
         + 4 * m_pad + m_pad
 
 
-def global_smem_bytes(m: int) -> int:
-    """Dynamic shared memory of one K4g block: K4's less T (the staged
-    panel columns, their word lists, the per-row state) plus, per word, the
-    panel columns nonzero there and the list of such words."""
+def global_smem_bytes(m: int, cluster: int = 1, t_smem: bool = False) -> int:
+    """Dynamic shared memory of one K4g block in a cluster of ``cluster``
+    blocks (the kernel's ``k4g_smem_bytes``): the staged panel columns at an
+    odd stride, the panel's (word, column) pairs (their words, and their
+    places in 16 bits), U; per own slot (R = ceil(m / cluster)) the panel
+    word, the mask, the logical row and b, and per own logical row its
+    slot; the leader's list (its words, slots and b, logical rows); with
+    ``t_smem`` the block's R rows of T. A cluster of 16 takes 9,312 rows (``global_fits``)."""
     mw = -(-m // WORD)
     m_pad = mw * WORD
-    return 4 * (_COL_BLOCK * (mw | 1) + _COL_BLOCK * mw + 3 * m_pad + mw) \
-        + 2 * (2 * m_pad + mw) + m_pad
+    R = -(-m // cluster)
+    words = _COL_BLOCK * (mw | 1) + 2 * _COL_BLOCK * mw + 2 * R + 2 * m_pad \
+        + (R * mw if t_smem else 0)
+    return 4 * words + 2 * (_COL_BLOCK * mw + 2 * R + m_pad) + R
+
+
+def global_fits(m: int) -> bool:
+    """Whether K4g takes a system of m rows: its per-row state fits a block
+    of the widest cluster."""
+    return global_smem_bytes(m, _MAX_CLUSTER) <= GLOBAL_SMEM_LIMIT
 
 
 def t_bytes(m: int) -> int:
@@ -136,17 +158,38 @@ def launch_shape(m: int, B: int, sms: int) -> tuple[int, int, int]:
     fits a block: the kernel instance for m's row groups fixes the threads,
     256 up to 512 rows (its registers bounded for six blocks an SM), 512
     beyond (two, or one past 1,024 rows), never more than a thread a row.
-    K4g, past it: 512 threads, registers bounded for two blocks an SM.
     Blocks an SM: what the shared memory and the threads allow (registers
-    may allow fewer)."""
+    may allow fewer). K4g, past it: 1,024 threads, a block an SM, the
+    waves of ``global_launch_shape``'s clusters."""
     groups = -(-m // WORD)
-    if smem_bytes(m) <= SMEM_LIMIT:
-        threads = min(256 if groups <= 16 else 512, groups * WORD)
-        smem, cap = smem_bytes(m) + _STATIC_SMEM, _SM_BLOCKS
-    else:
-        threads, smem, cap = _GLOBAL_THREADS, global_smem_bytes(m) + _GLOBAL_STATIC_SMEM, 2
-    fit = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads, cap))
+    if smem_bytes(m) > SMEM_LIMIT:
+        return _GLOBAL_THREADS, 1, global_launch_shape(m, B, sms)[2]
+    threads = min(256 if groups <= 16 else 512, groups * WORD)
+    smem = smem_bytes(m) + _STATIC_SMEM
+    fit = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads, _SM_BLOCKS))
     return threads, max(1, min(fit, -(-B // sms))), -(-B // (sms * fit))
+
+
+def global_launch_shape(m: int, B: int, sms: int,
+                        cluster: int | None = None) -> tuple[int, bool, int]:
+    """K4g's geometry for B samples of m rows on ``sms`` SMs: ``(cluster
+    width C, T in the cluster's shared memory, waves)``, a block an SM, the
+    grid B * C blocks. C is the widest power of two that keeps the clusters
+    to one wave (B * C <= sms), at most 8, or 16 where at most
+    ``_WIDE_CLUSTERS`` samples run, and wider where the per-row state would
+    not fit a block. T is in shared memory wherever the cluster holds it.
+    ``cluster`` overrides C. (scripts/probe_k4g.py measures every width.)"""
+    if cluster is None:
+        cluster = 1
+        cap = _MAX_CLUSTER if B <= _WIDE_CLUSTERS else _CLUSTER_CAP
+        while 2 * cluster <= cap and B * 2 * cluster <= sms:
+            cluster *= 2
+        while cluster < _MAX_CLUSTER and global_smem_bytes(m, cluster) > GLOBAL_SMEM_LIMIT:
+            cluster *= 2  # the per-row state alone passes a block
+    if not 1 <= cluster <= _MAX_CLUSTER:
+        raise ValueError(f"K4g's cluster width must be 1 to {_MAX_CLUSTER}, not {cluster}")
+    t_smem = global_smem_bytes(m, cluster, True) <= GLOBAL_SMEM_LIMIT
+    return cluster, t_smem, -(-B * cluster // sms)
 
 
 def _sm_count(dev) -> int:
@@ -313,18 +356,24 @@ eliminate_transform_cuda.launches = 0
 
 def eliminate_transform_global_cuda(order: torch.Tensor, b: torch.Tensor,
                                     Hc: torch.Tensor, h_rank: int,
-                                    b_exit: bool = False):
+                                    b_exit: bool = False, *, _cluster: int | None = None,
+                                    _t_smem: bool | None = None):
     """Launch K4g. Same contract as ``eliminate_transform_plain``. Allocates
-    T, ``t_bytes(m)`` a sample: the caller bounds B."""
+    T, ``t_bytes(m)`` a sample: the caller bounds B. ``_cluster`` and
+    ``_t_smem`` override ``global_launch_shape``'s choice (for the tests and
+    the probe)."""
     m = b.shape[1]
-    order32, Hc, b, T, rank, piv = _operands("eliminate_transform_global_cuda", order, b, Hc,
-                                             global_smem_bytes(m), GLOBAL_SMEM_LIMIT)
     B, n = order.shape
+    C, t_smem, _ = global_launch_shape(m, B, _sm_count(b.device) if b.is_cuda else 1, _cluster)
+    if _t_smem is not None:
+        t_smem = _t_smem
+    order32, Hc, b, T, rank, piv = _operands("eliminate_transform_global_cuda", order, b, Hc,
+                                             global_smem_bytes(m, C, t_smem), GLOBAL_SMEM_LIMIT)
     _GLOBAL_LIB.call(
         "gf2_transform_elim_global_launch",
         order32.data_ptr(), Hc.data_ptr(), T.data_ptr(),
         b.data_ptr(), rank.data_ptr(), piv.data_ptr(),
-        B, m, Hc.shape[1], n, h_rank, int(b_exit),
+        B, m, Hc.shape[1], n, h_rank, int(b_exit), C, int(t_smem),
         torch.cuda.current_stream(b.device).cuda_stream,
     )
     eliminate_transform_global_cuda.launches += 1

@@ -24,9 +24,11 @@ experiments CLI on the card to the same CLI run on the CPU (min-sum:
 identical counters), a checkpointed run resumed on the card to an
 uninterrupted one, OSD-e on the card (rows and transform paths, and the
 route past K4's block) to the CPU bit for bit, and the card's min-sum
-Alvarado alpha to the CPU's exactly. K4g (T in global memory) is held to the
-plain version at the [[72]] DEM and on a 1,300-row system past K4's block,
-with and without the b-exit, and the entry point takes it past the block.
+Alvarado alpha to the CPU's exactly. K4g (a cluster of blocks a sample) is
+held to the plain version at the [[72]] DEM and on systems of 1,249 to 5,184
+rows past K4's block, at cluster widths 1 to 16, T in shared and in global
+memory, with and without the b-exit, and the entry point takes it past the
+block.
 K1's bf16-operand instances (``mm_dtype="bfloat16"``) and K3's bf16-stream
 instances (``stream_dtype="bfloat16"``, summary and message paths) are held
 to their plain versions in bf16 by the same standards, and K3's two bf16
@@ -538,21 +540,36 @@ def _rank_deficient_wide(rng, m: int, n: int, dependent: int):
     return H
 
 
-@pytest.mark.parametrize("graph", ["[[72, 12, 6]]", "wide-1300"])
+# rows, columns and dependent rows of the synthetic systems past K4's block
+# (1,249: the first size past it; 1,728, 2,592 and 5,184: the [[144]] DEM's,
+# [[288]] space-time's and the [[288]] DEM's row counts; 9,312: the most
+# K4g's widest cluster takes)
+K4G_WIDE = {"wide-1249": (1249, 5200, 7), "wide-1300": (1300, 5400, 10),
+            "wide-1728": (1728, 7200, 6), "wide-2592": (2592, 10400, 12),
+            "wide-5184": (5184, 20800, 6), "wide-9312": (9312, 37400, 8)}
+
+
+@pytest.mark.parametrize("graph", ["[[72, 12, 6]]", *K4G_WIDE])
 @pytest.mark.parametrize("b_exit", [False, True])
 def test_k4g_matches_plain(cuda, graph, b_exit):
-    """K4g (T in global memory) against the plain version, bit for bit on
-    T, b, rank and piv: at the [[72]] DEM, where K4 also runs, and past K4's
-    block on a 1,300-row system with flipped syndrome bits."""
-    if graph == "wide-1300":
-        H = _rank_deficient_wide(np.random.default_rng(4), 1300, 5400, 10)
+    """K4g against the plain version, bit for bit on T, b, rank and piv: at
+    the [[72]] DEM, where K4 also runs, and past K4's block on systems of
+    1,249 to 9,312 rows with flipped syndrome bits (half the lanes outside
+    H's image), at every cluster width 1 to 16 whose blocks hold the
+    per-row state, T in the cluster's shared memory where it fits and in
+    global memory; the kernel's shared memory per block equals
+    ``global_smem_bytes``."""
+    if graph in K4G_WIDE:
+        m, n, dependent = K4G_WIDE[graph]
+        H = _rank_deficient_wide(np.random.default_rng(m), m, n, dependent)
         rng = np.random.default_rng(5)
-        e = (rng.random((48, H.shape[1])) < 0.002).astype(np.int64)
-        syn = (e @ H.T) % 2
+        lanes = 48 if m <= 1300 else 8 if m <= 5184 else 4
+        e = (rng.random((lanes, H.shape[1])) < 0.002).astype(np.float32)
+        syn = ((e @ H.T.astype(np.float32)) % 2).astype(np.int8)
         syn[::2, -1] ^= 1  # a dependent row: outside H's image
         llrs = torch.from_numpy(rng.normal(4.0, 2.0, e.shape).astype(np.float32)).to(cuda)
         hard = (llrs < 0).to(torch.int8)
-        syn = torch.from_numpy(syn.astype(np.int8)).to(cuda)
+        syn = torch.from_numpy(syn).to(cuda)
     else:
         dem, syn_np, prior_np = _dem_inputs(graph, 256, seed=7)
         H = dem.H
@@ -563,13 +580,41 @@ def test_k4g_matches_plain(cuda, graph, b_exit):
     resid = osd._residual(syn, hard.to(torch.int32))
     order = torch.argsort(llrs.abs(), dim=1, stable=True)
     Hc = torch.from_numpy(osd_transform_cuda.pack_columns(H)).to(cuda)
-    got = osd_transform_cuda.eliminate_transform_global_cuda(order, resid, Hc, osd.h_rank, b_exit)
     ref = eliminate_transform_plain(order, resid, Hc, osd.h_rank, b_exit)
-    torch.cuda.synchronize()
-    for g, r_ in zip(got, ref):
-        assert torch.equal(g, r_)
-    if graph == "wide-1300":
-        assert bool((got[2][::2] == osd.h_rank).all())  # the inconsistent ones
+    k4g = osd_transform_cuda.eliminate_transform_global_cuda
+    m = H.shape[0]
+    shapes = []
+    for C in (1, 2, 4, 8, 16):
+        for t_smem in (True, False):
+            if osd_transform_cuda.global_smem_bytes(m, C, t_smem) <= \
+                    osd_transform_cuda.GLOBAL_SMEM_LIMIT:
+                shapes.append((C, t_smem))
+    lib = osd_transform_cuda._GLOBAL_LIB.lib
+    for C, t_smem in shapes:
+        assert lib.gf2_transform_elim_global_smem_bytes(m, Hc.shape[1], C, int(t_smem)) == \
+            osd_transform_cuda.global_smem_bytes(m, C, t_smem)
+        got = k4g(order, resid, Hc, osd.h_rank, b_exit, _cluster=C, _t_smem=t_smem)
+        torch.cuda.synchronize()
+        for name, g, r_ in zip(("T", "b", "rank", "piv"), got, ref):
+            assert torch.equal(g, r_), (C, t_smem, name)
+    if graph in K4G_WIDE:
+        assert bool((ref[2][::2] == osd.h_rank).all())  # the inconsistent ones
+    got = k4g(order, resid, Hc, osd.h_rank, b_exit)  # launch_shape's own choice
+    assert all(torch.equal(g, r_) for g, r_ in zip(got, ref))
+
+
+def test_osde_refuses_what_k4g_does_not_take_on_the_card(cuda, monkeypatch):
+    """OSD-e past K4's block on a system K4g's widest cluster does not hold
+    (both limits lowered in the test alone) is refused as the decoder moves
+    to the card; OSD-0 there takes the factored elimination and moves."""
+    from qldpc_tpu_torch.decoders import osd as osd_module
+
+    monkeypatch.setattr(osd_module, "SMEM_LIMIT", 0)
+    monkeypatch.setattr(osd_transform_cuda, "GLOBAL_SMEM_LIMIT", 0)
+    H = _rank_deficient_wide(np.random.default_rng(2), 40, 700, 4)
+    with pytest.raises(ValueError, match="needs K4g, whose cluster of 16 blocks"):
+        OSDDecoder(H, OSDConfig(order=2)).to(cuda)
+    assert OSDDecoder(H).to(cuda).elimination == "factored"
 
 
 def test_eliminate_transform_takes_k4g_past_the_block(cuda):

@@ -230,31 +230,79 @@ def test_dem_engine_with_osde_past_the_block_matches_jax(past_the_block):
 
 
 @pytest.mark.parametrize("m,B,shape", [
-    (1300, 48, (512, 1, 1)),     # the first block size past K4's 1,248 rows
-    (1728, 128, (512, 1, 1)),    # the [[144]] DEM: 43,652 B a block, a block an SM
-    (1728, 1024, (512, 2, 4)),   # two blocks an SM (its register bound), four waves
-    (2592, 512, (512, 2, 2)),    # [[288]] space-time at T = 18
-    (5184, 4, (512, 1, 1)),      # the [[288]] DEM: 130,700 B a block
-    (5184, 1024, (512, 1, 8)),   # one block an SM, eight waves
+    (1249, 1, (16, True, 1)),      # the first size past K4's 1,248 rows
+    (1249, 4, (16, True, 1)),
+    (1249, 128, (1, False, 1)),    # many lanes: a block a sample, T in global memory
+    (1300, 48, (2, True, 1)),
+    (1728, 1, (16, True, 1)),      # the [[144]] DEM
+    (1728, 4, (16, True, 1)),
+    (1728, 128, (1, False, 1)),    # phase 14c's lanes
+    (1728, 1024, (1, False, 8)),
+    (2592, 1, (16, True, 1)),      # [[288]] space-time at T = 18
+    (2592, 4, (16, True, 1)),
+    (2592, 32, (4, False, 1)),     # phase 24's H_st lanes
+    (2592, 128, (1, False, 1)),    # T needs 8 blocks: a block a sample, T in global memory
+    (2592, 512, (1, False, 4)),
+    (5184, 1, (16, False, 1)),     # the [[288]] DEM: T in global memory at every width
+    (5184, 4, (16, False, 1)),     # phase 23b's lanes
+    (5184, 18, (4, False, 1)),     # phase 23's batch past the factored budget
+    (5184, 128, (1, False, 1)),
+    (5184, 1024, (1, False, 8)),
+    (9312, 1, (16, False, 1)),     # the most rows K4g takes
+    (9216, 128, (16, False, 16)),  # the per-row state needs 16 blocks
+    (7000, 256, (2, False, 4)),
 ])
 def test_k4g_launch_shape_follows_the_shapes(m, B, shape):
     """Past K4's block (1,248 rows) the transform elimination launches K4g:
-    512 threads a block, blocks an SM from its shared memory (T not in it)
-    and its register bound of two blocks, on 132 SMs."""
+    a cluster of C blocks of 1,024 threads a sample, a block an SM, on 132
+    SMs; C as wide as one wave of clusters allows (16 for at most 7
+    samples, else at most 8), wider where the per-row state needs it; T in
+    the cluster's shared memory wherever it fits; the grid a multiple of C;
+    every block within 227 KB of shared memory."""
     assert osd_module.smem_bytes(m) > osd_module.SMEM_LIMIT >= osd_module.smem_bytes(1248)
-    assert otc.launch_shape(m, B, 132) == shape
-    threads, per_sm, _ = shape
-    assert per_sm * threads <= otc._SM_THREADS
-    assert per_sm * (otc.global_smem_bytes(m) + otc._GLOBAL_STATIC_SMEM + 1024) <= otc._SM_SMEM
-    assert otc.global_smem_bytes(m) <= otc.GLOBAL_SMEM_LIMIT
+    C, t_smem, waves = otc.global_launch_shape(m, B, 132)
+    assert (C, t_smem, waves) == shape
+    assert otc.launch_shape(m, B, 132) == (otc._GLOBAL_THREADS, 1, waves)
+    grid = B * C
+    assert grid % C == 0 and waves == -(-grid // 132)
+    assert otc.global_smem_bytes(m, C, t_smem) + otc._GLOBAL_STATIC_SMEM <= 227 * 1024
+    assert t_smem == (otc.global_smem_bytes(m, C, True) <= otc.GLOBAL_SMEM_LIMIT)
+    assert otc.global_launch_shape(m, B, 132, cluster=8)[:2] == (
+        8, otc.global_smem_bytes(m, 8, True) <= otc.GLOBAL_SMEM_LIMIT)
     assert otc.t_bytes(m) == m * -(-m // 32) * 4
 
 
 def test_k4g_refuses_what_it_does_not_take():
     """K4g's wrapper takes CUDA tensors only (the CPU path is the plain
     version, through ``eliminate_transform``), and no system whose per-row
-    state passes one block's shared memory (past 9,216 rows)."""
+    state passes one block's shared memory at the widest cluster (past
+    9,312 rows, so at least the 9,216 of the one-block design; 6,240 fit a
+    block), nor a cluster wider than 16."""
     cpu = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="needs its operands on one CUDA device"):
         otc.eliminate_transform_global_cuda(cpu, cpu, cpu, 1)
-    assert otc.global_smem_bytes(9216) <= otc.GLOBAL_SMEM_LIMIT < otc.global_smem_bytes(9217)
+    assert otc.global_smem_bytes(9216, 16) <= otc.GLOBAL_SMEM_LIMIT
+    assert otc.global_smem_bytes(9312, 16) <= otc.GLOBAL_SMEM_LIMIT < otc.global_smem_bytes(9313, 16)
+    assert otc.global_fits(9312) and not otc.global_fits(9313)
+    assert otc.global_smem_bytes(6240) <= otc.GLOBAL_SMEM_LIMIT < otc.global_smem_bytes(6241)
+    # widened until the per-row state fits a block
+    assert otc.global_smem_bytes(7000, 1) > otc.GLOBAL_SMEM_LIMIT >= otc.global_smem_bytes(7000, 2)
+    assert otc.global_launch_shape(7000, 256, 132)[0] == 2
+    with pytest.raises(ValueError, match="cluster width"):
+        otc.global_launch_shape(1728, 4, 132, cluster=32)
+
+
+def test_decoder_refuses_a_system_k4g_does_not_take(monkeypatch):
+    """OSD-e past K4's block on a system K4g's widest cluster does not hold
+    is refused when the decoder moves to the card, with a clear error, not
+    at its first call; the CPU decodes it. Reached on a small wide system by
+    lowering both limits in the test alone."""
+    monkeypatch.setattr(osd_module, "SMEM_LIMIT", 0)
+    monkeypatch.setattr(otc, "GLOBAL_SMEM_LIMIT", 0)
+    H = _random_wide(np.random.default_rng(0))
+    dec = OSDDecoder(H, OSDConfig(order=2)).to("cpu")
+    assert dec.elimination == "factored+transform" and not otc.global_fits(dec.m)
+    with pytest.raises(ValueError, match="needs K4g, whose cluster of 16 blocks"):
+        dec._check_device("cuda")
+    dec._check_device("cpu")
+    OSDDecoder(H, OSDConfig(order=0))._check_device("cuda")  # OSD-0: the factored elimination
