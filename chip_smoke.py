@@ -74,8 +74,9 @@ Phases (any failure raises and the script exits non-zero):
   14d. the experiments CLI's ``complete-bposd`` on the [[144]] DEM, one
       batch of 1,024 at p = 0.002, with ``--set osd_order=7`` and with 0 at
       the same seed: equal counters (in-image syndromes: OSD-e is OSD-0
-      after the consistency test; K5a-d launch, K4g does not), the OSD
-      stage's ms under both;
+      after the consistency test; K5a-d launch, and K4g as often under both
+      orders, on samples past the factored column budget), the OSD stage's
+      ms under both;
   space-time, [[144,12,12]] at T = 12 (H_st 864 x 2592), the space-time
   preset's BP(100) + OSD-0 at batch 512:
   15. K6 (one sample over a cluster of blocks) against its plain torch
@@ -110,27 +111,40 @@ Phases (any failure raises and the script exits non-zero):
       [[72]] DEM engine interrupted after 2 batches and resumed, equal to an
       uninterrupted run and to the same rate run through the CLI;
   23. the [[288,12,18]] DEM (5,184 x 204,765): one batch of 1,024 at p =
-      0.003 through run_experiment with OSD-e(7), whose in-image syndromes
-      take OSD-0 after the consistency test, and K4g where they pass the
-      factored column budget (obs-err, OSD rate, the samples past the
-      budget, peak memory, stage times), K3 against its plain version on 256 samples of a batch
-      (sum-product and min-sum), K5a-d against their plain versions at
-      blocks 0 and 1 of one
-      OSD call, and K5's device ms over a whole OSD call (``at_288`` in K5's
-      rows of the kernels line);
+      0.003 through run_experiment with the preset's OSD-0 (float32
+      streams): K5a-d on every BP failure, K4g on those past the factored
+      column budget, which the JAX lanes path (no budget) solves too (obs-err
+      and logical errors, OSD rate, K4g's launches and lanes, peak memory,
+      stage times with the OSD stage's ms; K4g's launches there are the
+      kernels line's); K3 against its plain version on 256 samples of a
+      batch (sum-product and min-sum), K5a-d against their plain versions at
+      blocks 0 and 1 of one OSD call; on a second batch's BP failures, those
+      past the budget counted, K4g on them against its plain version (T, b,
+      rank, piv bit for bit) and timed, the decoder's solutions on them
+      equal to the plain transform's OSD-0 and each satisfying its
+      syndrome (``osd0_288`` in K4g's row); K5's device ms over a whole OSD
+      call and K5a's and K5b's products as float16 ``torch.bmm`` over the
+      same blocks (``at_288`` in K5's rows of the kernels line);
   23b. OSD-e(7) past K4's block on 4 BP failures of phase 23's engine, as
-      in 14c with the engine's decoder and without the CPU decoder: K4g
-      against its plain version (the lanes walk up to 95,481 columns: the
-      plain version's loop takes about a minute) and the OSD-e stage;
+      in 14c without the CPU decoder: K4g against its plain version (the
+      lanes walk up to 95,481 columns: the plain version's loop takes about
+      a minute) and the OSD-e stage;
+  23c. K4g past 9,312 rows (its spilled layout) on synthetic wide systems of
+      9,313, 12,288 and 20,736 rows, a lane each outside H's image, walking
+      to rank(H), built packed (``synthetic_wide``): T, b, rank and piv bit
+      for bit against the plain version, device ms and the bound of each
+      size (``past_9312`` in K4g's row);
   24. [[288,12,18]] space-time at T = 18 (H_st 2,592 x 7,776): the card
       engine's min-sum counters against the CPU engine's on 16 trials, K5a-d
       at blocks 0 and 1 on H_st, the OSD-0 solutions against the plain row
       elimination's, and the LER and OSD rate at p = 0.004 and 0.008 on
-      1,024 trials each (K6 and K5); then K4g and OSD-e(7) on 8 of the
-      batch's BP failures at p = 0.008, as in 14c, but in H_st's image (its
-      rows are independent) and K4g without the b-exit, so that every lane
-      walks to rank(H): a configuration off the main path (OSD-e on H_st
-      never launches K4g), held bit for bit and timed as such;
+      1,024 trials each (K6 and K5); the card engine's min-sum counters
+      against the JAX engine's recorded ones (batch 32, 128 trials),
+      identical; then K4g against its plain version on 8 of the batch's BP
+      failures at p = 0.008 without the b-exit (H_st's rows are
+      independent: every lane walks to rank(H)), bit for bit
+      (scripts/probe_k4g.py times it), and OSD-e(7) through the decoder on
+      the same lanes, no solution costing more than the transform's OSD-0;
   25. rescue_iters = 10 on the [[144]] code-capacity engine: counters equal
       to a single BP(50) run's, both timed;
   OSD-e and the Alvarado alpha:
@@ -178,10 +192,15 @@ path (phase 26), K4's its record on the space-time failures and its
 launches on the OSD-e path (phase 27), and K5a-d's their device ms over one
 OSD call at the [[288]] DEM (phase 23). The row ``gf2_transform_elim_global``
 is K4g, which computes the JAX package's XLA transform elimination
-(qldpc_tpu/decoders/osd.py:492), not a Pallas kernel: its launches are the
-OSD-e stage's of phase 14c, its times phase 14c's and, under ``at_288``
-and ``h_st``, phase 23b's and 24's (``h_st`` with ``on_main_path`` false:
-K4g without the b-exit on in-image lanes, a call the decoder never makes).
+(qldpc_tpu/decoders/osd.py:492), not a Pallas kernel: its launches are
+OSD-0's in phase 23's run (``osd0_288``: its lanes there, the OSD stage's
+ms, and K4g's times on a second batch's samples past the budget), its
+times phase 14c's (``osde_launches``: the OSD-e stage's there) and, under
+``at_288`` and ``past_9312``, phase 23b's and 23c's.
+K5a's and K5b's rows hold ``library_ms``: the same GF(2) products as
+``torch.bmm`` of the unpacked 0/1 operands in float16, accumulated in
+float32, summed over one OSD call (phase 12; at the [[288]] DEM under
+``at_288``, phase 23).
 The rows ``bp_flooding_bf16`` and
 ``dem_bp_bf16`` are K1's and K3's bf16 instances: their launches are those of
 the CLI runs of phases 6b and 21, their times those of phases 6b and 14b
@@ -261,6 +280,23 @@ JAX_ST_MIN_SUM = {
 }
 JAX_ST_SUM_PRODUCT = {"ler": 0.013916015625, "osd": 0.04443359375,
                       "average_iterations": 6.307373046875}
+# The JAX engine's counters at [[288,12,18]] space-time, T = 18, BP(100) min-sum
+# + OSD-0, batch 32, p = 0.008, 128 trials, seed 1, recorded on the CPU (XLA,
+# 651 s) with `python3 scripts/jax_reference_counters.py --only st288-min-sum`
+# (results/jax_counters_st288_min_sum.jsonl). The JAX decoder solves every BP
+# failure (its lanes path has no column budget), as the port's route does.
+JAX_ST288_P, JAX_ST288_TRIALS, JAX_ST288_SEED, JAX_ST288_BATCH = 0.008, 128, 1, 32
+JAX_ST288 = {
+    "trials": 128, "logical": 0.0234375, "osd": 0.2265625, "degeneracies": 0.046875,
+    "OSD_invocation_AND_logicalError": 0.0234375, "average_iterations": 30.140625,
+    "ler": 0.0234375, "residual_logicals": 3, "ler_notebook": 0.25, "BPs_fault": 29,
+    "BPs_miscorrected": 0, "incorrectable": 3, "degeneracy_count": 6, "bp_converged": 99,
+    "osd_overflow": 0,
+    "weights_found_BP": {},
+    "weights_found_OSD": {0: 4, 1: 2},
+    "weights_found_BP_error": {},
+    "weights_found_OSD_error": {1: 3},
+}
 # The JAX layered engine (BP(50) sum-product, L = 4, + OSD-0) at [[144,12,12]]
 # code capacity, batch 65,536, p = 0.050119, 65,536 trials, seed 0, recorded
 # with `python3 scripts/jax_reference_counters.py --only layered144`.
@@ -1148,6 +1184,53 @@ def k5_dense_ops(args) -> float:
     return 2.0 * lanes.shape[0] * scur * ids.shape[1] * P.shape[2]
 
 
+def unpacked_half(words: torch.Tensor) -> torch.Tensor:
+    """Packed int32 words (A, ..., w) as 0/1 float16 bits (A, ..., 32 w),
+    bit i of word j at 32 j + i; unpacked a few of the A at a time (about
+    2^26 words each), so that the int32 bits never take more than 8 GiB."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    out = torch.empty((*words.shape[:-1], 32 * words.shape[-1]), dtype=torch.float16,
+                      device=words.device)
+    step = max(1, (1 << 26) // max(1, words[0].numel()))
+    for i in range(0, words.shape[0], step):
+        out[i:i + step] = ((words[i:i + step, ..., None] >> shifts) & 1).flatten(-2)
+    return out
+
+
+def k5_library_ms(name: str, args, out=None) -> float:
+    """K5a's and K5b's GF(2) product as one library call: ``torch.bmm`` of
+    the unpacked 0/1 operands in float16, accumulated and returned in
+    float32 (exact: the sums are at most m_pad), then ``% 2``; the device
+    ms of the bmm alone (``launch_ms``), its result held to the plain
+    version's or, given, to the kernel's output ``out`` on the same inputs
+    (Y = P H_blk for K5a, C Y for K5b, whose XOR with H_blk is W)."""
+    from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
+
+    if name == "factored_y":
+        P, lanes, ids, Hc, scur = args
+        if not scur:
+            return 0.0
+        a = unpacked_half(P[lanes.long(), :scur])  # (A, scur, m_pad)
+        b = unpacked_half(Hc[ids.long()]).transpose(1, 2)  # (A, m_pad, K)
+        want = ofc.factored_y_plain(*args) if out is None else out
+    else:
+        C, lanes, ids, Hc, Y, scur = args
+        if not scur:
+            return 0.0
+        a = unpacked_half(C[lanes.long(), : scur // 32].transpose(1, 2))  # (A, m_pad, scur)
+        b = unpacked_half(Y)  # (A, scur, K)
+        want = (ofc.factored_w_plain(*args) if out is None else out) ^ \
+            ofc.factored_w_plain(*args[:5], 0)
+    ms, out = launch_ms(lambda: torch.bmm(a, b, out_dtype=torch.float32))
+    bits = torch.remainder(out, 2.0).to(torch.int32)
+    packed = (bits.view(*bits.shape[:-1], bits.shape[-1] // 32, 32) << torch.arange(
+        32, dtype=torch.int32, device=bits.device)).sum(-1, dtype=torch.int64)
+    packed = torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)
+    if not torch.equal(packed, want):
+        raise AssertionError(f"{name}: the library product differs from the kernel's")
+    return ms
+
+
 def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
     """K5a-d against their plain versions on the BP failures: the whole
     elimination on the first 128, each kernel at every block of one OSD call
@@ -1210,10 +1293,12 @@ def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
             if not all(torch.equal(x, y) for x, y in outs):
                 raise AssertionError(f"{name} disagrees with its plain version")
             nonlocal dense_ops
+            st = stats[name]
             moved, ops = _k5_cost(name, kargs)
+            if name in ("factored_y", "factored_w"):
+                st["library_ms"] = st.get("library_ms", 0.0) + k5_library_ms(name, pargs)
             if name == "factored_y":
                 dense_ops += k5_dense_ops(kargs)
-            st = stats[name]
             A = a[K5_LANES_ARG[name]].shape[0]
             st["blocks"].append((A, st["calls"] * ofc.BLOCK_COLS, dev_ms * 1e3, ms * 1e3))
             st["ms"] += ms
@@ -1241,12 +1326,16 @@ def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
     for name in K5_NAMES:
         st = stats[name]
         records[name] = dict(ms=st["ms"], device_ms=st["device_ms"], plain_ms=st["plain_ms"],
-                             max_abs_err=0.0, **bound(st["moved"], st["ops"]))
+                             max_abs_err=0.0, library_ms=st.get("library_ms"),
+                             **bound(st["moved"], st["ops"]))
         log(f"{name} over the {st['calls']} blocks of one OSD call on {lanes} BP failures: "
             f"{st['ms']:.4f} ms between events around each launch (the host's launch work "
             f"included), {st['device_ms']:.4f} ms on the device, plain {st['plain_ms']:.3f} ms, "
             f"bit-identical at every block, bound {records[name]['bound_ms']:.4f} ms "
-            f"({records[name]['bound_by']})")
+            f"({records[name]['bound_by']})" + (
+                "" if "library_ms" not in st else
+                f"; the same product as one float16 torch.bmm (float32 out) a block: "
+                f"{st['library_ms']:.4f} ms on the device"))
         if name in ("factored_y", "factored_panel_elim"):
             log(f"  {name} per block (A, scur, device us, event us): " + " ".join(
                 f"({A}, {scur}, {us:.1f}, {ev_us:.1f})" for A, scur, us, ev_us in st["blocks"]))
@@ -1704,9 +1793,14 @@ CLI_TRIALS = 10_240
 CKPT_INTERRUPT = 2  # batches before the interruption
 DEM288_CODE, DEM288_P, DEM288_BATCH = "[[288, 12, 18]]", 0.003, 1024
 K5_CHECK_BLOCKS, K5_CHECK_FAILURES = 2, 64
-ST288_K4G_LANES = 8  # [[288]] space-time BP failures K4g and OSD-e(7) are held on
+ST288_K4G_LANES = 8  # [[288]] space-time BP failures K4g is held on, without the b-exit
 K3_288_LANES = 256  # samples of a [[288]] DEM batch K3 is held on
 ST288_ROUNDS, ST288_RATES, ST288_TRIALS, ST288_CPU_TRIALS = 18, (0.004, 0.008), 1024, 16
+# K4g past 9,312 rows: synthetic wide systems (rows, columns, dependent
+# rows): the first size past the shared layout, 12,288, and 20,736 (the
+# [[288]] code's 288 detectors a round over 72 rounds)
+WIDE_SIZES = ((9313, 37400, 8), (12288, 49300, 8), (20736, 83000, 8))
+WIDE_LANES = 1  # outside H's image: the walk to rank(H)
 
 
 class Interrupted(Exception):
@@ -1932,15 +2026,25 @@ def k5_checked_blocks(osd, syn, llrs, hard, label: str) -> None:
 
 def k5_device_ms(osd, syn, llrs, hard) -> dict:
     """Each K5 kernel's device ms summed over the launches of one OSD call
-    on these failures (each launch timed by ``launch_ms``)."""
+    on these failures (each launch timed by ``launch_ms``), and K5a's and
+    K5b's ``library_ms`` over the same blocks (``k5_library_ms``, held to
+    each launch's output, in a second call after the first one's timing)."""
     from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
 
     resid = osd._residual(syn, hard.to(torch.int32))
     order = torch.argsort(llrs.abs(), dim=1, stable=True)
     recs = {name: dict(device_ms=0.0, launches=0, lanes=order.shape[0]) for name in K5_NAMES}
 
+    library = []
+
     def timed(name, kernel):
         def run(*a):
+            if library:  # the second pass: the library's products, untimed kernels
+                out = kernel(*a)
+                if name in ("factored_y", "factored_w"):  # neither changes its inputs
+                    recs[name]["library_ms"] = recs[name].get("library_ms", 0.0) + \
+                        k5_library_ms(name, a, out)
+                return out
             ms, out = launch_ms(lambda: kernel(*a))
             recs[name]["device_ms"] += ms
             recs[name]["launches"] += 1
@@ -1963,56 +2067,80 @@ def k5_device_ms(osd, syn, llrs, hard) -> dict:
             patch.stop()
     ms = cuda_ms(lambda: ofc.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank,
                                                       osd.max_cols), reps=1)
+    library.append(True)
+    for patch in patches:
+        patch.start()
+    try:
+        ofc.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank, osd.max_cols)
+    finally:
+        for patch in patches:
+            patch.stop()
     log(f"K5 over one OSD call on {order.shape[0]} BP failures (m={osd.m}): " + ", ".join(
         f"{n} {r['device_ms']:.3f} ms on the device in {r['launches']} launches"
         for n, r in recs.items()) + f"; the call {ms:.3f} ms with its host syncs "
-        f"({wall * 1e3:.1f} ms with each launch timed)")
+        f"({wall * 1e3:.1f} ms with each launch timed); the same products as one float16 "
+        f"torch.bmm (float32 out) a block, over the call: " + ", ".join(
+            f"{n} {recs[n]['library_ms']:.3f} ms on the device" for n in ("factored_y", "factored_w")))
     return recs
 
 
 def phase_dem288(dev, card_line: str, out_dir: str) -> dict:
     """The [[288]] DEM: one batch of 1,024 at p = 0.003 through
-    run_experiment with OSD-e(7) (obs-err, OSD rate, peak memory, stage
-    times, K4g's launches): its syndromes are in H's image, so every sample
-    within the factored column budget keeps its OSD-0 solution and the
-    transform (K4g) solves those past it, which OSD-0 returns unsolved.
-    Then K3 held to its plain version on K3_288_LANES samples of a batch
-    (the preset's BP(50), sum-product and min-sum), K5a-d held to their
-    plain versions at blocks 0 and 1 of one OSD call, the failures past
-    the budget counted, and K5's device ms over a whole OSD call. Returns
-    K5's records at [[288]] and the engine."""
+    run_experiment with complete-bposd's OSD-0 (float32 streams: obs-err,
+    logical errors, OSD rate, peak memory, stage times, K4g's launches and
+    the samples it took): every BP failure within the factored column
+    budget keeps the factored elimination's solution, and those past it
+    take the transform (K4g), as the JAX lanes path, which has no budget,
+    solves every sample. Then K3 held to its plain version on K3_288_LANES
+    samples of a batch (the preset's BP(50), sum-product and min-sum),
+    K5a-d held to their plain versions at blocks 0 and 1 of one OSD call;
+    on the BP failures of a second batch, those past the budget counted,
+    K4g on them against its plain version (T, b, rank, piv) and timed, the
+    decoder's solutions on them against the plain transform's OSD-0, each
+    satisfying its syndrome; and K5's device ms over a whole OSD call.
+    Returns K5's records at [[288]], K4g's OSD-0 record and the engine."""
     from qldpc_tpu_torch.experiments import get_preset, run_experiment
-    from qldpc_tpu_torch.ops import osd_factored_cuda, osd_transform_cuda
+    from qldpc_tpu_torch.ops import osd_factored_cuda, osd_transform_cuda as otc
     from qldpc_tpu_torch.utils import rng
 
     spec = get_preset("complete-bposd").replace(
         codes=[DEM288_CODE], error_rates=[DEM288_P], trials=DEM288_BATCH,
-        batch_size=DEM288_BATCH, bp_stream_dtype="float32", osd_order=PH_ORDER,
-        output_dir=out_dir)
+        batch_size=DEM288_BATCH, bp_stream_dtype="float32", output_dir=out_dir)
     patch, engines, _ = capture_engines()
-    k4g = osd_transform_cuda.eliminate_transform_global_cuda
+    k4g = otc.eliminate_transform_global_cuda
+    taken = []
+
+    def counted(order, *a, **kw):
+        taken.append(order.shape[0])
+        return k4g(order, *a, **kw)
+
+    counted.launches = 0  # the wrapper counts under its module name: here
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k4g.launches = 0
     t0 = time.perf_counter()
-    with patch:
+    with patch, mock.patch.object(otc, "eliminate_transform_global_cuda", counted):
         res = run_experiment(spec, device=dev, checkpoint=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k4g_launches = k4g.launches
+    k4g_launches = counted.launches
     peak = torch.cuda.max_memory_allocated()
     d = res[DEM288_CODE][DEM288_P]
     eng = engines[0]
-    log(f"[[288]] DEM {eng.m_checks} x {eng.n_vars}, rank {eng.osd.h_rank}, elimination "
-        f"{eng.osd.elimination}, column budget {eng.osd.max_cols}: one batch of "
-        f"{DEM288_BATCH} at p={DEM288_P} through run_experiment in {wall:.1f} s (the host's "
-        f"DEM and engine build included), peak device memory {peak / 2**30:.2f} GiB, K4g "
-        f"launched {k4g_launches} time(s), on {card_line}")
+    osd = eng.osd
+    log(f"[[288]] DEM {eng.m_checks} x {eng.n_vars}, rank {osd.h_rank}, OSD-{osd.config.order}"
+        f" route {osd.elimination}, column budget {osd.max_cols}: one batch of {DEM288_BATCH} "
+        f"at p={DEM288_P} through run_experiment in {wall:.1f} s (the host's DEM and engine "
+        f"build included), peak device memory {peak / 2**30:.2f} GiB, K4g launched "
+        f"{k4g_launches} time(s) on {sum(taken)} BP failures past the budget, on {card_line}")
     log(f"  {json.dumps(scalars(d))}")
-    log(f"  obs-err {d['ler']:.5f}, OSD rate {d['osd']:.5f} (docs/circuit_ler.md:34: "
-        f"0.0384 obs-err at 10,000 trials, float32)")
+    log(f"  obs-err {d['ler']:.5f} ({round(d['ler'] * d['trials'])} logical errors of "
+        f"{d['trials']}), OSD rate {d['osd']:.5f} (docs/circuit_ler.md:34: 0.0384 obs-err at "
+        f"10,000 trials, float32, from the TPU's budgeted route)")
     if d["trials"] != DEM288_BATCH or d["BPs_fault"] != round(d["osd"] * DEM288_BATCH):
         raise AssertionError("[[288]] DEM counters are inconsistent")
+    if osd.config.order or osd.elimination != "factored+transform" or k4g_launches < 1:
+        raise AssertionError("[[288]] DEM OSD-0 did not send the samples past the factored "
+                             "budget through K4g")
     stages = eng.stage_times(DEM288_P, reps=2)
     log(f"  [[288]] DEM batch stages (ms, median of 2 after a warm one, each ending in a "
         f"synchronize): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
@@ -2022,15 +2150,36 @@ def phase_dem288(dev, card_line: str, out_dir: str) -> dict:
         k3_held(eng, syn[:K3_288_LANES], llr, dataclasses.replace(eng.bp.config, method=method),
                 f"[[288]] DEM p={DEM288_P}, {K3_288_LANES} of the batch's {DEM288_BATCH} samples")
     syn, llrs, hard = dem_failures(eng, DEM288_P, seed=7)
-    k5_checked_blocks(eng.osd, syn, llrs, hard, "[[288]] DEM")
-    osd = eng.osd
-    overflow = osd_factored_cuda.eliminate_factored_cuda(
-        torch.argsort(llrs.abs(), dim=1, stable=True), osd._residual(syn, hard.to(torch.int32)),
-        osd.Hc, osd.h_rank, osd.max_cols)[3]
-    log(f"  BP failures of a batch past the factored column budget ({osd.max_cols}): "
-        f"{int(overflow.sum())} of {len(syn)} (OSD-0 returns them unsolved; OSD-e's route "
-        f"solves them by the transform)")
-    return k5_device_ms(osd, syn, llrs, hard), eng
+    k5_checked_blocks(osd, syn, llrs, hard, "[[288]] DEM")
+    order = torch.argsort(llrs.abs(), dim=1, stable=True)
+    resid = osd._residual(syn, hard.to(torch.int32))
+    overflow = osd_factored_cuda.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank,
+                                                         osd.max_cols)[3]
+    rec = dict(stage_ms=stages["osd"], past_budget=int(overflow.sum()),
+               bp_failures=len(syn), logical_errors=round(d["ler"] * d["trials"]),
+               run_launches=k4g_launches, run_lanes=sum(taken))
+    over = torch.nonzero(overflow).flatten()
+    if len(over):
+        args = (order[over], resid[over], osd.Hc[:osd.n], osd.h_rank, True)
+        ms, dev_ms, got = timed_call(lambda: k4g(*args))
+        plain_ms, _, ref = timed_call(lambda: otc.eliminate_transform_plain(*args))
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        sol = osd(syn[over], llrs[over], hard[over]).to(torch.int32)
+        osd0 = transform_osd0(order[over], ref[1], ref[3], hard[over].to(torch.int32))
+        solved = ~osd._residual(syn[over], sol).bool().any(dim=1)
+        log(f"  BP failures of a second batch past the factored column budget "
+            f"({osd.max_cols}): {len(over)} of {len(syn)}; K4g on them {ms:.2f} ms "
+            f"({dev_ms:.2f} on the device), plain {plain_ms:.1f} ms, T, b, rank and piv "
+            f"bit-identical: {same}; the decoder's solutions equal the plain transform's "
+            f"OSD-0: {torch.equal(sol, osd0)}; each satisfies its syndrome: "
+            f"{bool(solved.all())}")
+        if not (same and torch.equal(sol, osd0) and bool(solved.all())):
+            raise AssertionError("[[288]] DEM: a sample past the budget is not solved as the "
+                                 "plain transform solves it")
+        rec.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, lanes=len(over))
+    else:
+        log(f"  no BP failure of the second batch passed the factored column budget")
+    return k5_device_ms(osd, syn, llrs, hard), rec, eng
 
 
 def phase_st288(dev, card_line: str) -> dict:
@@ -2038,10 +2187,15 @@ def phase_st288(dev, card_line: str) -> dict:
     min-sum counters against the CPU engine's, K5a-d against their plain
     versions at blocks 0 and 1 of one OSD call on H_st, the card's OSD-0
     solutions against the plain row elimination's, and the LER and OSD rate
-    at p = 0.004 and 0.008 (K6 and K5 launch, K4 and K2 never); then K4g
-    and OSD-e(7) on a few BP failures (``k4g_osde``, K4g without the
-    b-exit, off the main path: the decoder never launches K4g on H_st).
-    Returns K4g's record there."""
+    at p = 0.004 and 0.008 (K6 and K5 launch, K4 and K2 never); the card
+    engine's min-sum counters against the JAX engine's recorded ones
+    (JAX_ST288), identical; then K4g against its plain version on a few BP
+    failures, without the b-exit (H_st's rows are independent, so every
+    lane walks to rank(H)), bit for bit (scripts/probe_k4g.py times it), and
+    OSD-e(7) on them through the decoder (in-image syndromes: OSD-0 after
+    the consistency test), no solution costing more than the transform's
+    OSD-0."""
+    from qldpc_tpu_torch.decoders import OSDConfig, OSDDecoder
     from qldpc_tpu_torch.decoders import BPConfig
     from qldpc_tpu_torch.mc import counters_to_dict
     from qldpc_tpu_torch.ops import osd_cuda, osd_factored_cuda, osd_transform_cuda
@@ -2079,7 +2233,8 @@ def phase_st288(dev, card_line: str) -> dict:
     resid = eng.osd._residual(syn_f[:k], hard)
     order = torch.argsort(llrs_f[:k].abs(), dim=1, stable=True)
     n = eng.osd.n
-    Hst = torch.from_numpy(space_time_matrix(get_code(code).Hx, T)).to(dev)
+    Hst_np = space_time_matrix(get_code(code).Hx, T)
+    Hst = torch.from_numpy(Hst_np).to(dev)
     _, b, piv = eliminate_rows_plain(pack_rows(Hst[:, order].permute(1, 0, 2)), resid, n,
                                      eng.osd.h_rank)
     bidx = torch.arange(k, device=dev)[:, None]
@@ -2115,14 +2270,151 @@ def phase_st288(dev, card_line: str) -> dict:
         if d["trials"] != ST288_TRIALS or d["BPs_fault"] != round(d["osd"] * ST288_TRIALS):
             raise AssertionError("[[288]] space-time counters are inconsistent")
 
-    # K4g and OSD-e(7) on H_st's BP failures: H_st's rows are independent,
-    # so no syndrome leaves its image; K4g runs without the b-exit, every
-    # lane to rank(H), a call the decoder never makes
-    Hst_np = space_time_matrix(get_code(code).Hx, T)
+    jax_eng = st_engine(dev, ms, code=code, rounds=T, batch=JAX_ST288_BATCH)
+    got = counters_to_dict(jax_eng.run_rate(JAX_ST288_P, JAX_ST288_TRIALS, seed=JAX_ST288_SEED))
+    got = {**scalars(got), **hists(got)}
+    differ = {k: (got[k], v) for k, v in JAX_ST288.items() if got[k] != v}
+    log(f"space-time engine on the card vs the JAX engine's recorded counters, {code} T={T}, "
+        f"BP({ST_ITERS}) min-sum + OSD-0, batch {JAX_ST288_BATCH}, p={JAX_ST288_P}, "
+        f"{JAX_ST288_TRIALS} trials, seed {JAX_ST288_SEED}: identical {not differ} (ler "
+        f"{got['ler']:.5f} against {JAX_ST288['ler']:.5f}, BP faults {got['BPs_fault']})")
+    if differ:
+        raise AssertionError(f"[[288]] space-time counters differ from the JAX engine's: {differ}")
+
+    # K4g on H_st's BP failures, without the b-exit: H_st's rows are
+    # independent, so no syndrome leaves its image and every lane walks to
+    # rank(H), a call the decoder makes only on samples past the budget
     lanes = min(ST288_K4G_LANES, syn_f.shape[0])
-    rec = k4g_osde(f"{code} H_st T={T}", Hst_np, None, syn_f[:lanes], llrs_f[:lanes],
-                   hard_f[:lanes], None, card_line, b_exit=False)
-    return dict(rec, on_main_path=False)
+    osd = eng.osd
+    args = (order[:lanes], resid[:lanes], osd.Hc[:n], osd.h_rank, False)
+    got = osd_transform_cuda.eliminate_transform_global_cuda(*args)
+    ref = osd_transform_cuda.eliminate_transform_plain(*args)
+    same = all(torch.equal(x, y) for x, y in zip(got, ref)) and \
+        bool((got[2] == osd.h_rank).all())
+    log(f"K4g on {lanes} {code} H_st T={T} BP failures without the b-exit: T, b, rank and piv "
+        f"bit-identical to the plain version's, every lane at rank(H): {same}")
+    if not same:
+        raise AssertionError("K4g disagrees with its plain version on the [[288]] H_st lanes")
+
+    t0 = time.perf_counter()
+    osde = OSDDecoder(Hst_np, OSDConfig(order=PH_ORDER)).to(dev)
+    built = time.perf_counter() - t0
+    if osde.elimination != "factored+transform":
+        raise AssertionError(f"OSD-e on H_st took {osde.elimination}, not the factored "
+                             "elimination and K4g")
+    stage_ms, _, sol = timed_call(lambda: osde(syn_f[:lanes], llrs_f[:lanes], hard[:lanes]))
+    osd0 = transform_osd0(order[:lanes], ref[1], ref[3], hard[:lanes])
+    worse = more_costly(sol, osd0, llrs_f[:lanes], hard[:lanes])
+    log(f"OSD-e({PH_ORDER}) through the decoder (built in {built:.1f} s, route "
+        f"{osde.elimination}) on the same {lanes} lanes: {stage_ms:.1f} ms; changed from the "
+        f"transform's OSD-0: {int((sol.to(torch.int32) != osd0).any(dim=1).sum())}; costing "
+        f"more: {int(worse.sum())}")
+    if bool(worse.any()):
+        raise AssertionError("an OSD-e solution on the [[288]] H_st lanes costs more than OSD-0's")
+
+
+def synthetic_wide(m: int, n: int, dependent: int, seed: int) -> np.ndarray:
+    """H's packed columns (n, ceil(m / 32)) int32 of the synthetic wide
+    system of tests/test_torch_cuda.py's ``_rank_deficient_wide`` (the same
+    draws from ``default_rng(seed)``), built packed: columns of weight 3-6
+    on the first m - dependent rows, and row m - dependent + i the XOR of
+    rows i and dependent + i. No dense m x n array (1.7 GB at 20,736 rows)."""
+    rng = np.random.default_rng(seed)
+    mw = -(-m // 32)
+    rows = rng.integers(0, m - dependent, (n, 6))
+    weight = rng.integers(3, 7, n)
+    words = np.zeros((n, mw), np.uint32)
+    for k in range(6):
+        on = np.flatnonzero(weight > k)
+        r = rows[on, k]
+        np.bitwise_xor.at(words, (on, r // 32), (np.uint32(1) << (r % 32).astype(np.uint32)))
+    bit = lambda r: (words[:, r // 32] >> np.uint32(r % 32)) & np.uint32(1)  # noqa: E731
+    for i in range(dependent):
+        r = m - dependent + i
+        words[:, r // 32] |= (bit(i) ^ bit(dependent + i)) << np.uint32(r % 32)
+    return words.view(np.int32)
+
+
+def synthetic_lanes(Hc: np.ndarray, m: int, lanes: int, seed: int):
+    """Lanes of the synthetic system (``synthetic_wide``) as the OSD decoder
+    gives them to the transform elimination: errors at 0.002 a column, the
+    even lanes with the last (dependent) row's syndrome bit flipped, so
+    outside H's image; LLRs N(4, 2), hard decisions their signs. Returns
+    (order (lanes, n) int64, resid (lanes, m) int32) as numpy."""
+    rng = np.random.default_rng(seed)
+    n = Hc.shape[0]
+    words = Hc.view(np.uint32)
+    e = rng.random((lanes, n)) < 0.002
+    llrs = rng.normal(4.0, 2.0, (lanes, n)).astype(np.float32)
+    hard = llrs < 0
+    resid = np.zeros((lanes, m), np.int32)
+    for s in range(lanes):
+        # resid = H (e + hard): the syndrome's residual after the hard decision
+        packed = np.bitwise_xor.reduce(words[np.flatnonzero(e[s] ^ hard[s])], axis=0)
+        resid[s] = np.unpackbits(packed.view(np.uint8), bitorder="little")[:m]
+    resid[::2, -1] ^= 1
+    order = np.argsort(np.abs(llrs), axis=1, kind="stable")
+    return order, resid
+
+
+def phase_k4g_wide(dev, card_line: str) -> list:
+    """K4g past the 9,312 rows whose per-block state a cluster of 16 holds
+    in shared memory (its spilled layout: the panel's pairs, U and the
+    leader's list in a global workspace, 32-bit slots), on synthetic wide
+    systems (``synthetic_wide``) of WIDE_SIZES rows, WIDE_LANES lane(s) each
+    (the even ones outside H's image, walking to rank(H); the b-exit on):
+    T, b, rank and piv bit for bit against the plain version, its
+    device ms and its bound from the work this input needs (``k4g_needs``).
+    Returns a record per size."""
+    from types import SimpleNamespace
+
+    from qldpc_tpu_torch.ops import osd_transform_cuda as otc
+
+    recs = []
+    k4g = otc.eliminate_transform_global_cuda
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, n, dependent in WIDE_SIZES:
+        t0 = time.perf_counter()
+        Hc_np = synthetic_wide(m, n, dependent, m)
+        order, resid = synthetic_lanes(Hc_np, m, WIDE_LANES, 5)
+        Hc = torch.from_numpy(Hc_np).to(dev)
+        order = torch.from_numpy(order).to(dev)
+        resid = torch.from_numpy(resid).to(dev)
+        h_rank = m - dependent
+        built = time.perf_counter() - t0
+        args = (order, resid, Hc, h_rank, True)
+        ms, dev_ms, got = timed_call(lambda: k4g(*args))
+        cleared = torch.zeros((), dtype=torch.int64, device=dev)
+        plain_ms, _, ref = timed_call(lambda: otc.eliminate_transform_plain(*args,
+                                                                           cleared=cleared))
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        C, t_smem, waves = otc.global_launch_shape(m, WIDE_LANES, sms,
+                                                   otc.wide_clusters(dev, m))
+        osd = SimpleNamespace(m=m, n=n, Hc=Hc, m_words=Hc.shape[1])
+        T, b, rank, piv = got
+        moved, ops, cols, no_pivot = k4g_needs(osd, order, piv, cleared,
+                                               nbytes(resid, T, b, rank, piv))
+        rec = dict(m=m, n=n, lanes=WIDE_LANES, device_ms=dev_ms, ms=ms, plain_ms=plain_ms,
+                   cluster=C, spilled=otc.global_spills(m),
+                   smem_bytes=otc.global_smem_bytes(m, C, t_smem),
+                   workspace_bytes=4 * otc.global_workspace_words(m, WIDE_LANES, C),
+                   **bound(moved, ops))
+        full = bool((rank[::2] == h_rank).all())
+        log(f"K4g at {m} rows ({m} x {n}, rank {h_rank}, {otc.t_bytes(m)} B of T a sample; "
+            f"built in {built:.1f} s): {WIDE_LANES} lanes, cluster of {C} blocks, spilled "
+            f"layout {rec['spilled']} ({rec['smem_bytes']} B of shared memory a block, "
+            f"{rec['workspace_bytes']} B of workspace), {waves} wave(s); {ms:.2f} ms "
+            f"({dev_ms:.2f} on the device), plain {plain_ms:.1f} ms; T, b, rank and piv "
+            f"bit-identical: {same}; the outside lane at rank(H): {full}; columns walked "
+            f"{[int(x) + 1 for x in piv.max(dim=1).values]}, {cols:.0f} in all, {int(cleared)} "
+            f"rows cleared; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), K4g at "
+            f"{100 * rec['bound_ms'] / dev_ms:.3f}% of it, on {card_line}")
+        if not (same and full):
+            raise AssertionError(f"K4g disagrees with its plain version at {m} rows")
+        recs.append(rec)
+        del Hc, order, resid, got, ref, T, b, rank, piv
+        torch.cuda.empty_cache()
+    return recs
 
 
 def phase_rescue(dev, card_line: str) -> None:
@@ -2435,13 +2727,11 @@ def k4g_needs(osd, order, piv, cleared, moved_extra: int):
     return moved, ops, float(within.sum()), no_pivot
 
 
-def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_lanes: int = 0,
-             b_exit: bool = True):
+def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_lanes: int = 0):
     """K4g and OSD-e(7) past K4's block on lanes of H: K4g against its plain
     version (T, b, rank and piv bit for bit), both timed once, with the
     b-exit as the decoder calls it (``outside``: which lanes left H's image;
-    those must reach rank(H) and be inconsistent) or, with ``outside`` None,
-    without it (in-image lanes walked to rank(H)); the OSD-e stage through
+    those must reach rank(H) and be inconsistent); the OSD-e stage through
     the decoder (K5a-d, K4g where a lane is inconsistent or past the column
     budget, the search) with its ms, K4g's launches and peak memory; no cost
     above the lanes path's OSD-0 (the transform's, the search's zero
@@ -2467,7 +2757,7 @@ def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_l
     resid = osd._residual(syn, hard)
     order = torch.argsort(llrs.abs(), dim=1, stable=True)
     k4g = otc.eliminate_transform_global_cuda
-    args = (order, resid, osd.Hc[:osd.n], osd.h_rank, b_exit)
+    args = (order, resid, osd.Hc[:osd.n], osd.h_rank, True)
     ms, dev_ms, (T, b, rank, piv) = timed_call(lambda: k4g(*args))
     cleared = torch.zeros((), dtype=torch.int64, device=dev)
     plain_ms, _, ref = timed_call(lambda: otc.eliminate_transform_plain(*args, cleared=cleared))
@@ -2475,14 +2765,14 @@ def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_l
     searched = ((piv < 0) & (b != 0)).any(dim=1)
     full = bool((rank == osd.h_rank).all())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    C, t_smem, waves = otc.global_launch_shape(osd.m, len(syn), sms)
+    C, t_smem, waves = otc.global_launch_shape(osd.m, len(syn), sms,
+                                               otc.wide_clusters(dev, osd.m))
     last = piv.max(dim=1).values.to(torch.int64)
     moved, ops, cols, no_pivot = k4g_needs(osd, order, piv, cleared, nbytes(resid, T, b, rank, piv))
-    where = "in H's image" if outside is None else (
-        f"a detector flipped each, all outside H's image: {bool(outside.all())}")
-    log(f"  K4g on {len(syn)} BP failures ({where}; all inconsistent: {bool(searched.all())}): "
-        f"T, b, rank and piv bit-identical to the plain version's (b-exit "
-        f"{'on' if b_exit else 'off'}): {same}; every lane at rank(H): "
+    log(f"  K4g on {len(syn)} BP failures (a detector flipped each, all outside H's image: "
+        f"{bool(outside.all())}; all inconsistent: {bool(searched.all())}): "
+        f"T, b, rank and piv bit-identical to the plain version's (b-exit on): {same}; "
+        f"every lane at rank(H): "
         f"{full}; last pivot column {last.float().mean().item():.0f} mean, {int(last.max())} "
         f"max, past the factored column budget ({osd.max_cols}) on "
         f"{int((last >= osd.max_cols).sum())} lanes; panels without a pivot {no_pivot} of "
@@ -2491,7 +2781,7 @@ def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_l
         f"memory ({otc.global_smem_bytes(osd.m, C, t_smem)} B of shared memory a block), "
         f"{waves} wave(s); K4g {ms:.2f} ms ({dev_ms:.2f} on the device), plain {plain_ms:.1f} "
         f"ms, on {card_line}")
-    if not (same and full and (outside is None or bool(searched.all() and outside.all()))):
+    if not (same and full and bool(searched.all() and outside.all())):
         raise AssertionError("K4g disagrees with its plain version, or a lane left H's image "
                              "without reaching rank(H)")
 
@@ -2508,7 +2798,7 @@ def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_l
         f"events), K4g launched {launches} time(s), peak {peak / 2**30:.3f} GiB above the "
         f"inputs; changed from OSD-0's: {int((sol != osd0).any(dim=1).sum())}; costing more: "
         f"{int(worse.sum())}")
-    if bool(worse.any()) or (outside is not None and launches < 1):
+    if bool(worse.any()) or launches < 1:
         raise AssertionError("an OSD-e solution costs more than OSD-0's, or K4g never launched")
     if cpu_lanes:
         t0 = time.perf_counter()
@@ -2523,7 +2813,7 @@ def k4g_osde(label: str, H, osd, syn, llrs, hard, outside, card_line: str, cpu_l
         f"pivots; {moved / 1e9:.3f} GB, {ops / 1e9:.3f} G operations; K4g at "
         f"{100 * bound(moved, ops)['bound_ms'] / dev_ms:.2f}% of its bound")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0, lanes=len(syn),
-                launches=launches, stage_ms=stage_ms, cluster=C, t_smem=t_smem,
+                osde_launches=launches, stage_ms=stage_ms, cluster=C, t_smem=t_smem,
                 no_pivot_panels=no_pivot, **bound(moved, ops))
 
 
@@ -2544,15 +2834,15 @@ def phase_cli_osde(dev, card_line: str, out_dir: str) -> None:
     """complete-bposd on the [[144]] DEM, one batch of 1,024 at p = 0.002,
     with ``--set osd_order=7`` and with ``osd_order=0`` at the same seed: its
     syndromes are in H's image, so OSD-e is OSD-0 and the counters are
-    equal; K4g never launches there, K5a-d do. The OSD stage's ms under
-    both."""
+    equal; K5a-d launch, and K4g only on samples past the factored column
+    budget, as often under both orders. The OSD stage's ms under both."""
     from qldpc_tpu_torch.experiments.cli import main as cli_main
     from qldpc_tpu_torch.experiments.results_io import load_results
     from qldpc_tpu_torch.ops import osd_factored_cuda, osd_transform_cuda
 
     wrappers = {"gf2_transform_elim_global": osd_transform_cuda.eliminate_transform_global_cuda,
                 "factored_y": osd_factored_cuda.factored_y_cuda}
-    res = {}
+    res, k4g_launches = {}, {}
     for order in (PH_ORDER, 0):
         patch, engines, _ = capture_engines()
         torch.cuda.synchronize()
@@ -2576,9 +2866,12 @@ def phase_cli_osde(dev, card_line: str, out_dir: str) -> None:
             f"p={OSDE_WIDE_P}: {wall:.1f} s (the DEM build included), route "
             f"{eng.osd.elimination}, launches {json.dumps(launches)}; a batch's stages, median ms "
             f"of 2: {json.dumps(stages)} on {card_line}")
-        if launches["factored_y"] < 1 or launches["gf2_transform_elim_global"]:
-            raise AssertionError("the CLI's OSD did not take K5 alone on in-image syndromes")
+        if launches["factored_y"] < 1:
+            raise AssertionError("the CLI's OSD did not take K5 on in-image syndromes")
+        k4g_launches[order] = launches["gf2_transform_elim_global"]
         del engines[:], eng
+    if k4g_launches[PH_ORDER] != k4g_launches[0]:
+        raise AssertionError(f"K4g launched {k4g_launches} times by order on in-image syndromes")
     differ = [k for k in res[0] if not np.array_equal(np.asarray(res[PH_ORDER][k]),
                                                       np.asarray(res[0][k]))]
     log(f"  osd_order={PH_ORDER} counters identical to osd_order=0's: {not differ} "
@@ -2762,12 +3055,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = timed(phase_cli_dems, dev, card_line, f"{tmp}/cli")
         timed(phase_checkpoints, dev, tmp)
-        k5_288, eng288 = timed(phase_dem288, dev, card_line, f"{tmp}/dem288")
+        k5_288, k4g["osd0_288"], eng288 = timed(phase_dem288, dev, card_line,
+                                                f"{tmp}/dem288")
     k4g["at_288"] = timed(phase_osde_wide, eng288, card_line, DEM288_P, OSDE_288_LANES)
     del eng288
     gc.collect()
     torch.cuda.empty_cache()
-    k4g["h_st"] = timed(phase_st288, dev, card_line)
+    k4g["past_9312"] = timed(phase_k4g_wide, dev, card_line)
+    timed(phase_st288, dev, card_line)
     timed(phase_rescue, dev, card_line)
     k2["osde_rows"] = timed(phase_osde_rows, dev, card_line)
     k4["osde"] = timed(phase_osde_transform, dev)
@@ -2806,9 +3101,10 @@ def main() -> int:
          k1_bf16_launches, k1_bf16),
         ("dem_bp_bf16", "dem_bp.cu", "qldpc_tpu/ops/dem_bp_pallas.py:78",
          cli_launches["dem_bp_bf16"], k3_bf16),
-        # K4g computes an XLA function of the JAX package, not a Pallas kernel
+        # K4g computes an XLA function of the JAX package, not a Pallas kernel;
+        # its path: OSD-0 at the [[288]] DEM, the samples past the budget
         ("gf2_transform_elim_global", "gf2_transform_elim_global.cu",
-         "qldpc_tpu/decoders/osd.py:492", k4g["launches"], k4g),
+         "qldpc_tpu/decoders/osd.py:492", k4g["osd0_288"]["run_launches"], k4g),
     ]
     # K1 where samples iterate, K2's packed-rows entry and its launches on
     # the OSD-e path, K4 on the space-time failures and on the OSD-e path, K5
@@ -2816,13 +3112,14 @@ def main() -> int:
     # device ms in turns and K3's bf16 message path's
     extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288",
              "f32_device_ms", "message_device_ms", "lanes", "stage_ms", "cluster", "t_smem",
-             "no_pivot_panels")
+             "no_pivot_panels", "osde_launches", "osd0_288", "past_9312")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],
              ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
              bound_ms=rec["bound_ms"],
-             bound_by=rec["bound_by"], library_ms=None, **{k: rec[k] for k in extra if k in rec})
+             bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
+             **{k: rec[k] for k in extra if k in rec})
         for name, src, replaces, count, rec in rows
     ]
     log(card_line)

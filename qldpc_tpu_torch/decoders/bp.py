@@ -18,13 +18,16 @@ and ``mm_dtype``, qldpc_tpu/decoders/bp.py:63-73): the messages round to
 bfloat16 where its Pallas kernels round them, and all arithmetic stays
 float32. ``stream_dtype="bfloat16"`` belongs to the DEM kernel (K3) and
 ``mm_dtype="bfloat16"`` to the fused flooding kernel (K1); each raises
-where the JAX package raises (``BPDecoder``), and either raises with
-``dtype="float64"``, which runs only on the plain path.
+where the JAX package raises (``BPDecoder``). As in the JAX package, a mode
+in effect computes in float32 whatever ``dtype`` says, and ``mm_dtype`` on
+a damped irregular graph warns and runs the float32 path, its messages
+unrounded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -70,7 +73,9 @@ class BPConfig:
     clip_llr: float | None = None  # symmetric clip of Q messages, None = off
     schedule: str = "flooding"  # "flooding" | "layered" (check-serial)
     n_layers: int = 0  # layered: check groups per iteration; 0 = auto
-    dtype: str = "float32"  # "float64" runs on the plain (CPU) path only
+    dtype: str = "float32"  # "float64" runs on the plain (CPU) path only;
+    # a bf16 mode in effect computes in float32 whatever it says, as the JAX
+    # kernels do
     stream_dtype: str = "float32"  # DEM kernel (irregular graphs): "bfloat16"
     # rounds the slot-space messages as the streams of
     # qldpc_tpu/ops/dem_bp_pallas.py hold them
@@ -102,16 +107,13 @@ class BPConfig:
             raise ValueError(
                 "mm_dtype applies only to the fused flooding kernel (regular graphs)"
             )
-        if self.dtype == "float64" and "bfloat16" in (self.stream_dtype, self.mm_dtype):
-            # the JAX kernels compute in float32 whatever dtype says; the
-            # port's float64 runs only on the plain path
-            raise ValueError("the bf16 message modes round float32 messages: dtype must "
-                             "be float32")
 
 
-def _check_message_modes(cfg: BPConfig, slot_layout: bool) -> None:
+def _check_message_modes(cfg: BPConfig, slot_layout: bool) -> bool:
     """The JAX decoder's refusals of the bf16 modes on this graph
-    (qldpc_tpu/decoders/bp.py:545-580)."""
+    (qldpc_tpu/decoders/bp.py:545-580), and its warning where it ignores
+    ``mm_dtype`` (a damped irregular graph, which its XLA path decodes in
+    float32). Returns whether a bf16 mode is in effect."""
     if cfg.stream_dtype != "float32":
         if not slot_layout:
             raise ValueError(
@@ -124,10 +126,18 @@ def _check_message_modes(cfg: BPConfig, slot_layout: bool) -> None:
                 "graph, flooding schedule, no damping)"
             )
     if cfg.mm_dtype != "float32" and slot_layout:
-        raise ValueError(
-            "mm_dtype applies to the fused flooding kernel only; irregular graphs use "
-            "the streamed DEM kernel (stream_dtype is its bf16 knob)"
+        if cfg.damping == 1.0:
+            raise ValueError(
+                "mm_dtype applies to the fused flooding kernel only; irregular graphs use "
+                "the streamed DEM kernel (stream_dtype is its bf16 knob)"
+            )
+        warnings.warn(
+            "mm_dtype applies to the fused flooding kernel only; a damped irregular graph "
+            "runs the float32 path without it, as the JAX package's XLA fallback does",
+            stacklevel=3,
         )
+        return False
+    return cfg.stream_dtype != "float32" or cfg.mm_dtype != "float32"
 
 
 class BPDecoder(nn.Module):
@@ -153,7 +163,8 @@ class BPDecoder(nn.Module):
                     "(every check with the same degree)"
                 )
             L = layer_count(g.m, config.n_layers)  # raises when it does not divide m
-        _check_message_modes(config, self.slot_layout)
+        if _check_message_modes(config, self.slot_layout):
+            self.dtype = torch.float32  # the JAX kernels' arithmetic, whatever dtype says
         if self.slot_layout:
             self._table_names = tuple(f.name for f in dataclasses.fields(DEMTables))
             for name, arr in dem_tables(g).items():

@@ -23,13 +23,18 @@ that the card and the CPU choose alike and their counters can be compared:
     each check's variables instead of a dense matmul;
   * larger ones (the [[144,12,12]] DEM, m = 1,728): the factored elimination
     (``ops.osd_factored_cuda``: plain torch on CPU, K5a-d on CUDA), with the
-    JAX decoder's column budget ``max(max_elim_cols, min(n, rank + 512))``.
-    A sample that exhausts it unresolved returns ``hard`` unchanged, so the
-    engine counts it as a failure rather than accept a partial solve.
+    JAX decoder's column budget ``max(max_elim_cols, min(n, rank + 512))``,
+    then, with ``auto``, the transform elimination (K4g on CUDA) on the
+    samples that exhaust it unresolved (route ``"factored+transform"``).
+    With ``backend="factored"`` such a sample returns ``hard`` unchanged, as
+    the JAX factored backend does, so that the engine counts it as a failure
+    rather than accept a partial solve.
 
 All three give the OSD-0 solution of the JAX ``lanes`` path: the transform
 elimination's ``(b, piv_col)`` are the lanes path's, and the factored one's
-are for every sample that stays within its budget.
+are for every sample that stays within its budget; ``auto`` sends the
+others through the transform, as the lanes path, which has no budget,
+runs every sample.
 
 OSD-e (``order > 0``): a system is consistent when every row without a
 pivot carries a zero syndrome bit, and a consistent system returns its
@@ -57,19 +62,19 @@ package, outside any Pallas kernel, and stays torch here (``torch.bmm`` and
 elementwise ops).
 
 Past K4's block ``auto`` takes the route ``"factored+transform"`` for
-OSD-e, where the JAX package runs its XLA transform on every sample: the
-factored elimination's OSD-0 on the whole batch, and its (b, pivoted) tell
-the consistent samples apart (the transform's test on the same rows: a
-sample that b-exits has cleared b at and below its rank, an inconsistent
-one runs to rank(H) in both). The consistent samples keep their OSD-0
-solution; the inconsistent ones, and any that ran out of the column budget,
-take the transform elimination with the b-exit on (K4g on CUDA: a cluster
-of blocks a sample, ``T_BYTES`` of T at a time), whose solution replaces the factored
-one: OSD-0 for an out-of-budget sample that proves consistent (the JAX
-path, which has no budget, gives the same), the search for the rest. A
-batch of syndromes in H's image pays the test, and the transform only for
-its samples past the budget. ``backend="factored"`` with ``order > 0``
-raises ``ValueError``, as in the JAX package.
+every order, where the JAX package runs its XLA transform on every sample:
+the factored elimination's OSD-0 on the whole batch, then the transform
+elimination with the b-exit on (K4g on CUDA: a cluster of blocks a sample,
+``T_BYTES`` of T at a time, any number of rows) on the samples that ran out
+of the column budget, whose OSD-0 solution (the JAX path's, which has no
+budget) replaces the factored one. With ``order > 0`` the factored
+(b, pivoted) also tell the consistent samples apart (the transform's test on
+the same rows: a sample that b-exits has cleared b at and below its rank,
+an inconsistent one runs to rank(H) in both): the consistent ones keep
+their OSD-0 solution, the inconsistent ones take the transform too, and the
+search. A batch of syndromes in H's image pays the test, and the transform
+only for its samples past the budget. ``backend="factored"`` with
+``order > 0`` raises ``ValueError``, as in the JAX package.
 
 ``OSDConfig.backend`` forces the transform or the factored elimination on a
 system the row elimination does not take; no path falls back to another.
@@ -155,8 +160,9 @@ class OSDConfig:
     extra_positions: int = 10  # OSD-e: test set size = order + extra_positions
     backend: str = "auto"  # wide systems: "auto" picks the transform
     # elimination when a sample's transform fits one block's shared memory
-    # and the factored one otherwise (OSD-e: then the transform on the
-    # samples it searches); "transform" and "factored" force one
+    # and the factored one otherwise, then the transform on the samples past
+    # its budget (OSD-e: and on those it searches); "transform" and
+    # "factored" force one (the factored one returns ``hard`` past its budget)
     max_elim_cols: int = 2048  # factored elimination: column budget floor,
     # raised to min(n, rank(H) + 512) (decoders/osd.py of the JAX package)
     chunk: int = 64  # OSD-e: samples a search step takes at most (fewer
@@ -237,9 +243,7 @@ class OSDDecoder(nn.Module):
             self.elimination = config.backend
             if self.elimination == "auto":
                 fits = smem_bytes(self.m) <= SMEM_LIMIT
-                self.elimination = "transform" if fits else "factored"
-                if not fits and config.order > 0:
-                    self.elimination = "factored+transform"
+                self.elimination = "transform" if fits else "factored+transform"
             vos, self.dc_parity = parity_tables(H)
             self.register_buffer("vos_parity", torch.from_numpy(vos.astype(np.int64)))
             if self.elimination == "transform":
@@ -265,16 +269,17 @@ class OSDDecoder(nn.Module):
         return self
 
     def _check_device(self, device) -> None:
-        """Past K4's block OSD-e's transform runs K4g on the card, whose
-        cluster holds at most ``global_fits``' rows: a larger system is
-        refused when the decoder moves to the card, not at its first call.
-        The CPU's plain version takes any size."""
+        """Past K4's block the transform runs K4g on the card, which takes
+        any system whose per-slot state fits its widest cluster (217,808
+        rows, ``global_fits``; every system whose one-sample T fits
+        ``T_BYTES``): a larger one is refused when the decoder moves to the
+        card, not at its first call. The CPU's plain version takes any size."""
         if self.elimination == "factored+transform" and torch.device(device).type == "cuda" \
                 and not global_fits(self.m):
             raise ValueError(
-                f"OSD-e on a {self.m}-row system past K4's block needs K4g, whose cluster "
+                f"OSD on a {self.m}-row system past K4's block needs K4g, whose cluster "
                 "of 16 blocks does not hold that many rows on the card; decode it on the "
-                "CPU or with order 0")
+                "CPU or with backend='factored'")
 
     def _residual(self, syndromes, hard):
         B = hard.shape[0]
@@ -317,11 +322,14 @@ class OSDDecoder(nn.Module):
         corr[bidx, torch.where(piv >= 0, piv, n).long()] = b
         sol = torch.where(overflow[:, None], hard, hard ^ corr[:, :n])
         if self.elimination == "factored+transform":
+            # the samples out of budget take the transform elimination,
+            # ``T_BYTES`` of T at a time; OSD-e: also the inconsistent ones, by
             # the transform's test (a row without a pivot carrying a syndrome
-            # bit) on the factored (b, pivoted): the same verdict for every
-            # sample within the budget. Inconsistent samples, and those out of
-            # budget, take the transform elimination, ``T_BYTES`` of T at a time
-            redo = torch.nonzero(((pivoted == 0) & (b != 0)).any(dim=1) | overflow).flatten()
+            # bit) on the factored (b, pivoted), the same verdict for every
+            # sample within the budget
+            if self.config.order:
+                overflow = overflow | ((pivoted == 0) & (b != 0)).any(dim=1)
+            redo = torch.nonzero(overflow).flatten()
             group = max(1, T_BYTES // t_bytes(self.m))
             for s in range(0, len(redo), group):
                 g = redo[s:s + group]

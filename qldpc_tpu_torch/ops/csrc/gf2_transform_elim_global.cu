@@ -46,21 +46,29 @@
 //   its block's rows above the rank's panel words (a warp a row). The only
 //   per-row arrays a block holds beyond its own R slots are the leader's
 //   list (its words, masks, slots and logical rows), so that a cluster of 16
-//   takes 9,312 rows.
+//   takes 9,312 rows in shared memory alone.
+// * Past that (SP, "spilled"), the terms that do not shrink with C leave
+//   shared memory: the panel's (word, column) pairs and U go to a global
+//   workspace of each block, the leader's list to one of each sample (both
+//   stay in L1 and L2), and the panel's columns are read from Hc where
+//   they are needed instead of staged. A block then holds only its own
+//   slots' state (17 bytes a slot, 32-bit slots and places), so that a
+//   cluster of 16 takes 217,808 rows; T is in global memory.
 // * Each row above the rank then replays the panel's pivots in column order
 //   (a thread a row): if it holds pivot k's column bit it XORs in PW_k,
 //   PM_k with bit k, and b_k. By linearity that is the mask and b the
 //   sequential walk gives it (tests/test_torch_k4g_cluster.py holds the
 //   claim).
 // * Each block stages U (the pivots' panel-start rows) in its own shared
-//   memory; a cluster barrier; then each row whose mask is set takes its U
-//   rows (a warp a row, a lane a word). Three cluster barriers a panel with
-//   a pivot, one without.
+//   memory (SP: its workspace); a cluster barrier; then each row whose mask
+//   is set takes its U rows (a warp a row, a lane a word). Three cluster
+//   barriers a panel with a pivot, one without.
 //
 // At the end each block writes its slots' b, and its rows of T to their
 // logical rows: from shared memory directly; from global memory in place,
-// a few words of every slot at a time staged in the shared memory the walk
-// no longer needs, a cluster barrier between staging and writing. The exits
+// the same few words of every slot at a time in every block, staged in the
+// shared memory (SP: the workspace) the walk no longer needs, a cluster
+// barrier between staging and writing. The exits
 // are K4's (at every 32nd column: rank(H) reached, or with the b-exit no
 // syndrome bit at or below the rank), so T, b, rank and piv_col equal the
 // plain version's (ops/osd_transform_cuda.py::eliminate_transform_plain).
@@ -80,8 +88,20 @@ namespace cg = cooperative_groups;
 #ifndef THREADS
 #define THREADS 1024  // a probe's build may pick another block size
 #endif
-#define MAX_ROWS 65536  // slots and list rows are 16-bit
+#define MAX_ROWS 65536  // the shared layout's slots and list rows are 16-bit
 #define MAX_CLUSTER 16
+
+// The slots' and places' type, and the bit of a list row's slot word that
+// carries its b (the slot in the bits below it): 16-bit with b in bit 16 in
+// the shared layout, 32-bit with b in bit 31 in the spilled one.
+template <bool SP> struct Layout {
+    using Ix = uint16_t;
+    static constexpr int BB = 16;
+};
+template <> struct Layout<true> {
+    using Ix = uint32_t;
+    static constexpr int BB = 31;
+};
 
 #ifdef K4G_PROBE
 #define NPROBE 24
@@ -107,8 +127,9 @@ __device__ unsigned long long* k4g_probe_buf = nullptr;
 // pair (pwj: the word above the low 5 bits, the panel column in them; pm:
 // the column's word there), the lanes' bits XORed together (every lane gets
 // the word). Every lane does the same work whatever the columns' weights.
+template <typename Ix>
 __device__ __forceinline__ uint32_t panel_word(
-    const uint32_t* row, const uint16_t* pwj, const uint32_t* pm, int np, int lane)
+    const uint32_t* row, const Ix* pwj, const uint32_t* pm, int np, int lane)
 {
     uint32_t wv = 0;
 #pragma unroll 4
@@ -121,9 +142,10 @@ __device__ __forceinline__ uint32_t panel_word(
 
 // The panel words of a block's own rows above the rank into Wsl: warps
 // first, first + step, ... a row each.
+template <typename Ix>
 __device__ __forceinline__ void above_words(
-    const uint32_t* Town, int nr, int rank, const uint16_t* lrow, uint32_t* Wsl,
-    const uint16_t* pwj, const uint32_t* pm, int np, int mw, int first, int step, int lane)
+    const uint32_t* Town, int nr, int rank, const Ix* lrow, uint32_t* Wsl,
+    const Ix* pwj, const uint32_t* pm, int np, int mw, int first, int step, int lane)
 {
     for (int r = first; r < nr; r += step) {
         if (lrow[r] >= rank) continue;
@@ -138,7 +160,9 @@ __device__ __forceinline__ void above_words(
 // words into W and their slots, b in bit 16, into cX, in logical order),
 // which also records each pivot's column, panel word, mask over U, slot and
 // b, and writes piv_col to global memory. Leaves each list position's slot
-// and b in W[q] and its mask in cX[q].
+// and b in W[q] and its mask in cX[q]. BB: the bit of the slot word that
+// carries b.
+template <int BB>
 __device__ __forceinline__ void eliminate_below(
     uint32_t* W, uint32_t* cW, uint32_t* cX,
     int* piv_g, int* s_pcol, uint32_t* s_pw, uint32_t* s_pm, int* s_src, uint32_t* s_pb,
@@ -204,19 +228,19 @@ __device__ __forceinline__ void eliminate_below(
         }
         // the pivot row as the rows above the rank replay it
         const uint32_t pw = __ballot_sync(FULL, hw), pm = __ballot_sync(FULL, hm);
-        const uint32_t sx = __ballot_sync(FULL, hx);  // the pivot's slot, and its b in bit 16
+        const uint32_t sx = __ballot_sync(FULL, hx);  // the pivot's slot, and its b in bit BB
         if (lane == 0) {
             s_pcol[k] = j;
             s_pw[k] = pw;
             s_pm[k] = pm;
-            s_src[k] = (int)(sx & 0xffffu);
+            s_src[k] = (int)(sx & ((1u << BB) - 1u));
         }
-        pb |= ((sx >> 16) & 1u) << k;
+        pb |= ((sx >> BB) & 1u) << k;
         if (lane == k) mypiv = col0 + j;
         __syncwarp();  // column j after the swap
         // every other row holding bit j takes the pivot row: its W bits,
         // its mask over U with pivot k, its b
-        const bool doW = hw && lane != j, doM = hm || lane == k, doX = lane == 16 && hx;
+        const bool doW = hw && lane != j, doM = hm || lane == k, doX = lane == BB && hx;
         for (int g = 0; g < LG; g += 4) {
             uint32_t s[4], a[4], b[4], c[4];
 #pragma unroll
@@ -266,27 +290,41 @@ __device__ __forceinline__ void eliminate_below(
 // leader's list (m_pad): the gathered words (then cM), cX; with TS the
 // block's R rows of T; then 16-bit: the pairs' places, per own slot its
 // logical row and per own logical row its slot, the list's logical rows;
-// per own slot b.
-static size_t k4g_smem_bytes(int m, int mw, int C, int ts)
+// per own slot b. Spilled (sp): per own slot the panel word, the mask, its
+// logical row and the slot of each own logical row (32-bit), and b.
+static size_t k4g_smem_bytes(int m, int mw, int C, int ts, int sp)
 {
     const size_t m_pad = (size_t)((m + 31) / 32) * 32, R = (size_t)((m + C - 1) / C);
+    if (sp) return 16 * R + R + (ts ? 4 * R * mw : 0);
     const size_t words = PANEL * (size_t)(mw | 1) + 2 * PANEL * (size_t)mw + 2 * R
                          + 2 * m_pad + (ts ? R * mw : 0);
     return 4 * words + 2 * (PANEL * (size_t)mw + 2 * R + m_pad) + R;
 }
 
-template <bool TS>
+// The spilled layout's global workspace, in words: the pairs' words, their
+// places and U of each block (3 m_pad, m_pad = PANEL * mw), then the
+// leader's list of each sample (its words, slots and b, logical rows).
+static size_t k4g_workspace_words(int B, int m, int C)
+{
+    const size_t m_pad = (size_t)((m + 31) / 32) * 32;
+    return 3 * m_pad * ((size_t)B * C + B);
+}
+
+template <bool TS, bool SP>
 __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
     const int* __restrict__ order, const uint32_t* __restrict__ Hc,
     uint32_t* T_out, int* __restrict__ b_io,
-    int* __restrict__ rank_out, int* __restrict__ piv_out,
+    int* __restrict__ rank_out, int* __restrict__ piv_out, uint32_t* ws,
     int m, int mw, int n, int h_rank, int b_exit, int C)
 {
+    using Ix = typename Layout<SP>::Ix;
+    constexpr int BB = Layout<SP>::BB;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     // the leader's panel record, copied by every block once a panel pivots
     __shared__ int s_pcol[PANEL], s_src[PANEL];
     __shared__ uint32_t s_pw[PANEL], s_pm[PANEL], s_pb;
     __shared__ int s_rank, s_npiv, s_np[2], s_any[2], s_wcnt[32];
+    __shared__ int s_col[SP ? PANEL : 1];  // SP: the panel's columns of H
 
     cg::cluster_group cluster = cg::this_cluster();
     const int crank = (int)cluster.block_rank();
@@ -294,21 +332,42 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
     const int G = (m + 31) >> 5, m_pad = G * 32;
     const int stride = mw | 1;
     const int R = (m + C - 1) / C, r0 = crank * R, nr = max(0, min(R, m - r0));
-    uint32_t* hc = (uint32_t*)smem_raw;               // PANEL * stride, staged columns
-    uint32_t* pm = hc + PANEL * stride;               // PANEL * mw, the (word, column) pairs' words
-    uint32_t* U = pm + PANEL * mw;                    // PANEL * mw, pivots' rows; leader: cW
-    uint32_t* Wsl = U + PANEL * mw;                   // R, own slots' panel words
-    uint32_t* Msl = Wsl + R;                          // R, own slots' masks over U
-    uint32_t* Wl = Msl + R;                           // m_pad, leader: the list's words, then cM
-    uint32_t* cX = Wl + m_pad;                        // m_pad, leader: the list's slots and b
-    uint32_t* Tsm = cX + m_pad;                       // TS: R * mw, own rows of T
-    uint16_t* pwj = (uint16_t*)(Tsm + (TS ? (size_t)R * mw : 0));  // PANEL * mw, pairs' word, column
-    uint16_t* lrow = pwj + PANEL * mw;                // R, logical row of each own slot
-    uint16_t* pslot = lrow + R;                       // R, slot of each own logical row r0 + r
-    uint16_t* lab = pslot + R;                        // m_pad, leader: the list's logical rows
-    uint8_t* bsl = (uint8_t*)(lab + m_pad);           // R, own slots' b
-
     const int s = blockIdx.x / C, tid = threadIdx.x, nt = blockDim.x;
+    uint32_t *hc, *pm, *U, *Wsl, *Msl, *Wl, *cX, *Tsm;
+    Ix *pwj, *lrow, *pslot, *lab;
+    uint8_t* bsl;
+    if (SP) {
+        uint32_t* own = ws + (size_t)blockIdx.x * 3 * m_pad;
+        uint32_t* list = ws + ((size_t)gridDim.x + s) * 3 * m_pad;
+        hc = nullptr;                                 // the columns are read from Hc
+        pm = own;                                     // m_pad, the (word, column) pairs' words
+        pwj = (Ix*)(pm + m_pad);                      // m_pad, the pairs' word, column
+        U = (uint32_t*)pwj + m_pad;                   // m_pad, pivots' rows; leader: cW
+        Wl = list;                                    // m_pad, leader: the list's words, then cM
+        cX = Wl + m_pad;                              // m_pad, leader: the list's slots and b
+        lab = (Ix*)(cX + m_pad);                      // m_pad, leader: the list's logical rows
+        Wsl = (uint32_t*)smem_raw;                    // R, own slots' panel words
+        Msl = Wsl + R;                                // R, own slots' masks over U
+        lrow = (Ix*)(Msl + R);                        // R, logical row of each own slot
+        pslot = lrow + R;                             // R, slot of each own logical row r0 + r
+        Tsm = (uint32_t*)(pslot + R);                 // TS: R * mw, own rows of T
+        bsl = (uint8_t*)(Tsm + (TS ? (size_t)R * mw : 0));  // R, own slots' b
+    } else {
+        hc = (uint32_t*)smem_raw;                     // PANEL * stride, staged columns
+        pm = hc + PANEL * stride;                     // PANEL * mw, the (word, column) pairs' words
+        U = pm + PANEL * mw;                          // PANEL * mw, pivots' rows; leader: cW
+        Wsl = U + PANEL * mw;                         // R, own slots' panel words
+        Msl = Wsl + R;                                // R, own slots' masks over U
+        Wl = Msl + R;                                 // m_pad, leader: the list's words, then cM
+        cX = Wl + m_pad;                              // m_pad, leader: the list's slots and b
+        Tsm = cX + m_pad;                             // TS: R * mw, own rows of T
+        pwj = (Ix*)(Tsm + (TS ? (size_t)R * mw : 0)); // PANEL * mw, pairs' word, column
+        lrow = pwj + PANEL * mw;                      // R, logical row of each own slot
+        pslot = lrow + R;                             // R, slot of each own logical row r0 + r
+        lab = pslot + R;                              // m_pad, leader: the list's logical rows
+        bsl = (uint8_t*)(lab + m_pad);                // R, own slots' b
+    }
+
     const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5, stager = nwarps - 1;
     const int* ord = order + (size_t)s * n;
     int* b_s = b_io + (size_t)s * m;
@@ -329,13 +388,19 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
         Town[idx] = (slot >> 5) == w ? (1u << (slot & 31)) : 0u;
     }
     for (int r = tid; r < nr; r += nt) {
-        lrow[r] = (uint16_t)(r0 + r);
-        pslot[r] = (uint16_t)(r0 + r);
+        lrow[r] = (Ix)(r0 + r);
+        pslot[r] = (Ix)(r0 + r);
         bsl[r] = (uint8_t)b_s[r0 + r];
         piv_g[r0 + r] = -1;
     }
     if (tid < 2) s_np[tid] = 0;
-    if (warp == stager && n > 0) stage_panel(hc, stride, ord, Hc, 0, n, mw, lane);
+    if (warp == stager && n > 0) {
+        if (SP) {
+            if (lane < n) s_col[lane] = __ldg(ord + lane);
+        } else {
+            stage_panel(hc, stride, ord, Hc, 0, n, mw, lane);
+        }
+    }
     cluster.sync();  // every block set up before any reads another
 
     // the exits at each panel's start: rank(H) reached here, the b-exit (no
@@ -351,23 +416,32 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
 
         // 1. the (word, column) pairs where a panel column is nonzero, a
         //    thread a word: its pairs at a place its atomicAdd reserves (the
-        //    order of the pairs does not matter, their bits are XORed)
+        //    order of the pairs does not matter, their bits are XORed); SP:
+        //    the columns' words read from Hc
         for (int w0 = 0; w0 < mw; w0 += nt) {
             const int w = w0 + tid;
             if (w >= mw) continue;
             uint32_t cols = 0;
-            for (int j = 0; j < ncols; ++j) cols |= (uint32_t)(hc[j * stride + w] != 0u) << j;
+            for (int j = 0; j < ncols; ++j) {
+                const uint32_t x = SP ? __ldg(Hc + (size_t)s_col[j] * mw + w) : hc[j * stride + w];
+                cols |= (uint32_t)(x != 0u) << j;
+            }
             if (!cols) continue;
             int at = atomicAdd(&s_np[par], __popc(cols));
             for (; cols; cols &= cols - 1, ++at) {
                 const int j = __ffs(cols) - 1;
-                pm[at] = hc[j * stride + w];
-                pwj[at] = (uint16_t)((w << 5) | j);
+                pm[at] = SP ? __ldg(Hc + (size_t)s_col[j] * mw + w) : hc[j * stride + w];
+                pwj[at] = (Ix)((w << 5) | j);
             }
         }
         __syncthreads();
-        if (warp == stager && col0 + PANEL < n)
-            stage_panel(hc, stride, ord, Hc, col0 + PANEL, n, mw, lane);
+        if (warp == stager && col0 + PANEL < n) {
+            if (SP) {
+                if (col0 + PANEL + lane < n) s_col[lane] = __ldg(ord + col0 + PANEL + lane);
+            } else {
+                stage_panel(hc, stride, ord, Hc, col0 + PANEL, n, mw, lane);
+            }
+        }
         const int np = s_np[par];
         PROBE_MARK(2);
 
@@ -425,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
                     const int sl = cluster.map_shared_rank(pslot, ci)[i - ci * R];
                     const int c = sl / R, loc = sl - c * R;
                     w = cluster.map_shared_rank(Wsl, c)[loc];
-                    x = (uint32_t)sl | ((uint32_t)cluster.map_shared_rank(bsl, c)[loc] << 16);
+                    x = (uint32_t)sl | ((uint32_t)cluster.map_shared_rank(bsl, c)[loc] << BB);
                 }
                 const bool in = i < m && (w != 0u || i < rank + PANEL);
                 const uint32_t bal = __ballot_sync(FULL, in);
@@ -441,14 +515,14 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
                     const int q = off + __popc(bal & ((1u << lane) - 1u));
                     Wl[q] = w;
                     cX[q] = x;
-                    lab[q] = (uint16_t)i;
+                    lab[q] = (Ix)i;
                 }
                 L += tot;
                 __syncthreads();  // s_wcnt read before the next chunk's counts
             }
             PROBE_MARK(6);
             if (warp == 0)
-                eliminate_below(Wl, U, cX, piv_g, s_pcol, s_pw, s_pm, s_src, &s_pb, &s_rank,
+                eliminate_below<BB>(Wl, U, cX, piv_g, s_pcol, s_pw, s_pm, s_src, &s_pb, &s_rank,
                                 &s_npiv, L, ncols, col0, rank, lane);
             else
                 above_words(Town, nr, rank, lrow, Wsl, pwj, pm, np, mw, warp - 1, nwarps - 1,
@@ -458,11 +532,11 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
             for (int q = tid; q < L; q += nt) {
                 const int i = lab[q], ci = i / R;
                 const uint32_t y = Wl[q];
-                const int sl = (int)(y & 0xffffu), c = sl / R, loc = sl - c * R;
+                const int sl = (int)(y & ((1u << BB) - 1u)), c = sl / R, loc = sl - c * R;
                 cluster.map_shared_rank(Msl, c)[loc] = cX[q];
-                cluster.map_shared_rank(bsl, c)[loc] = (uint8_t)((y >> 16) & 1u);
-                cluster.map_shared_rank(lrow, c)[loc] = (uint16_t)i;
-                cluster.map_shared_rank(pslot, ci)[i - ci * R] = (uint16_t)sl;
+                cluster.map_shared_rank(bsl, c)[loc] = (uint8_t)((y >> BB) & 1u);
+                cluster.map_shared_rank(lrow, c)[loc] = (Ix)i;
+                cluster.map_shared_rank(pslot, ci)[i - ci * R] = (Ix)sl;
             }
             PROBE_ADD(12, L);
             PROBE_ADD(13, m - rank);
@@ -567,11 +641,15 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
             for (int w = lane; w < mw; w += 32) dst[w] = src[w];
         }
     } else {
-        // in place: cw words of every own slot staged in hc .. cX (no longer
-        // read), a cluster barrier, then written to the rows they hold
-        uint32_t* stage = hc;
-        const int room = (int)(Tsm - hc);
-        const int cw = max(1, min(mw, room / max(nr, 1)));
+        // in place: cw words of every own slot staged in hc .. cX (SP: the
+        // block's workspace; no longer read), a cluster barrier, then written
+        // to the rows they hold. cw follows R, not nr: every block of the
+        // cluster takes the same words in the same rounds (a short last
+        // block with a wider cw would meet the others' barriers a round
+        // early and write words they have not staged yet)
+        uint32_t* stage = SP ? pm : hc;
+        const int room = SP ? 3 * m_pad : (int)(Tsm - hc);
+        const int cw = max(1, min(mw, room / R));
         for (int w0 = 0; w0 < mw; w0 += cw) {
             const int c = min(cw, mw - w0);
             for (int idx = tid; idx < nr * c; idx += nt) {
@@ -599,9 +677,60 @@ __global__ void __launch_bounds__(THREADS, 1) gf2_transform_elim_global_kernel(
 #endif
 }
 
-extern "C" int gf2_transform_elim_global_smem_bytes(int m, int mw, int C, int ts)
+typedef void (*k4g_kernel_t)(const int*, const uint32_t*, uint32_t*, int*, int*, int*,
+                             uint32_t*, int, int, int, int, int, int);
+
+// The kernel's instance for T in shared memory (ts) or global memory, the
+// shared or the spilled (sp) layout; null for T in shared memory spilled.
+static k4g_kernel_t k4g_kernel(int ts, int sp)
 {
-    return (int)k4g_smem_bytes(m, mw, C, ts);
+    if (sp) return ts ? nullptr : &gf2_transform_elim_global_kernel<false, true>;
+    return ts ? &gf2_transform_elim_global_kernel<true, false>
+              : &gf2_transform_elim_global_kernel<false, false>;
+}
+
+// The instance's shared memory opted in (and clusters past 8 allowed) and a
+// launch configuration of B clusters of C blocks.
+static cudaError_t k4g_config(k4g_kernel_t kernel, size_t smem, int B, int C,
+                              cudaLaunchConfig_t* config, cudaLaunchAttribute* attr)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && C > 8)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    *config = {};
+    config->gridDim = dim3(B * C);
+    config->blockDim = dim3(THREADS);
+    config->dynamicSmemBytes = smem;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = C;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    config->attrs = attr;
+    config->numAttrs = 1;
+    return err;
+}
+
+extern "C" int gf2_transform_elim_global_smem_bytes(int m, int mw, int C, int ts, int sp)
+{
+    return (int)k4g_smem_bytes(m, mw, C, ts, sp);
+}
+
+extern "C" long long gf2_transform_elim_global_workspace_words(int B, int m, int C, int sp)
+{
+    return sp ? (long long)k4g_workspace_words(B, m, C) : 0;
+}
+
+// The static shared memory of the instance (ts, sp), which
+// ops/osd_transform_cuda.py reserves as _GLOBAL_STATIC_SMEM (a negative
+// cudaError_t if the instance does not exist or the query fails).
+extern "C" int gf2_transform_elim_global_static_smem(int ts, int sp)
+{
+    k4g_kernel_t kernel = k4g_kernel(ts, sp);
+    if (!kernel) return -(int)cudaErrorInvalidValue;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)kernel);
+    return err == cudaSuccess ? (int)attr.sharedSizeBytes : -(int)err;
 }
 
 #ifdef K4G_PROBE
@@ -612,72 +741,44 @@ extern "C" int gf2_transform_elim_global_set_probe(void* buf)
 }
 #endif
 
-#ifdef K4G_PROBE
-// The kernel's instance for T in shared memory (ts) or global memory, its
-// shared memory opted in, and the clusters of width C that fit the card at
-// once (0 if none: the launch would fail).
-extern "C" int gf2_transform_elim_global_max_clusters(int m, int mw, int C, int ts)
+// The clusters of width C that the card runs at once for a system of m
+// rows in the layout (ts, sp) (0 if none: the launch would fail; a negative
+// cudaError_t if the query fails). ops/osd_transform_cuda.py widens a
+// cluster to 16 only where every sample's cluster fits at once.
+extern "C" int gf2_transform_elim_global_max_clusters(int m, int mw, int C, int ts, int sp)
 {
-    const size_t smem = k4g_smem_bytes(m, mw, C, ts);
-    auto kernel = ts ? &gf2_transform_elim_global_kernel<true>
-                     : &gf2_transform_elim_global_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess && C > 8)
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return -(int)err;
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(C);
-    config.blockDim = dim3(THREADS);
-    config.dynamicSmemBytes = smem;
+    k4g_kernel_t kernel = k4g_kernel(ts, sp);
+    if (!kernel || C < 1 || C > MAX_CLUSTER) return -(int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t config;
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.attrs = attr;
-    config.numAttrs = 1;
+    cudaError_t err = k4g_config(kernel, k4g_smem_bytes(m, mw, C, ts, sp), 1, C, &config, attr);
+    if (err != cudaSuccess) return -(int)err;
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &config);
     return err == cudaSuccess ? clusters : -(int)err;
 }
-#endif
 
 extern "C" int gf2_transform_elim_global_launch(
     const void* order, const void* Hc, void* T_out, void* b_io,
-    void* rank_out, void* piv_out, int B, int m, int mw, int n, int h_rank,
-    int b_exit, int C, int ts, void* stream_)
+    void* rank_out, void* piv_out, void* ws, long long ws_words, int B, int m, int mw, int n,
+    int h_rank, int b_exit, int C, int ts, int sp, void* stream_)
 {
     const int G = (m + 31) / 32;
-    if (m < 1 || G * 32 > MAX_ROWS || mw != G || C < 1 || C > MAX_CLUSTER)
+    k4g_kernel_t kernel = k4g_kernel(ts, sp);
+    if (m < 1 || (!sp && G * 32 > MAX_ROWS) || mw != G || C < 1 || C > MAX_CLUSTER || !kernel)
         return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaSuccess;
-    const size_t smem = k4g_smem_bytes(m, mw, C, ts);
-    auto kernel = ts ? &gf2_transform_elim_global_kernel<true>
-                     : &gf2_transform_elim_global_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (C > 8) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (err != cudaSuccess) return (int)err;
-    }
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(B * C);
-    config.blockDim = dim3(THREADS);
-    config.dynamicSmemBytes = smem;
-    config.stream = (cudaStream_t)stream_;
+    if (sp && (ws == nullptr || ws_words < (long long)k4g_workspace_words(B, m, C)))
+        return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t config;
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.attrs = attr;
-    config.numAttrs = 1;
+    cudaError_t err = k4g_config(kernel, k4g_smem_bytes(m, mw, C, ts, sp), B, C, &config, attr);
+    if (err != cudaSuccess) return (int)err;
+    config.stream = (cudaStream_t)stream_;
     err = cudaLaunchKernelEx(
         &config, kernel,
         (const int*)order, (const uint32_t*)Hc, (uint32_t*)T_out, (int*)b_io,
-        (int*)rank_out, (int*)piv_out, m, mw, n, h_rank, b_exit, C);
+        (int*)rank_out, (int*)piv_out, (uint32_t*)ws, m, mw, n, h_rank, b_exit, C);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

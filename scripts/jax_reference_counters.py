@@ -27,9 +27,13 @@ work:
     holds the port's run of that preset to (``--only`` takes ``space-time``
     for all 16; about 25 minutes, [[144]] 100-310 s a cell);
   * ``st288-min-sum``: [[288,12,18]] space-time at T = 18, BP(100) min-sum +
-    OSD-0, batch 256, p = 0.008, 256 trials, seed 1: did not finish its one
-    batch in 18 minutes (47 CPU-minutes), so nothing holds chip_smoke.py
-    phase 24 to it yet;
+    OSD-0, batch 32, p = 0.008, 128 trials, seed 1, OSD on the BP failures
+    compacted to 4, 8 or 16 lanes (``osd_tiers``, which changes no counter):
+    chip_smoke.py phase 24 holds the card to it. The slow stage is OSD: H_st
+    (2,592 x 7,776) is narrow, so the JAX decoder runs its lanes row
+    elimination, about 150 s a call on 8 lanes (BP(100) on them: 0.26 s); a
+    batch of 256 did not finish in 18 minutes, one of 32 with every lane
+    eliminated took 619 s;
   * ``ph144-osde7``: the phenomenological channel on [[144,12,12]], BP(50)
     min-sum + OSD-e(7), batch 512, p = 0.03, 512 trials, seed 0: about 98%
     of the syndromes leave H's image, so the OSD-e search runs on almost
@@ -116,9 +120,9 @@ CONFIGS = {
         for code in ST_PRESET_CODES for i, p in enumerate(ST_PRESET_RATES)
     },
     "st288-min-sum": dict(
-        code="[[288, 12, 18]]", p=0.008, trials=256, seed=1,
+        code="[[288, 12, 18]]", p=0.008, trials=128, seed=1,
         config=dict(bp=BPConfig(max_iter=100, method="min-sum"), channel="space-time",
-                    n_rounds=18, batch_size=256),
+                    n_rounds=18, batch_size=32, osd_tiers=(4, 8, 16)),
     ),
     "ph144-osde7": dict(
         p=0.03, trials=512, seed=0, osd=OSDConfig(order=7),

@@ -2,6 +2,7 @@
 time goes, per step and per panel, at each cluster width.
 
     python3 scripts/probe_k4g.py [--old-csrc DIR] [--out chiprun_out/probe_k4g]
+    python3 scripts/probe_k4g.py --layouts [--inputs 144 288 st288]
     python3 scripts/probe_k4g.py --count-cpu --code "[[144, 12, 12]]" --lanes 4
 
 On the card (the default) it builds a second instance of
@@ -17,7 +18,17 @@ counts per panel into a buffer, and runs it on three inputs:
   st288 BP failures of [[288,12,18]] space-time at T = 18 (H_st 2,592 x
         7,776, p = 0.008, the space-time preset's BP(100)), as chip_smoke.py's
         phase 24 takes them: H_st's rows are independent, so none leaves its
-        image, and K4g runs without the b-exit, every lane to rank(H).
+        image, and K4g runs without the b-exit, every lane to rank(H) (the
+        timing phase 24 no longer takes);
+  wide  chip_smoke.py's synthetic systems past 9,312 rows (WIDE_SIZES, 2
+        lanes each, one outside H's image, the b-exit on), which K4g runs in
+        its spilled layout (--old-csrc does not take them).
+
+With --layouts it instead times, on the 144, 288 and st288 inputs (and
+the [[288]] DEM's BP failures past the factored column budget, phase 23's
+OSD-0 traffic), each with all its lanes and with one, K4g's shared layout
+at launch_shape's choice against its spilled layout at the same cluster
+width, in turns, both held to the plain version bit for bit.
 
 For each it prints, at every cluster width C (1 to 16) with T in shared
 memory where the cluster holds it and in global memory: the device ms of
@@ -64,8 +75,9 @@ from qldpc_tpu_torch._build import BUILD_DIR, CSRC_DIR, KernelLibrary  # noqa: E
 from qldpc_tpu_torch.ops import osd_transform_cuda as otc  # noqa: E402
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
-LAUNCH = [_vp] * 6 + [_i] * 8 + [_vp]
-OLD_LAUNCH = [_vp] * 6 + [_i] * 6 + [_vp]
+LAUNCH = [_vp] * 7 + [ctypes.c_longlong] + [_i] * 9 + [_vp]
+# the entry point of the K4g before the spilled layout (commit 0e1c511)
+OLD_LAUNCH = [_vp] * 6 + [_i] * 8 + [_vp]
 # the probe buffer's counters (gf2_transform_elim_global.cu, K4G_PROBE)
 STEPS = {1: "stage wait", 2: "step 1", 3: "words at/below rank", 4: "barrier 1",
          6: "gather", 7: "eliminate", 8: "write-back", 9: "barrier 2",
@@ -87,37 +99,86 @@ def probe_library(threads: int | None = None, probe: bool = True) -> KernelLibra
     defines = ("#define K4G_PROBE\n" if probe else "") + (
         f"#define THREADS {threads}\n" if threads else "")
     (BUILD_DIR / name).write_text(defines + src.read_text())
-    declare = {"gf2_transform_elim_global_launch": LAUNCH}
-    if probe:  # the probe's build alone exports these
+    declare = {"gf2_transform_elim_global_launch": LAUNCH,
+               "gf2_transform_elim_global_max_clusters": [_i] * 5}
+    if probe:  # the probe's build alone exports this
         declare["gf2_transform_elim_global_set_probe"] = [_vp]
-        declare["gf2_transform_elim_global_max_clusters"] = [_i] * 4
     return KernelLibrary(str(BUILD_DIR / name), declare)
 
 
-def launch(lib, args, C: int, t_smem: bool, probe: torch.Tensor | None = None):
-    """One launch of ``lib``'s K4g (the tree's or the probe's entry point)."""
+def launch(lib, args, C: int, t_smem: bool, probe: torch.Tensor | None = None,
+           spill: bool | None = None):
+    """One launch of ``lib``'s K4g (the tree's or the probe's entry point),
+    in the layout ``global_spills`` picks, or with ``spill`` True in the
+    spilled one at any size (T in global memory, 17 bytes a slot)."""
     order, b, Hc, h_rank, b_exit = args
     m = b.shape[1]
-    order32, Hc, b, T, rank, piv = otc._operands(
-        "probe", order, b, Hc, otc.global_smem_bytes(m, C, t_smem), otc.GLOBAL_SMEM_LIMIT)
+    B, n = order.shape
+    if spill is None:
+        spill = otc.global_spills(m)
+    if spill != otc.global_spills(m):  # the mirrors' formulas for the other layout
+        m_pad = -(-m // 32) * 32
+        smem = 17 * -(-m // C) if spill else otc._shared_layout_bytes(m, C, t_smem)
+        ws_words = 3 * m_pad * (B * C + B) if spill else 0
+    else:
+        smem, ws_words = otc.global_smem_bytes(m, C, t_smem), otc.global_workspace_words(m, B, C)
+    order32, Hc, b, T, rank, piv = otc._operands("probe", order, b, Hc, smem,
+                                                 otc.GLOBAL_SMEM_LIMIT)
     if probe is not None:
         lib.call("gf2_transform_elim_global_set_probe", probe.data_ptr())
-    B, n = order.shape
+    ws = torch.empty(max(ws_words, 1), dtype=torch.int32, device=b.device)
     lib.call("gf2_transform_elim_global_launch", order32.data_ptr(), Hc.data_ptr(),
-             T.data_ptr(), b.data_ptr(), rank.data_ptr(), piv.data_ptr(),
-             B, m, Hc.shape[1], n, h_rank, int(b_exit), C, int(t_smem),
-             torch.cuda.current_stream(b.device).cuda_stream)
+             T.data_ptr(), b.data_ptr(), rank.data_ptr(), piv.data_ptr(), ws.data_ptr(),
+             ws_words, B, m, Hc.shape[1], n, h_rank, int(b_exit), C, int(t_smem),
+             int(spill), torch.cuda.current_stream(b.device).cuda_stream)
     return T, b, rank, piv
 
 
-def launch_old(lib, args):
+def layout_turns(name: str, args, rounds: int) -> dict:
+    """K4g's two layouts on one input at or below 9,312 rows, in turns
+    (shared, spilled, spilled, shared, ``rounds`` times; with T in shared
+    memory also the shared layout with T in global memory): the shared
+    layout at ``global_launch_shape``'s choice, the spilled one at the same
+    C with T in global memory. Device ms of each launch (CUDA events), every
+    output bit-identical to the plain version's."""
+    order, b, Hc, h_rank, b_exit = args
+    B, m = b.shape
+    sms = torch.cuda.get_device_properties(b.device).multi_processor_count
+    C, ts, _ = otc.global_launch_shape(m, B, sms, otc.wide_clusters(b.device, m))
+    ref = otc.eliminate_transform_plain(*args)
+    runs = {"shared": lambda: launch(otc._GLOBAL_LIB, args, C, ts, spill=False),
+            "spilled": lambda: launch(otc._GLOBAL_LIB, args, C, False, spill=True)}
+    if ts:
+        runs["shared_gmem"] = lambda: launch(otc._GLOBAL_LIB, args, C, False, spill=False)
+    order_ = ["shared", "spilled", "spilled", "shared"] + (["shared_gmem"] * 2 if ts else [])
+    launch(otc._GLOBAL_LIB, args, C, False, spill=True)  # the spilled instance's first use
+    turns = []
+    for _ in range(rounds):
+        for who in order_:
+            ms, got = device_ms(runs[who], 1)
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                raise AssertionError(f"{name}: the {who} layout differs from the plain version")
+            turns.append((who, ms))
+    med = {w: float(np.median([ms for who, ms in turns if who == w])) for w in runs}
+    log(f"{name}: {B} lanes, {m} rows, C = {C}, T in {'shared' if ts else 'global'} memory "
+        f"(the shared layout's choice); device ms in turns: " + ", ".join(
+            f"{w} {ms:.3f}" for w, ms in turns) + "; medians " + ", ".join(
+            f"{w} {ms:.3f}" for w, ms in med.items()) +
+        f"; spilled / shared {med['spilled'] / med['shared']:.3f}; bit-identical to plain")
+    return dict(lanes=B, m=m, C=C, t_smem=ts, turns=turns, medians=med,
+                spilled_over_shared=med["spilled"] / med["shared"])
+
+
+def launch_old(lib, args, C: int, t_smem: bool):
+    """One launch of the earlier K4g's entry point (``OLD_LAUNCH``) at the
+    tree's choice of C and T's place, which it shares up to 9,312 rows."""
     order, b, Hc, h_rank, b_exit = args
     m = b.shape[1]
     order32, Hc, b, T, rank, piv = otc._operands("old", order, b, Hc, 0, 1)
     B, n = order.shape
     lib.call("gf2_transform_elim_global_launch", order32.data_ptr(), Hc.data_ptr(),
              T.data_ptr(), b.data_ptr(), rank.data_ptr(), piv.data_ptr(),
-             B, m, Hc.shape[1], n, h_rank, int(b_exit),
+             B, m, Hc.shape[1], n, h_rank, int(b_exit), C, int(t_smem),
              torch.cuda.current_stream(b.device).cuda_stream)
     return T, b, rank, piv
 
@@ -174,7 +235,7 @@ def probe_input(name: str, args, probe_lib, old_lib, reps: int, only, variants: 
     order, b, Hc, h_rank, b_exit = args
     B, m = b.shape
     sms = torch.cuda.get_device_properties(b.device).multi_processor_count
-    C0, ts0, waves0 = otc.global_launch_shape(m, B, sms)
+    C0, ts0, waves0 = otc.global_launch_shape(m, B, sms, otc.wide_clusters(b.device, m))
     tree = otc.eliminate_transform_global_cuda
     ref = tree(*args)
     torch.cuda.synchronize()
@@ -182,8 +243,8 @@ def probe_input(name: str, args, probe_lib, old_lib, reps: int, only, variants: 
         f"{'shared' if ts0 else 'global'} memory, {waves0} wave(s)")
     rec = {"lanes": B, "m": m, "choice": [C0, ts0], "shapes": []}
     for C, t_smem in widths(m, only):
-        fit = probe_lib.lib.gf2_transform_elim_global_max_clusters(m, Hc.shape[1], C,
-                                                                   int(t_smem))
+        fit = probe_lib.lib.gf2_transform_elim_global_max_clusters(
+            m, Hc.shape[1], C, int(t_smem), int(otc.global_spills(m)))
         if fit <= 0:
             log(f"  C={C:2d} T in {'smem' if t_smem else 'gmem'}: no cluster fits ({fit})")
             continue
@@ -215,10 +276,11 @@ def probe_input(name: str, args, probe_lib, old_lib, reps: int, only, variants: 
             log(f"    {vname}: {vms:.3f} device ms, identical {same}")
         if not same:
             raise AssertionError(f"{name}: C={C} t_smem={t_smem} differs from launch_shape's choice")
-    if old_lib is not None:
+    if old_lib is not None and not otc.global_spills(m):
         turns = []
         for who in ("old", "tree", "tree", "old"):
-            fn = (lambda: launch_old(old_lib, args)) if who == "old" else (lambda: tree(*args))
+            fn = (lambda: launch_old(old_lib, args, C0, ts0)) if who == "old" \
+                else (lambda: tree(*args))
             ms, got = device_ms(fn, 1)
             if not all(torch.equal(g, r) for g, r in zip(got, ref)):
                 raise AssertionError(f"{name}: the earlier K4g differs from the tree's")
@@ -261,6 +323,65 @@ def past_budget(eng, p: float, seed: int = 7) -> dict:
             "past_budget": int(over.sum()), "budget": osd.max_cols}
 
 
+def layouts(args, dev, card_line: str) -> dict:
+    """``--layouts``: the shared layout against the spilled one in turns
+    (``layout_turns``) on the inputs the decoder gives K4g at or below
+    9,312 rows, each with all its lanes and with its first lane alone: the
+    [[144]] DEM's out-of-image lanes (phase 14c's), the [[288]] DEM's
+    (phase 23b's) and its BP failures past the factored column budget at
+    p = 0.003 (phase 23's OSD-0 traffic, seed 7), and [[288]] space-time's
+    BP failures without the b-exit (--st-lanes)."""
+    import tempfile
+
+    from qldpc_tpu_torch.decoders import OSDConfig, OSDDecoder
+    from qldpc_tpu_torch.ops import osd_factored_cuda
+    from qldpc_tpu_torch.utils import rng
+
+    out = {"card": card_line, "layouts": {}}
+
+    def both(name, a):
+        out["layouts"][name] = layout_turns(name, a, args.rounds)
+        one = (a[0][:1], a[1][:1], *a[2:])
+        out["layouts"][f"{name}, lane 0"] = layout_turns(f"{name}, lane 0", one, args.rounds)
+
+    if "144" in args.inputs:
+        eng = cs.dem_engine(dev, code=cs.DEM144_CODE, rounds=cs.DEM144_ROUNDS,
+                            osd=OSDConfig(order=cs.PH_ORDER))
+        syn, llrs, hard, _ = cs.out_of_image(eng, cs.OSDE_WIDE_P, 7, cs.OSDE_WIDE_LANES)
+        both("[[144]] DEM, phase 14c's lanes", prepared(eng.osd, syn, llrs, hard))
+        del eng
+        torch.cuda.empty_cache()
+    if "288" in args.inputs:
+        with tempfile.TemporaryDirectory() as tmp:
+            eng = preset_engine(dev, cs.DEM288_CODE, cs.DEM288_P, tmp)
+        syn, llrs, hard, _ = cs.out_of_image(eng, cs.DEM288_P, 7, cs.OSDE_288_LANES)
+        both("[[288]] DEM, phase 23b's lanes", prepared(eng.osd, syn, llrs, hard))
+        syn, llrs, hard = cs.dem_failures(eng, cs.DEM288_P, 7)
+        osd = eng.osd
+        a = prepared(osd, syn, llrs, hard)
+        over = torch.nonzero(osd_factored_cuda.eliminate_factored_cuda(
+            a[0], a[1], osd.Hc, osd.h_rank, osd.max_cols)[3]).flatten()
+        if len(over):
+            both(f"[[288]] DEM, the {len(over)} BP failures past the budget",
+                 (a[0][over], a[1][over], *a[2:]))
+        del eng, osd
+        torch.cuda.empty_cache()
+    if "st288" in args.inputs:
+        from qldpc_tpu_torch.codes import get_code
+        from qldpc_tpu_torch.noise.spacetime import space_time_matrix
+
+        eng = cs.st_engine(dev, code=cs.DEM288_CODE, rounds=cs.ST288_ROUNDS)
+        _, syn, priors = eng._sample(rng.key(3), 0.008)
+        res = eng.bp(syn, priors)
+        fail = ~res.converged
+        H = space_time_matrix(get_code(cs.DEM288_CODE).Hx, cs.ST288_ROUNDS)
+        osd = OSDDecoder(H, OSDConfig(order=cs.PH_ORDER)).to(dev)
+        k = args.st_lanes
+        both("[[288]] space-time T = 18, BP failures, no b-exit",
+             prepared(osd, syn[fail][:k], res.llrs[fail][:k], res.hard[fail][:k], False))
+    return out
+
+
 def card(args) -> int:
     if not torch.cuda.is_available():
         print("probe_k4g: no CUDA device", file=sys.stderr)
@@ -273,6 +394,16 @@ def card(args) -> int:
     dev = torch.device("cuda:0")
     card_line = cs.card()
     log(card_line)
+    if args.layouts:
+        t0 = time.perf_counter()
+        otc._GLOBAL_LIB.lib
+        log(f"built in {time.perf_counter() - t0:.1f} s")
+        summary = layouts(args, dev, card_line)
+        if args.out:
+            Path(args.out).mkdir(parents=True, exist_ok=True)
+            (Path(args.out) / "probe_k4g_layouts.json").write_text(json.dumps(summary, indent=1))
+        log(card_line)
+        return 0
     probe_lib = probe_library()
     variants = {f"threads{t}": probe_library(t, probe=False) for t in args.threads_variants}
     old_lib = None
@@ -328,6 +459,17 @@ def card(args) -> int:
             "[[288]] space-time T = 18, BP failures, no b-exit",
             prepared(osd, syn[fail][:k], res.llrs[fail][:k], res.hard[fail][:k], False),
             probe_lib, old_lib, args.reps, only, variants)
+    if "wide" in args.inputs:
+        for m, n, dependent in cs.WIDE_SIZES:
+            Hc = cs.synthetic_wide(m, n, dependent, m)
+            order, resid = cs.synthetic_lanes(Hc, m, 2, 5)
+            args_w = (torch.from_numpy(order).to(dev), torch.from_numpy(resid).to(dev),
+                      torch.from_numpy(Hc).to(dev), m - dependent, True)
+            summary["inputs"][f"wide{m}"] = probe_input(
+                f"synthetic {m} x {n}, 2 lanes", args_w, probe_lib, old_lib,
+                args.reps, only, variants)
+            del args_w
+            torch.cuda.empty_cache()
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         (Path(args.out) / "probe_k4g.json").write_text(json.dumps(summary, indent=1))
@@ -411,6 +553,9 @@ def main() -> int:
                     help="block sizes of extra uninstrumented builds timed at every shape")
     ap.add_argument("--st-lanes", type=int, default=32)
     ap.add_argument("--traffic", action="store_true")
+    ap.add_argument("--layouts", action="store_true",
+                    help="the shared layout against the spilled one, in turns, instead")
+    ap.add_argument("--rounds", type=int, default=3, help="--layouts: rounds of turns")
     ap.add_argument("--out", default="")
     ap.add_argument("--count-cpu", action="store_true")
     ap.add_argument("--code", default="[[144, 12, 12]]")

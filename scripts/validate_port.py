@@ -21,8 +21,12 @@ WORKLOADS where it has one):
     [[72]] to [[144]] against the bf16 cells of results/circuit_bf16_val and
     results/circuit_bf16_val_r5 (docs/circuit_ler.md:25-34, obs-err and OSD
     rate, 10,000 trials), its other rates recorded; [[288]] in a run of its
-    own at p = 0.0015 and 0.003, 10,000 trials, against the bf16 pair 0.0001
-    / 0.0381 (docs/circuit_ler.md:34), obs-err only;
+    own at p = 0.0015 and 0.003, 10,000 trials, with ``osd_backend=factored``
+    (the TPU's route, which returns the samples past its column budget
+    unsolved), against the bf16 pair 0.0001 / 0.0381 (docs/circuit_ler.md:34),
+    obs-err only; beside it the same cells as shipped (those samples solved
+    through the transform, as the JAX lanes path solves them) are recorded
+    with their sigma and the samples past the budget;
   * ``complete-bposd`` with ``bp_stream_dtype=float32``: the float32 tables
     of docs/circuit_ler.md:39-81 for [[72]] to [[144]] (obs-err and OSD
     rate, 10,000 trials); [[288]] as above against the float32 pair 0.0001 /
@@ -92,12 +96,14 @@ versions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -447,6 +453,24 @@ def space_time(c: Campaign) -> None:
                        None if ref is None else ref[k], ST_REF_TRIALS)
 
 
+@contextlib.contextmanager
+def transform_samples():
+    """Counts the samples OSD sends through the transform elimination past
+    K4's block (OSD-0: those past the factored column budget) while open:
+    yields a one-item list that holds the count."""
+    from qldpc_tpu_torch.decoders.osd import OSDDecoder
+
+    count = [0]
+    transform = OSDDecoder._transform_osd
+
+    def counted(self, order, *a):
+        count[0] += order.shape[0]
+        return transform(self, order, *a)
+
+    with mock.patch.object(OSDDecoder, "_transform_osd", counted):
+        yield count
+
+
 def complete_bposd(c: Campaign) -> None:
     """The preset as shipped (bf16 streams), then with float32 streams, each
     held to the JAX package's cells of its stream dtype."""
@@ -467,11 +491,23 @@ def complete_bposd(c: Campaign) -> None:
                            CIRCUIT_REF_TRIALS)
         if c.codes and C288 not in c.codes:
             continue
-        gate288 = spec.replace(name=f"{label}-288", codes=[C288], error_rates=list(refs288),
-                               trials=CIRCUIT_288_TRIALS)
-        for p, d in c.run(gate288, f"{label}-288")[C288].items():
-            c.gate(f"{label}-288", C288, p, [d], "ler", refs288[p], CIRCUIT_288_TRIALS)
-            c.gate(f"{label}-288", C288, p, [d], "osd", None, 0)
+        # the archive pair came from the TPU's factored route, which returns
+        # the samples past its column budget unsolved: held to a run of that
+        # route; the preset as shipped (those samples through the transform,
+        # as the JAX lanes path solves them) recorded beside it
+        gate288 = spec.replace(name=f"{label}-288-factored", codes=[C288],
+                               error_rates=list(refs288), trials=CIRCUIT_288_TRIALS,
+                               osd_backend="factored")
+        for p, d in c.run(gate288, f"{label}-288-factored")[C288].items():
+            c.gate(f"{label}-288-factored", C288, p, [d], "ler", refs288[p], CIRCUIT_288_TRIALS)
+            c.gate(f"{label}-288-factored", C288, p, [d], "osd", None, 0)
+        for p in refs288:
+            shipped288 = gate288.replace(name=f"{label}-288", error_rates=[p], osd_backend="auto")
+            with transform_samples() as solved:
+                d = c.run(shipped288, f"{label}-288-{p:g}")[C288][p]
+            sigma = math.sqrt(d["ler"] * (1 - d["ler"]) / d["trials"])
+            c.gate(f"{label}-288", C288, p, [d], "ler", None, 0, sigma=sigma,
+                   past_budget_solved=solved[0], archive=refs288[p])
 
 
 def study_mm_bf16(c: Campaign) -> None:

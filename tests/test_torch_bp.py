@@ -280,15 +280,40 @@ def test_bf16_mode_guards_match_jax(case):
 
 
 def test_bf16_modes_accepted_where_jax_accepts_and_refused_in_float64():
+    """The bf16 modes run wherever the JAX decoder runs them, with
+    ``dtype="float64"`` too: its kernels compute in float32 whatever dtype
+    says, and so does the port (no refusal beyond the JAX package's)."""
     regular = get_code("[[72, 12, 6]]").Hx
     for H, kw in ((regular, dict(mm_dtype="bfloat16", damping=0.7, clip_llr=20.0)),
                   (_IRREGULAR, dict(stream_dtype="bfloat16", clip_llr=20.0))):
         JaxBPDecoder(H, JaxBPConfig(max_iter=5, backend="pallas", **kw))
         BPDecoder(H, BPConfig(max_iter=5, **kw))
-        # the one guard beyond the JAX package's: its kernels compute in
-        # float32 whatever dtype says, the port's float64 is the plain path
         JaxBPDecoder(H, JaxBPConfig(max_iter=5, backend="pallas", dtype="float64", **kw))
-        with pytest.raises(ValueError, match="float32"):
-            BPConfig(max_iter=5, dtype="float64", **kw)
+        assert BPDecoder(H, BPConfig(max_iter=5, dtype="float64", **kw)).dtype == torch.float32
     with pytest.raises(ValueError, match="unknown"):
         BPConfig(stream_dtype="float16")
+
+
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_mm_bf16_with_float64_dtype_runs_as_jax(rng, method):
+    """bf16 operands with ``dtype="float64"``: the JAX kernel's float32
+    arithmetic, as the port's float32 bf16 run gives it bit for bit, held to
+    the JAX decoder's float64 config by ``test_mm_bf16_matches_pallas``'s
+    standard."""
+    code = get_code("[[72, 12, 6]]")
+    H, syn, prior = _batch(rng, code, 0.05, 256)
+    cfg = dict(max_iter=25, method=method, mm_dtype="bfloat16")
+    got = _port(H, syn, prior, dtype="float64", **cfg)
+    f32 = _port(H, syn, prior.astype(np.float32), **cfg)
+    for g, f in zip(got, f32):
+        assert torch.equal(g, f)
+    ref = JaxBPDecoder(H, JaxBPConfig(backend="pallas", batch_tile=128, dtype="float64",
+                                      **cfg))(syn, prior)
+    assert got.llrs.dtype == torch.float32 and np.asarray(ref.llrs).dtype == np.float32
+    diff = _decision_mismatches((got.hard, got.converged, got.iterations),
+                                (ref.hard, ref.converged, ref.iterations))
+    if method == "min-sum":
+        np.testing.assert_array_equal(got.llrs.numpy(), np.asarray(ref.llrs))
+        assert diff == 0
+    else:
+        assert diff <= 6

@@ -25,10 +25,10 @@ identical counters), a checkpointed run resumed on the card to an
 uninterrupted one, OSD-e on the card (rows and transform paths, and the
 route past K4's block) to the CPU bit for bit, and the card's min-sum
 Alvarado alpha to the CPU's exactly. K4g (a cluster of blocks a sample) is
-held to the plain version at the [[72]] DEM and on systems of 1,249 to 5,184
+held to the plain version at the [[72]] DEM and on systems of 1,249 to 9,312
 rows past K4's block, at cluster widths 1 to 16, T in shared and in global
-memory, with and without the b-exit, and the entry point takes it past the
-block.
+memory, with and without the b-exit, in its spilled layout at 9,313 to
+32,768 rows, and the entry point takes it past the block.
 K1's bf16-operand instances (``mm_dtype="bfloat16"``) and K3's bf16-stream
 instances (``stream_dtype="bfloat16"``, summary and message paths) are held
 to their plain versions in bf16 by the same standards, and K3's two bf16
@@ -36,6 +36,7 @@ paths to each other bit for bit.
 ``test_k6_geometry_follows_the_state_size`` needs no card.
 """
 
+import ctypes
 import math
 from dataclasses import replace as dataclasses_replace
 
@@ -542,11 +543,13 @@ def _rank_deficient_wide(rng, m: int, n: int, dependent: int):
 
 # rows, columns and dependent rows of the synthetic systems past K4's block
 # (1,249: the first size past it; 1,728, 2,592 and 5,184: the [[144]] DEM's,
-# [[288]] space-time's and the [[288]] DEM's row counts; 9,312: the most
-# K4g's widest cluster takes)
+# [[288]] space-time's and the [[288]] DEM's row counts; 9,000: a cluster of
+# 16 whose last block holds fewer slots and whose T, in global memory, is
+# put in order in several rounds; 9,312: the most K4g's shared layout takes)
 K4G_WIDE = {"wide-1249": (1249, 5200, 7), "wide-1300": (1300, 5400, 10),
             "wide-1728": (1728, 7200, 6), "wide-2592": (2592, 10400, 12),
-            "wide-5184": (5184, 20800, 6), "wide-9312": (9312, 37400, 8)}
+            "wide-5184": (5184, 20800, 6), "wide-9000": (9000, 36200, 8),
+            "wide-9312": (9312, 37400, 8)}
 
 
 @pytest.mark.parametrize("graph", ["[[72, 12, 6]]", *K4G_WIDE])
@@ -591,8 +594,8 @@ def test_k4g_matches_plain(cuda, graph, b_exit):
                 shapes.append((C, t_smem))
     lib = osd_transform_cuda._GLOBAL_LIB.lib
     for C, t_smem in shapes:
-        assert lib.gf2_transform_elim_global_smem_bytes(m, Hc.shape[1], C, int(t_smem)) == \
-            osd_transform_cuda.global_smem_bytes(m, C, t_smem)
+        assert lib.gf2_transform_elim_global_smem_bytes(
+            m, Hc.shape[1], C, int(t_smem), 0) == osd_transform_cuda.global_smem_bytes(m, C, t_smem)
         got = k4g(order, resid, Hc, osd.h_rank, b_exit, _cluster=C, _t_smem=t_smem)
         torch.cuda.synchronize()
         for name, g, r_ in zip(("T", "b", "rank", "piv"), got, ref):
@@ -603,18 +606,66 @@ def test_k4g_matches_plain(cuda, graph, b_exit):
     assert all(torch.equal(g, r_) for g, r_ in zip(got, ref))
 
 
+# the synthetic systems past the 9,312 rows of K4g's shared layout (rows,
+# columns, dependent rows): chip_smoke.py's WIDE_SIZES and 32,768
+K4G_SPILLED = {"wide-9313": (9313, 37400, 8), "wide-12288": (12288, 49300, 8),
+               "wide-20736": (20736, 83000, 8), "wide-32768": (32768, 131100, 8)}
+
+
+@pytest.mark.parametrize("graph", list(K4G_SPILLED))
+def test_k4g_matches_plain_past_9312_rows(cuda, graph):
+    """K4g's spilled layout (the panel's pairs, U and the leader's list in
+    a global workspace, 32-bit slots) against the plain version, bit for bit
+    on T, b, rank and piv, with the b-exit, on 2 lanes (one outside H's
+    image, walking to rank(H)) of synthetic systems past 9,312 rows (built
+    packed by chip_smoke.py), at its launch shape's cluster and at 4 and 8
+    blocks; the kernel's shared memory and workspace equal the Python
+    mirrors'."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    m, n, dependent = K4G_SPILLED[graph]
+    Hc_np = chip_smoke.synthetic_wide(m, n, dependent, m)
+    order, resid = (torch.from_numpy(x).to(cuda) for x in chip_smoke.synthetic_lanes(Hc_np, m, 2, 5))
+    Hc = torch.from_numpy(Hc_np).to(cuda)
+    otc = osd_transform_cuda
+    args = (order, resid, Hc, m - dependent, True)
+    ref = otc.eliminate_transform_plain(*args)
+    assert otc.global_spills(m) and int(ref[2][0]) == m - dependent
+    lib = otc._GLOBAL_LIB.lib
+    for C in (None, 4, 8):
+        got = otc.eliminate_transform_global_cuda(*args, _cluster=C)
+        torch.cuda.synchronize()
+        for name, g, r_ in zip(("T", "b", "rank", "piv"), got, ref):
+            assert torch.equal(g, r_), (C, name)
+    for C in (4, 16):
+        assert lib.gf2_transform_elim_global_smem_bytes(m, Hc.shape[1], C, 0, 1) == \
+            otc.global_smem_bytes(m, C)
+    lib.gf2_transform_elim_global_workspace_words.restype = ctypes.c_longlong
+    assert lib.gf2_transform_elim_global_workspace_words(2, m, 16, 1) == \
+        otc.global_workspace_words(m, 2, 16)
+    assert otc.wide_clusters(cuda, m) >= 1
+    # every instance's static shared memory within what the mirrors reserve
+    for ts, sp in ((1, 0), (0, 0), (0, 1)):
+        assert 0 < lib.gf2_transform_elim_global_static_smem(ts, sp) <= otc._GLOBAL_STATIC_SMEM
+
+
 def test_osde_refuses_what_k4g_does_not_take_on_the_card(cuda, monkeypatch):
-    """OSD-e past K4's block on a system K4g's widest cluster does not hold
+    """OSD past K4's block on a system K4g's widest cluster does not hold
     (both limits lowered in the test alone) is refused as the decoder moves
-    to the card; OSD-0 there takes the factored elimination and moves."""
+    to the card; with ``backend="factored"`` OSD-0 needs no K4g and moves."""
     from qldpc_tpu_torch.decoders import osd as osd_module
 
     monkeypatch.setattr(osd_module, "SMEM_LIMIT", 0)
     monkeypatch.setattr(osd_transform_cuda, "GLOBAL_SMEM_LIMIT", 0)
     H = _rank_deficient_wide(np.random.default_rng(2), 40, 700, 4)
-    with pytest.raises(ValueError, match="needs K4g, whose cluster of 16 blocks"):
-        OSDDecoder(H, OSDConfig(order=2)).to(cuda)
-    assert OSDDecoder(H).to(cuda).elimination == "factored"
+    for order in (2, 0):
+        with pytest.raises(ValueError, match="needs K4g, whose cluster of 16 blocks"):
+            OSDDecoder(H, OSDConfig(order=order)).to(cuda)
+    assert OSDDecoder(H, OSDConfig(backend="factored")).to(cuda).elimination == "factored"
 
 
 def test_eliminate_transform_takes_k4g_past_the_block(cuda):
@@ -760,7 +811,7 @@ def test_k5_matches_plain_at_every_block_on_the_288_h_st(cuda, monkeypatch):
         EngineConfig(bp=BPConfig(max_iter=100), channel="space-time", batch_size=256),
         device=cuda,
     )
-    assert eng.osd.elimination == "factored" and (eng.m_checks, eng.n_vars) == (2592, 7776)
+    assert eng.osd.elimination == "factored+transform" and (eng.m_checks, eng.n_vars) == (2592, 7776)
     from qldpc_tpu_torch.utils import rng
 
     _, syn, priors = eng._sample(rng.key(4), 0.008)

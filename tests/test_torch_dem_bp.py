@@ -501,3 +501,43 @@ def test_bf16_summary_path_decodes_bit_for_bit_like_plain(rng, case):
     assert 0 < int(ref[1].sum()) < len(syn)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["steane-dem", "random-irregular"])
+@pytest.mark.parametrize("method", ["sum-product", "min-sum"])
+def test_bf16_streams_with_float64_dtype_run_as_jax(rng, kind, method):
+    """bf16 streams with ``dtype="float64"``: the JAX kernel computes in
+    float32 whatever dtype says, and so does the port (its float32 bf16
+    run, bit for bit); held to the JAX decoder's float64 config by the bf16
+    standards of ``test_bf16_streams_match_pallas``."""
+    cfg = dict(max_iter=30, stream_dtype="bfloat16", method=method)
+    H, syn, prior = _inputs(rng, kind, B=200)
+    ref = _jax(H, syn, prior.astype(np.float64), "pallas", dtype="float64", **cfg)
+    got = _port(H, syn, prior.astype(np.float64), dtype="float64", **cfg)
+    assert got[0].dtype == np.float32 == ref[0].dtype
+    for g, f in zip(got, _port(H, syn, prior, **cfg)):
+        np.testing.assert_array_equal(g, f)
+    mode = _mode(cfg, "pallas")
+    _hold(got, ref, "close-bf16" if mode == "close" else mode)
+
+
+@pytest.mark.parametrize("kind", ["steane-dem", "random-irregular"])
+@pytest.mark.parametrize("case", list(DAMPED))
+def test_mm_dtype_on_a_damped_irregular_graph_warns_and_runs_float32(rng, kind, case):
+    """``mm_dtype="bfloat16"`` on a damped irregular graph: the JAX decoder
+    warns and runs its float32 XLA path (the mode belongs to the fused
+    kernel of check-regular graphs); the port warns and runs its float32
+    path, equal to the same config without the mode, and held to the JAX
+    run as ``test_damped_dem_bp_matches_xla`` holds it."""
+    cfg = dict(max_iter=30, **DAMPED[case])
+    H, syn, prior = _inputs(rng, kind, B=200)
+    with pytest.warns(UserWarning, match="XLA backend"):
+        ref = _jax(H, syn, prior, "pallas", mm_dtype="bfloat16", **cfg)
+    with pytest.warns(UserWarning, match="mm_dtype applies to the fused flooding kernel"):
+        got = _port(H, syn, prior, mm_dtype="bfloat16", **cfg)
+    for g, f in zip(got, _port(H, syn, prior, **cfg)):
+        np.testing.assert_array_equal(g, f)
+    _hold(got, ref, _mode(cfg, "xla"))
+    # undamped, both still refuse it
+    with pytest.raises(ValueError, match="mm_dtype"):
+        BPDecoder(H, BPConfig(max_iter=5, mm_dtype="bfloat16"))

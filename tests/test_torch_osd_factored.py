@@ -661,7 +661,9 @@ def test_elimination_choice_follows_the_shape(case, monkeypatch):
     H = case["H"]
     assert OSDDecoder(H).elimination == "transform"  # its transform fits K4
     monkeypatch.setattr(port_osd, "SMEM_LIMIT", 0)
-    assert OSDDecoder(H).elimination == "factored"
+    # the factored elimination, then the transform past its budget
+    assert OSDDecoder(H).elimination == "factored+transform"
+    assert OSDDecoder(H, OSDConfig(backend="factored")).elimination == "factored"
     narrow = get_code("steane").Hx
     assert OSDDecoder(narrow).elimination == "rows"
     with pytest.raises(ValueError, match="wide systems"):

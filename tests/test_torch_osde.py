@@ -209,12 +209,13 @@ def test_factored_and_past_the_transform_block_refuse():
     with pytest.raises(ValueError, match="OSD-0 only"):
         OSDDecoder(wide, OSDConfig(order=1, backend="factored"))
     # a 1,300-row wide system: its transform exceeds K4's block, so OSD-0
-    # takes the factored elimination and OSD-e the factored one, then the
-    # transform where it searches; every syndrome is in H's image here
+    # and OSD-e take the factored elimination, then the transform where a
+    # sample passes its budget or OSD-e searches; every syndrome is in H's
+    # image here
     m = 1300
     big = np.zeros((m, 32 * 4 * 41 * 2), np.uint8)
     big[np.arange(m), np.arange(m)] = 1
-    assert OSDDecoder(big).elimination == "factored"
+    assert OSDDecoder(big).elimination == "factored+transform"
     dec = OSDDecoder(big, OSDConfig(order=1))
     assert dec.elimination == "factored+transform"
     rng = np.random.default_rng(1)

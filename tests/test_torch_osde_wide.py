@@ -1,11 +1,12 @@
-"""The port's OSD-e past K4's block against the JAX package's ``lanes`` decoder.
+"""The port's OSD past K4's block against the JAX package's ``lanes`` decoder.
 
 Past the transform's block (``smem_bytes(m) > SMEM_LIMIT``: the [[144,12,12]]
 and [[288,12,18]] DEMs, [[288,12,18]] space-time at T = 18) ``auto`` takes
-the route ``"factored+transform"``: the factored elimination's OSD-0 on
-every sample, its (b, pivoted) for the consistency test, and the transform
-elimination on the inconsistent samples and those out of the column budget,
-then the search. The JAX decoder runs its XLA transform on every sample.
+the route ``"factored+transform"`` at every order: the factored
+elimination's OSD-0 on every sample, the transform elimination on those out
+of the column budget; with OSD-e also its (b, pivoted) for the consistency
+test, the transform on the inconsistent samples, then the search. The JAX
+decoder runs its XLA transform on every sample.
 
 Small wide systems reach the route by lowering the decoder module's
 ``SMEM_LIMIT`` (and the budget's ``BUDGET_SLACK``) in the test alone; one
@@ -22,6 +23,7 @@ import torch
 from qldpc_tpu.codes import get_code
 from qldpc_tpu.decoders import BPConfig as JaxBPConfig
 from qldpc_tpu.decoders.osd import OSDConfig as JaxOSDConfig
+from qldpc_tpu.decoders.osd import OSDDecoder as JaxOSDDecoder
 from qldpc_tpu.mc import DEMEngine as JaxDEMEngine
 from qldpc_tpu.mc import DEMEngineConfig as JaxDEMEngineConfig
 from qldpc_tpu.noise.circuit import parametric_memory_dem
@@ -37,6 +39,10 @@ from test_torch_cuda import _rank_deficient_wide
 from test_torch_osde import _random_wide, bp_outputs, both, consistent, cost, flipped, hold
 
 torch.set_num_threads(2)
+
+# clusters of 16 K4g blocks an H100 runs at once (the card's own count,
+# ``osd_transform_cuda.wide_clusters``)
+H100_WIDE_CLUSTERS = 7
 
 
 @pytest.fixture
@@ -135,9 +141,33 @@ def test_out_of_budget_samples_take_the_transform(past_the_block, monkeypatch):
     # factored elimination alone returns them unchanged
     solved = consistent(H, syn, got)
     assert solved[overflow & transform].all() and not solved[overflow & ~transform].any()
-    osd0 = OSDDecoder(H, OSDConfig(max_elim_cols=1))(
+    osd0 = OSDDecoder(H, OSDConfig(max_elim_cols=1, backend="factored"))(
         *[torch.from_numpy(x) for x in (syn, llrs, hard)]).numpy()
     assert np.array_equal(osd0[overflow], hard[overflow])
+
+
+@pytest.mark.parametrize("seed", [5, 9])
+def test_osd0_out_of_budget_samples_match_jax_lanes(past_the_block, monkeypatch, seed):
+    """OSD-0 past K4's block: the samples that exhaust the factored column
+    budget (cut to rank(H) by the test) take the transform elimination, so
+    that ``auto`` returns the JAX lanes path's solution on every sample, bit
+    for bit, and solves each consistent one; ``backend="factored"`` returns
+    ``hard`` on them, as the JAX factored backend does, and the same
+    solution on the others."""
+    monkeypatch.setattr(osd_module, "BUDGET_SLACK", 0)
+    H, syn, llrs, hard = _late_columns_case(seed)
+    args = [torch.from_numpy(x) for x in (syn, llrs, hard)]
+    dec = OSDDecoder(H, OSDConfig(max_elim_cols=1))
+    assert dec.elimination == "factored+transform" and dec.max_cols == dec.h_rank
+    got = dec(*args).numpy()
+    ref = np.asarray(JaxOSDDecoder(H, JaxOSDConfig(order=0, backend="lanes"))(syn, llrs, hard))
+    assert np.array_equal(got, ref)
+    _, overflow, transform = _consistency(H, syn, llrs, hard, dec.max_cols)
+    assert overflow.sum() >= 10 and (overflow & transform).sum() >= 3
+    assert consistent(H, syn, got)[overflow & transform].all()
+    factored = OSDDecoder(H, OSDConfig(max_elim_cols=1, backend="factored"))(*args).numpy()
+    assert np.array_equal(factored[overflow], hard[overflow])
+    assert np.array_equal(factored[~overflow], got[~overflow])
 
 
 @pytest.mark.parametrize("route", ["rows", "transform", "factored+transform"])
@@ -207,7 +237,11 @@ def test_real_size_past_the_block_matches_jax():
     inconsistent = ~consistent(H, syn, got)  # OSD-e solves every consistent one
     assert np.array_equal(inconsistent, np.arange(B) % 2 == 0)
     assert np.array_equal(got[~inconsistent], osd0[~inconsistent])
-    assert np.array_equal(osd0[inconsistent], hard[inconsistent])
+    # OSD-0 sends the inconsistent ones, past the budget, through the
+    # transform: the JAX lanes path's OSD-0, not their hard decisions
+    ref0 = np.asarray(JaxOSDDecoder(H, JaxOSDConfig(backend="lanes"))(syn, llrs, hard))
+    assert np.array_equal(osd0, ref0)
+    assert (osd0[inconsistent] != hard[inconsistent]).any(axis=1).all()
 
 
 def test_dem_engine_with_osde_past_the_block_matches_jax(past_the_block):
@@ -248,61 +282,126 @@ def test_dem_engine_with_osde_past_the_block_matches_jax(past_the_block):
     (5184, 18, (4, False, 1)),     # phase 23's batch past the factored budget
     (5184, 128, (1, False, 1)),
     (5184, 1024, (1, False, 8)),
-    (9312, 1, (16, False, 1)),     # the most rows K4g takes
+    (9312, 1, (16, False, 1)),     # the most rows of the shared layout
     (9216, 128, (16, False, 16)),  # the per-row state needs 16 blocks
     (7000, 256, (2, False, 4)),
+    (9313, 2, (16, False, 1)),     # the spilled layout: the first size past it
+    (9313, 200, (1, False, 2)),    # 17 bytes a slot: a block holds the sample
+    (12288, 2, (16, False, 1)),
+    (20736, 2, (16, False, 1)),    # a [[288]] DEM of 72 rounds
+    (20736, 19, (4, False, 1)),    # the samples of 1 GiB of its T
+    (32768, 2, (16, False, 1)),
+    (92672, 1, (16, False, 1)),    # the largest one-sample T within 1 GiB
+    (92672, 40, (8, False, 3)),    # the per-slot state needs 8 blocks
 ])
 def test_k4g_launch_shape_follows_the_shapes(m, B, shape):
     """Past K4's block (1,248 rows) the transform elimination launches K4g:
     a cluster of C blocks of 1,024 threads a sample, a block an SM, on 132
-    SMs; C as wide as one wave of clusters allows (16 for at most 7
-    samples, else at most 8), wider where the per-row state needs it; T in
-    the cluster's shared memory wherever it fits; the grid a multiple of C;
-    every block within 227 KB of shared memory."""
+    SMs; C as wide as one wave of clusters allows (16 where the card runs
+    every sample's cluster of 16 at once, 7 on an H100, else at most 8),
+    wider where the per-row state needs it; T in the cluster's shared memory
+    wherever it fits, never past 9,312 rows (the spilled layout); the grid a
+    multiple of C; every block within 227 KB of shared memory."""
     assert osd_module.smem_bytes(m) > osd_module.SMEM_LIMIT >= osd_module.smem_bytes(1248)
-    C, t_smem, waves = otc.global_launch_shape(m, B, 132)
+    C, t_smem, waves = otc.global_launch_shape(m, B, 132, H100_WIDE_CLUSTERS)
     assert (C, t_smem, waves) == shape
-    assert otc.launch_shape(m, B, 132) == (otc._GLOBAL_THREADS, 1, waves)
+    assert otc.launch_shape(m, B, 132, H100_WIDE_CLUSTERS) == (otc._GLOBAL_THREADS, 1, waves)
     grid = B * C
     assert grid % C == 0 and waves == -(-grid // 132)
     assert otc.global_smem_bytes(m, C, t_smem) + otc._GLOBAL_STATIC_SMEM <= 227 * 1024
-    assert t_smem == (otc.global_smem_bytes(m, C, True) <= otc.GLOBAL_SMEM_LIMIT)
-    assert otc.global_launch_shape(m, B, 132, cluster=8)[:2] == (
-        8, otc.global_smem_bytes(m, 8, True) <= otc.GLOBAL_SMEM_LIMIT)
+    assert t_smem == (not otc.global_spills(m)
+                      and otc.global_smem_bytes(m, C, True) <= otc.GLOBAL_SMEM_LIMIT)
+    assert otc.global_launch_shape(m, B, 132, H100_WIDE_CLUSTERS, cluster=8)[:2] == (
+        8, not otc.global_spills(m) and otc.global_smem_bytes(m, 8, True) <= otc.GLOBAL_SMEM_LIMIT)
     assert otc.t_bytes(m) == m * -(-m // 32) * 4
+    # the spilled layout's workspace: the pairs, their places and U of each
+    # block, the leader's list of each sample
+    m_pad = -(-m // 32) * 32
+    assert otc.global_workspace_words(m, B, C) == (
+        3 * m_pad * (B * C + B) if otc.global_spills(m) else 0)
 
 
 def test_k4g_refuses_what_it_does_not_take():
     """K4g's wrapper takes CUDA tensors only (the CPU path is the plain
-    version, through ``eliminate_transform``), and no system whose per-row
-    state passes one block's shared memory at the widest cluster (past
-    9,312 rows, so at least the 9,216 of the one-block design; 6,240 fit a
-    block), nor a cluster wider than 16."""
+    version, through ``eliminate_transform``), no cluster wider than 16, and
+    no system whose per-slot state passes one block's shared memory (less
+    the 1 KB its static scratch may take) at the widest cluster: past
+    217,808 rows, beyond every system whose one-sample T fits the
+    decoder's 1 GiB group (92,672 rows). The shared layout takes
+    up to 9,312 rows (6,240 in one block); past them the spilled one."""
     cpu = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="needs its operands on one CUDA device"):
         otc.eliminate_transform_global_cuda(cpu, cpu, cpu, 1)
     assert otc.global_smem_bytes(9216, 16) <= otc.GLOBAL_SMEM_LIMIT
-    assert otc.global_smem_bytes(9312, 16) <= otc.GLOBAL_SMEM_LIMIT < otc.global_smem_bytes(9313, 16)
-    assert otc.global_fits(9312) and not otc.global_fits(9313)
+    assert not otc.global_spills(9312) and otc.global_spills(9313)
+    assert otc.global_smem_bytes(9312, 16) <= otc.GLOBAL_SMEM_LIMIT
     assert otc.global_smem_bytes(6240) <= otc.GLOBAL_SMEM_LIMIT < otc.global_smem_bytes(6241)
     # widened until the per-row state fits a block
     assert otc.global_smem_bytes(7000, 1) > otc.GLOBAL_SMEM_LIMIT >= otc.global_smem_bytes(7000, 2)
-    assert otc.global_launch_shape(7000, 256, 132)[0] == 2
+    assert otc.global_launch_shape(7000, 256, 132, H100_WIDE_CLUSTERS)[0] == 2
+    # spilled: 17 bytes a slot, 32-bit slots past 65,536 rows
+    assert otc.global_smem_bytes(20736, 16) == 17 * 1296
+    assert otc.t_bytes(92672) <= osd_module.T_BYTES < otc.t_bytes(92673)
+    for m in (9313, 12288, 20736, 32768, 65537, 92672, 217808):
+        assert otc.global_fits(m), m
+    assert not otc.global_fits(217809)
+    assert otc.global_smem_bytes(217809, 16) > otc.GLOBAL_SMEM_LIMIT
+    assert otc.global_smem_bytes(217809, 16, True) > otc.GLOBAL_SMEM_LIMIT  # T never in it
     with pytest.raises(ValueError, match="cluster width"):
-        otc.global_launch_shape(1728, 4, 132, cluster=32)
+        otc.global_launch_shape(1728, 4, 132, H100_WIDE_CLUSTERS, cluster=32)
+    # K4g's shape needs the card's count of clusters of 16; K4's does not
+    with pytest.raises(ValueError, match="wide_clusters"):
+        otc.launch_shape(1728, 4, 132)
+    assert otc.launch_shape(1248, 4, 132)[0] == 512
+
+
+@pytest.mark.parametrize("mw,step", [(1, 5), (2, 3), (7, 4), (54, 64), (163, 9)])
+def test_folded_column_bits_equal_the_word_loop(mw, step):
+    """The card's halving fold of the RREF bits (every word width, odd or
+    even, and chunks of rows that do not divide the rows) equals the word
+    loop the CPU runs, bit for bit."""
+    rng = np.random.default_rng(mw)
+    T = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 40, mw), dtype=np.int64).astype(np.int32))
+    Hc = torch.from_numpy(rng.integers(-2**31, 2**31, (90, mw), dtype=np.int64).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, 90, (3, 32)))
+    want = otc.column_bits(T, Hc, cols)
+    assert torch.equal(otc._column_bits_folded(T, Hc[cols], step), want)
+
+
+def test_synthetic_wide_systems_pack_the_dense_ones():
+    """chip_smoke.py's packed construction of the synthetic systems past
+    9,312 rows equals the dense one the card tests use, packed; its lanes'
+    residuals are H (e + hard), the even ones off H's image."""
+    import chip_smoke
+
+    for m, n, dependent in ((70, 400, 3), (300, 1300, 8)):
+        H = _rank_deficient_wide(np.random.default_rng(m), m, n, dependent)
+        Hc = chip_smoke.synthetic_wide(m, n, dependent, m)
+        assert np.array_equal(Hc, otc.pack_columns(H))
+        order, resid = chip_smoke.synthetic_lanes(Hc, m, 4, 5)
+        rng = np.random.default_rng(5)
+        e = rng.random((4, n)) < 0.002
+        llrs = rng.normal(4.0, 2.0, (4, n)).astype(np.float32)
+        want = ((e ^ (llrs < 0)).astype(np.int64) @ H.T.astype(np.int64)) % 2
+        want[::2, -1] ^= 1
+        assert np.array_equal(resid, want)
+        assert np.array_equal(order, np.argsort(np.abs(llrs), axis=1, kind="stable"))
 
 
 def test_decoder_refuses_a_system_k4g_does_not_take(monkeypatch):
-    """OSD-e past K4's block on a system K4g's widest cluster does not hold
-    is refused when the decoder moves to the card, with a clear error, not
-    at its first call; the CPU decodes it. Reached on a small wide system by
-    lowering both limits in the test alone."""
+    """OSD past K4's block on a system K4g's widest cluster does not hold
+    (past 217,808 rows) is refused when the decoder moves to the card, with
+    a clear error, not at its first call; the CPU decodes it. Reached on a
+    small wide system by lowering both limits in the test alone."""
     monkeypatch.setattr(osd_module, "SMEM_LIMIT", 0)
     monkeypatch.setattr(otc, "GLOBAL_SMEM_LIMIT", 0)
     H = _random_wide(np.random.default_rng(0))
-    dec = OSDDecoder(H, OSDConfig(order=2)).to("cpu")
-    assert dec.elimination == "factored+transform" and not otc.global_fits(dec.m)
-    with pytest.raises(ValueError, match="needs K4g, whose cluster of 16 blocks"):
-        dec._check_device("cuda")
-    dec._check_device("cpu")
-    OSDDecoder(H, OSDConfig(order=0))._check_device("cuda")  # OSD-0: the factored elimination
+    for order in (2, 0):  # OSD-0 sends the samples past the budget to K4g too
+        dec = OSDDecoder(H, OSDConfig(order=order)).to("cpu")
+        assert dec.elimination == "factored+transform" and not otc.global_fits(dec.m)
+        with pytest.raises(ValueError, match="needs K4g, whose cluster of 16 blocks"):
+            dec._check_device("cuda")
+        dec._check_device("cpu")
+    # the JAX factored backend's OSD-0 (out-of-budget samples returned as
+    # hard) needs no K4g
+    OSDDecoder(H, OSDConfig(backend="factored"))._check_device("cuda")

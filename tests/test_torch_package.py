@@ -192,3 +192,42 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert (code, trials, loaded) == ("0", "32", "[]")
     assert "not ported" not in proc.stderr  # the preset's bf16 streams run as shipped
     assert (tmp_path / "complete-bposd_ckpt").is_dir()
+
+
+_GENERATE_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["qldpc_tpu"] = None
+from qldpc_tpu_torch.codes.generate import main
+main(sys.argv[1])
+print(sorted(m for m, v in sys.modules.items()
+             if v is not None and m.split(".")[0] in ("jax", "qldpc_tpu")))
+"""
+
+
+def test_generate_writes_the_jax_modules_code_files(tmp_path, capsys):
+    """``qldpc_tpu_torch.codes.generate``, run with jax and qldpc_tpu
+    blocked, writes every registered code's npz with the arrays the JAX
+    package's ``qldpc_tpu.codes.generate`` writes, array for array."""
+    import numpy as np
+
+    from qldpc_tpu.codes.generate import main as jax_main
+
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _GENERATE_WITHOUT_JAX, str(tmp_path / "port")],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    jax_main(str(tmp_path / "jax"))
+    capsys.readouterr()
+    names = sorted(p.name for p in (tmp_path / "jax").glob("*.npz"))
+    assert len(names) >= 6
+    assert sorted(p.name for p in (tmp_path / "port").glob("*.npz")) == names
+    for name in names:
+        with np.load(tmp_path / "port" / name) as got, np.load(tmp_path / "jax" / name) as ref:
+            assert sorted(got.files) == sorted(ref.files), name
+            for key in ref.files:
+                assert got[key].dtype == ref[key].dtype, (name, key)
+                assert np.array_equal(got[key], ref[key]), (name, key)

@@ -116,3 +116,34 @@ def test_priors_follow_the_measurement_rate():
     _, _, priors = eng._sample(torch.tensor([0, 7]), 0.02)
     ref = np.asarray(jst.space_time_prior_llr(7, 3, 2, jnp.float32(0.02), q=jnp.float32(0.01)))
     assert np.array_equal(priors.numpy(), ref)
+
+
+def test_288_space_time_engine_equals_the_recorded_jax_counters():
+    """[[288,12,18]] space-time at T = 18 (H_st 2,592 x 7,776), BP(100)
+    min-sum + OSD-0, batch 32, p = 0.008, 128 trials, seed 1: the port's CPU
+    engine counts exactly what the JAX engine counted
+    (results/jax_counters_st288_min_sum.jsonl, from ``python3
+    scripts/jax_reference_counters.py --only st288-min-sum``: 651 s of XLA,
+    too long to run here). Its OSD-0 takes the factored elimination and the
+    transform past the column budget, as every JAX sample is solved."""
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "results" / "jax_counters_st288_min_sum.jsonl"
+    row = json.loads(path.read_text().splitlines()[0])
+    ref = row["counters"]
+    assert (row["p"], row["trials"], row["seed"]) == (0.008, 128, 1)
+    eng = MonteCarloEngine(
+        port_code("[[288, 12, 18]]"),
+        EngineConfig(bp=PortBPConfig(max_iter=100, method="min-sum"), channel="space-time",
+                     n_rounds=18, batch_size=32),
+        device="cpu")
+    assert eng.osd.elimination == "factored+transform"
+    got = counters_to_dict(eng.run_rate(0.008, 128, seed=1))
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            hist = {int(i): int(c) for i, c in enumerate(np.asarray(got[k])) if c}
+            assert hist == {int(i): c for i, c in v.items()}, k
+        else:
+            assert got[k] == v, k
+    assert ref["BPs_fault"] == 29
