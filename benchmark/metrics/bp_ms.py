@@ -1,0 +1,11 @@
+"""Median host ms of the bp stage of a batch, ending in a synchronize,
+over the traced stage pass."""
+
+import statistics
+
+
+def read(run):
+    stages = run.get("stages")
+    if not stages or not stages["ms"]["bp"]:
+        return None
+    return statistics.median(stages["ms"]["bp"])
