@@ -110,6 +110,7 @@ from qldpc_tpu_torch.ops.osd_transform_cuda import (
     smem_bytes,
     t_bytes,
 )
+from qldpc_tpu_torch.utils.profiling import count, span
 
 __all__ = ["OSDConfig", "OSDDecoder", "gf2_rank", "make_flip_patterns"]
 
@@ -330,10 +331,13 @@ class OSDDecoder(nn.Module):
             if self.config.order:
                 overflow = overflow | ((pivoted == 0) & (b != 0)).any(dim=1)
             redo = torch.nonzero(overflow).flatten()
+            count("host_syncs")
+            count("osd.k4g_lanes", len(redo))
             group = max(1, T_BYTES // t_bytes(self.m))
-            for s in range(0, len(redo), group):
-                g = redo[s:s + group]
-                sol[g] = self._transform_osd(order[g], resid[g], llrs[g], hard[g])
+            with span("osd.transform"):
+                for s in range(0, len(redo), group):
+                    g = redo[s:s + group]
+                    sol[g] = self._transform_osd(order[g], resid[g], llrs[g], hard[g])
         return sol.to(torch.int8)
 
     def _transform_osd(self, order, resid, llrs, hard):
@@ -357,6 +361,7 @@ class OSDDecoder(nn.Module):
         e_perm = e_perm[:, :n]
         if self.config.order:
             sel = torch.nonzero(((piv < 0) & (b != 0)).any(dim=1)).flatten()
+            count("host_syncs")
             if len(sel):
                 w = llrs[sel].abs() * (1.0 - 2.0 * hard[sel].to(llrs.dtype))
                 e_perm[sel] = self._search(reduced(sel), b[sel], piv[sel], order[sel],

@@ -51,7 +51,7 @@ from qldpc_tpu_torch.mc import (
 from qldpc_tpu_torch.mc.engine import engine_device
 from qldpc_tpu_torch.noise.circuit import parametric_memory_dem
 from qldpc_tpu_torch.parallel.mesh import Mesh, make_mesh
-from qldpc_tpu_torch.utils import plotting, rng
+from qldpc_tpu_torch.utils import plotting, profiling, rng
 from qldpc_tpu_torch.utils.profiling import PhaseTimer
 
 from .configs import ExperimentSpec
@@ -200,6 +200,7 @@ def run_experiment(
     if lead:
         out.mkdir(parents=True, exist_ok=True)
     timer = PhaseTimer()
+    counted = profiling.counts()
 
     results: dict = {}
     t0 = time.time()
@@ -266,18 +267,32 @@ def run_experiment(
                     )
 
     wall = time.time() - t0
+    per_batch = _counts_per_batch(counted, profiling.counts())
     results["_meta"] = {
         "spec": json.loads(spec.to_json()),
         "wall_time_s": wall,
         "throughput_trials_per_s": total_trials / max(wall, 1e-9),
+        "counts_per_batch": per_batch,
     }
     if lead:
         _save_and_plot(spec, results, out, verbose)
     if verbose:
         print(timer.report())
+        print(f"counts a batch over {per_batch['batches']} batches: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in per_batch.items() if k != "batches"))
         print(f"[{spec.name}] total {total_trials} trials in {wall:.1f}s "
               f"({total_trials/max(wall,1e-9):.0f}/s)")
     return results
+
+
+def _counts_per_batch(before: dict, after: dict) -> dict:
+    """The engine's counters (``profiling.counts``) a batch between two
+    readings, with ``batches``, the number of batches between them; every
+    run counts ``host_syncs`` and ``osd.k4g_lanes``."""
+    n = after["batches"] - before["batches"]
+    names = {"host_syncs", "osd.k4g_lanes", *after} - {"batches"}
+    return {"batches": n, **{k: (after.get(k, 0) - before.get(k, 0)) / max(n, 1)
+                             for k in sorted(names)}}
 
 
 def _save_and_plot(spec: ExperimentSpec, results: dict, out: Path, verbose: bool) -> None:

@@ -38,6 +38,7 @@ from qldpc_tpu_torch.noise.circuit import ParametricDEM
 from qldpc_tpu_torch.noise.dem import DEMData
 from qldpc_tpu_torch.parallel.mesh import Mesh
 from qldpc_tpu_torch.utils import rng
+from qldpc_tpu_torch.utils.profiling import count, span
 
 __all__ = ["DEMEngine", "DEMEngineConfig"]
 
@@ -114,12 +115,14 @@ class DEMEngine(MonteCarloEngine):
         """Mechanism priors and their LLRs, (n,) float32 each, on the device."""
         if not self._parametric:
             return self._fixed
-        p32 = torch.tensor(p, dtype=torch.float32)
-        acc = self._counts @ torch.log1p(-2.0 * self._ratios * p32)
-        q = 0.5 * (1.0 - torch.exp(acc))
-        qc = torch.clamp(q, 1e-15, 1.0 - 1e-15)
-        llr = torch.log((1.0 - qc) / qc)
-        return q.to(self.device), llr.to(self.device)
+        with span("sample.priors"):
+            p32 = torch.tensor(p, dtype=torch.float32)
+            acc = self._counts @ torch.log1p(-2.0 * self._ratios * p32)
+            q = 0.5 * (1.0 - torch.exp(acc))
+            qc = torch.clamp(q, 1e-15, 1.0 - 1e-15)
+            llr = torch.log((1.0 - qc) / qc)
+            count("host_syncs", 2)  # the two copies to the device
+            return q.to(self.device), llr.to(self.device)
 
     def _sample(self, key, p: float):
         """Per-mechanism Bernoulli firings; returns (errors, syndromes,

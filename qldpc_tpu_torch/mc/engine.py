@@ -58,7 +58,8 @@ from qldpc_tpu_torch.mc.metrics import (
 from qldpc_tpu_torch.noise import channels as ch
 from qldpc_tpu_torch.noise import spacetime as st
 from qldpc_tpu_torch.parallel.mesh import Mesh, make_mesh
-from qldpc_tpu_torch.utils import rng
+from qldpc_tpu_torch.utils import profiling, rng
+from qldpc_tpu_torch.utils.profiling import count, span
 
 __all__ = ["EngineConfig", "MonteCarloEngine", "SweepResult"]
 
@@ -249,6 +250,7 @@ class MonteCarloEngine:
             return self.bp(syn, priors, alpha=alpha)
         r1 = self.bp_short(syn, priors, alpha=alpha)
         sel = torch.nonzero(~r1.converged).flatten()
+        count("host_syncs")
         if not len(sel):
             return r1
         r2 = self.bp(syn[sel], priors, alpha=alpha)
@@ -261,9 +263,11 @@ class MonteCarloEngine:
         """OSD-0 on the first ``k_osd`` BP failures; returns (final, overflow)."""
         failed = ~bp_res.converged
         n_fail = int(failed.sum())
+        count("host_syncs")
         final = bp_res.hard
         if n_fail:
             sel = torch.nonzero(failed).flatten()[: self.k_osd]
+            count("host_syncs")
             final = final.clone()
             final[sel] = self.osd(syn[sel], bp_res.llrs[sel], bp_res.hard[sel])
         return final, max(n_fail - self.k_osd, 0)
@@ -325,19 +329,25 @@ class MonteCarloEngine:
 
     def run_batch(self, key, p: float, n_valid: int, alpha: float) -> Counters:
         """Sample, decode and classify this process's slice of one batch;
-        the batch's first ``n_valid`` samples count."""
-        errors, syn, priors = self._sample(key, p)
-        bp_res = self._decode(syn, priors, alpha)
+        the batch's first ``n_valid`` samples count. Each stage runs in its
+        span (``qldpc.sample``, ``.bp``, ``.osd``, ``.classify``)."""
+        with span("sample"):
+            errors, syn, priors = self._sample(key, p)
+        with span("bp"):
+            bp_res = self._decode(syn, priors, alpha)
         if self.osd is not None:
-            final, overflow = self._post_process(syn, bp_res)
+            with span("osd"):
+                final, overflow = self._post_process(syn, bp_res)
         else:
             final, overflow = bp_res.hard, 0
-        ids = self.base + torch.arange(self.local_batch, device=self.device)
-        valid = ids < n_valid
-        counters = self._classify(errors, final, syn, bp_res, valid)
-        return counters._replace(
-            osd_overflow=torch.tensor(overflow, dtype=torch.int64, device=self.device)
-        )
+        with span("classify"):
+            ids = self.base + torch.arange(self.local_batch, device=self.device)
+            valid = ids < n_valid
+            counters = self._classify(errors, final, syn, bp_res, valid)
+            count("host_syncs")  # the overflow's copy to the device
+            return counters._replace(
+                osd_overflow=torch.tensor(overflow, dtype=torch.int64, device=self.device)
+            )
 
     def stage_times(self, p: float, reps: int = 5) -> dict:
         """Median wall milliseconds of each stage of one batch at ``p``:
@@ -369,9 +379,11 @@ class MonteCarloEngine:
 
     # ------------------------------------------------------------------ run
     def _local_counters(self, p: float, trials: int, seed: int, alpha: float | None,
-                        start_batch: int = 0, each=None) -> Counters:
+                        start_batch: int = 0, reduce=None, each=None) -> Counters:
         """This process's counters over batches ``start_batch..``, summed on
-        its device; ``each(b, n_batches, local)`` sees the running sum."""
+        its device. With ``each``, every batch also ends with ``reduce(local)``
+        of the running sum, which ``each(b, n_batches, reduced)`` then sees.
+        Each batch is a ``profiling.batch`` scope (``each`` runs after it)."""
         B = self.config.batch_size
         a32 = float(np.float32(self.config.bp.alpha if alpha is None else alpha))
         kp = rng.fold_in(rng.key(seed), hash(p) % (2**31))
@@ -379,9 +391,16 @@ class MonteCarloEngine:
         n_batches = -(-trials // B)
         for b in range(start_batch, n_batches):
             n_valid = min(B, trials - b * B)
-            local = local + self.run_batch(rng.fold_in(kp, b), p, n_valid, a32)
+            with profiling.batch():
+                with span("key"):
+                    key = rng.fold_in(kp, b)
+                counters = self.run_batch(key, p, n_valid, a32)
+                with span("counters"):
+                    local = local + counters
+                    if each is not None:
+                        reduced = reduce(local)
             if each is not None:
-                each(b, n_batches, local)
+                each(b, n_batches, reduced)
         return local
 
     def run_rate(self, p: float, trials: int, seed: int = 0, start_batch: int = 0,
@@ -407,11 +426,11 @@ class MonteCarloEngine:
             return reduced(self._local_counters(p, trials, seed, alpha, start_batch))
         total = [init]
 
-        def each(b, n_batches, local):
-            total[0] = reduced(local)
-            on_batch(b, n_batches, total[0])
+        def each(b, n_batches, reduced_total):
+            total[0] = reduced_total
+            on_batch(b, n_batches, reduced_total)
 
-        self._local_counters(p, trials, seed, alpha, start_batch, each)
+        self._local_counters(p, trials, seed, alpha, start_batch, reduced, each)
         return total[0]
 
     def run_rates_sharded(self, error_rates, trials: int, seed: int = 0,

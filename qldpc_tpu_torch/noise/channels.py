@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from qldpc_tpu_torch.utils.profiling import count
 from qldpc_tpu_torch.utils.rng import counter_bernoulli, counter_uniform
 
 __all__ = [
@@ -27,6 +28,7 @@ def uniform_prior_llr(n: int, p, device=None) -> torch.Tensor:
     The scalar is computed on the CPU and then moved, so every device decodes
     with the same prior bits."""
     p = torch.as_tensor(p, dtype=torch.float32)
+    count("host_syncs")  # the prior's copy to the device
     return torch.log((1.0 - p) / p).to(device).expand(n)
 
 
@@ -61,6 +63,7 @@ def phenomenological(key, base: int, p, batch: int, n: int, m: int, q=None,
     u = counter_uniform(key, base, batch, n + m, device=device)
     p32 = torch.as_tensor(p, dtype=torch.float32, device=u.device)
     q32 = torch.as_tensor(q, dtype=torch.float32, device=u.device)
+    count("host_syncs", 2)  # p's and q's copies to the device
     errors = (u[:, :n] < p32).to(torch.int8)
     flips = (u[:, n:] < q32).to(torch.int8)
     return errors, flips

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qldpc_tpu_torch.utils.profiling import count
 from qldpc_tpu_torch.utils.rng import bernoulli, counter_uniform, split
 
 __all__ = [
@@ -102,6 +103,7 @@ def sample_space_time_counters(key, base: int, H, p, batch: int, n_rounds: int,
     u_all = counter_uniform(key, base, batch, T * n + T * m, device=device)
     p32 = torch.as_tensor(p, dtype=torch.float32, device=u_all.device)
     q32 = torch.as_tensor(q, dtype=torch.float32, device=u_all.device)
+    count("host_syncs", 2)  # p's and q's copies to the device
     e = (u_all[:, : T * n].reshape(batch, T, n) < p32).to(torch.int8)
     u = (u_all[:, T * n:].reshape(batch, T, m) < q32).to(torch.int8)
     return _detectors(e, u, Hf, batch, T)
@@ -125,4 +127,5 @@ def space_time_prior_llr(n: int, m: int, n_rounds: int, p, q=None,
     q = torch.as_tensor(q, dtype=torch.float32)
     lp = torch.log((1 - p) / p)
     lq = torch.log((1 - q) / q)
+    count("host_syncs")  # the priors' copy to the device
     return torch.cat([lp.expand(n * n_rounds), lq.expand(m * n_rounds)]).to(device)

@@ -35,8 +35,10 @@ All products are over GF(2). A sample stops at a block boundary once no
 unresolved syndrome bit is left or its rank reaches rank(H) (the JAX
 ``lane_done``); exited samples cost no work: each block starts with one
 host sync that lists the samples still running, and the kernels run on
-those alone. The JAX eliminator runs a 128-lane slab until its last lane is
-done, so its outputs equal this function's run on each sample alone.
+those alone (the block's pivots are then written out through three
+boolean-mask reads, each a host sync too). The JAX eliminator runs a
+128-lane slab until its last lane is done, so its outputs equal this
+function's run on each sample alone.
 
 Layout, sample-major (words are int32 tensors holding uint32 bit patterns,
 as in ``osd_cuda``): rows padded to m_pad = 32 * ceil(m / 32), mw = m_pad /
@@ -62,6 +64,7 @@ import torch
 from qldpc_tpu_torch._build import KernelLibrary
 from qldpc_tpu_torch.ops.osd_cuda import WORD
 from qldpc_tpu_torch.ops.osd_transform_cuda import pack_columns
+from qldpc_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "BLOCK_COLS",
@@ -344,21 +347,24 @@ def _eliminate(order, resid, Hc, h_rank: int, max_cols: int, kernels):
         unresolved = ((b & ~piv) != 0).any(dim=1)
         return ~unresolved | (rank >= h_rank)
 
-    for blk in range(nb):
-        lanes = torch.nonzero(~lane_done()).flatten()  # the block's one host sync
-        if lanes.numel() == 0:
-            break
-        lanes32 = lanes.to(torch.int32)
-        scur = blk * K
-        ids = sched[lanes, scur: scur + K].contiguous()
-        Y = y(P, lanes32, ids, Hc, scur)
-        W = w(C, lanes32, ids, Hc, Y, scur)
-        prow = elim(W, b, piv, C, lanes32, ids, n, blk)
-        resolve(P, C, lanes32, prow, blk)
-        valid = prow < m_pad
-        rank[lanes] += valid.sum(dim=1)
-        rows = lanes[:, None].expand(-1, K)[valid]
-        piv_col[rows, prow[valid].long()] = ids[valid]
+    with span("osd.factored"):
+        for blk in range(nb):
+            lanes = torch.nonzero(~lane_done()).flatten()  # the samples still running
+            count("host_syncs")
+            if lanes.numel() == 0:
+                break
+            lanes32 = lanes.to(torch.int32)
+            scur = blk * K
+            ids = sched[lanes, scur: scur + K].contiguous()
+            Y = y(P, lanes32, ids, Hc, scur)
+            W = w(C, lanes32, ids, Hc, Y, scur)
+            prow = elim(W, b, piv, C, lanes32, ids, n, blk)
+            resolve(P, C, lanes32, prow, blk)
+            valid = prow < m_pad
+            rank[lanes] += valid.sum(dim=1)
+            rows = lanes[:, None].expand(-1, K)[valid]
+            piv_col[rows, prow[valid].long()] = ids[valid]
+            count("host_syncs", 3)  # the three boolean-mask reads
     overflow = ~lane_done()
     return (_unpack(b)[:, :m], _unpack(piv)[:, :m], piv_col[:, :m], overflow)
 

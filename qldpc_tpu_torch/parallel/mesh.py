@@ -29,6 +29,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from qldpc_tpu_torch.utils.profiling import count
+
 __all__ = [
     "BATCH_AXIS", "RATE_AXIS", "Mesh", "init_distributed", "make_mesh", "rank_device",
 ]
@@ -61,6 +63,7 @@ class Mesh:
         """Sum int64 tensors over the batch group; the sums come back on the
         CPU, in order."""
         if self.batch_shards == 1:
+            count("host_syncs", len(tensors))
             return [x.cpu() for x in tensors]
         return _all_reduce(tensors, self.batch_group)
 
@@ -68,12 +71,14 @@ class Mesh:
         """Sum int64 tensors over every process; the sums come back on the
         CPU, in order."""
         if self.world_size == 1:
+            count("host_syncs", len(tensors))
             return [x.cpu() for x in tensors]
         return _all_reduce(tensors, None)
 
 
 def _all_reduce(tensors, group) -> list[torch.Tensor]:
     """One all-reduce of the tensors packed into a flat CPU buffer."""
+    count("host_syncs", len(tensors))  # each tensor's copy to the host
     flat = torch.cat([x.reshape(-1).to("cpu", torch.int64) for x in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     out, at = [], 0

@@ -4,6 +4,14 @@
 The reference's only instrumentation is ad-hoc ``time.time()`` prints
 (paperResults_GPU.py:59,77,153-154). Here phase timers, throughput counters,
 and ``torch.profiler`` traces are library features (SURVEY.md §5.1).
+
+The engines mark their own work with ``span`` (``record_function``s named
+``qldpc.<name>``, on the profiler's clock, which the device's operations
+share, so that every idle stretch of a trace lies inside the span the host
+was in) and count it with ``count`` inside each batch's ``batch`` scope.
+Tracing is on exactly while a ``torch.profiler`` session collects (the
+CLI's ``--trace DIR``); the counters are always on. ``counts()`` gives the
+process's running totals over the batches of ``run_rate``.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["PhaseTimer", "trace"]
+__all__ = ["PhaseTimer", "batch", "count", "counts", "span", "trace"]
 
 
 @dataclasses.dataclass
@@ -65,3 +73,53 @@ def trace(log_dir: str):
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
 
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` named ``qldpc.<name>`` while a profiler
+    collects; otherwise a no-op context, at the cost of one check."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function("qldpc." + name)
+
+
+class _Counts:
+    """The process's counters: kept only while a batch scope is open."""
+
+    def __init__(self):
+        self.totals: dict = defaultdict(int)
+        self.open = 0
+        self.batches = 0
+
+
+_COUNTS = _Counts()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n``, a number the host already holds, to counter ``name`` if a
+    batch is running; counts made outside a batch are dropped."""
+    if _COUNTS.open:
+        _COUNTS.totals[name] += n
+
+
+def counts() -> dict:
+    """The running totals of every counter over this process's batches, and
+    ``batches``, the number of batch scopes closed."""
+    return {**_COUNTS.totals, "batches": _COUNTS.batches}
+
+
+@contextlib.contextmanager
+def batch():
+    """One batch of the Monte-Carlo loop: the ``qldpc.batch`` span and the
+    scope in which ``count`` keeps its counts."""
+    _COUNTS.open += 1
+    try:
+        with span("batch"):
+            yield
+    finally:
+        _COUNTS.open -= 1
+        if not _COUNTS.open:
+            _COUNTS.batches += 1

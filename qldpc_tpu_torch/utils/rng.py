@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from qldpc_tpu_torch.utils.profiling import count
+
 __all__ = [
     "key",
     "fold_in",
@@ -108,6 +110,7 @@ def counter_bernoulli(
     batch, stride = shape
     u = counter_uniform(k, first_sample, batch, stride, device=device)
     p32 = torch.as_tensor(p, dtype=torch.float32, device=u.device)
+    count("host_syncs")  # p's copy to the device
     return (u < p32).to(torch.int8)
 
 
