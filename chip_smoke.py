@@ -7,8 +7,13 @@ Phases (any failure raises and the script exits non-zero):
   2. build the kernels K1 (fused BP), K2 (GF(2) elimination), K3 (DEM BP),
      K4 and K4g (transform GF(2) elimination, T in shared or global
      memory), K5a-d (factored GF(2) elimination), K6 (structured space-time
-     BP) and K7 (layered BP) with nvcc from qldpc_tpu_torch/ops/csrc/, one
-     nvcc per source, all at once;
+     BP), K7 (layered BP) and K8 (the sampler's threefry2x32 counter
+     stream) with nvcc from qldpc_tpu_torch/ops/csrc/, one nvcc per source,
+     all at once;
+  2b. K8 against the plain int64 counter stream at the benchmark's shapes
+     (1,024 x 66,981, the [[144]] DEM; 65,536 x 144, code capacity), the
+     counter wrapping past 2^32: bit for bit, its device ms, the plain
+     version's ms and the bound (integer operations, bytes written);
   code capacity, [[144,12,12]]:
   3. K1 (one warp a sample, samples from a work counter; warps a block and
      grid logged) against its plain torch version;
@@ -363,6 +368,15 @@ MESH_CLI_ARGS = ["run", "study", "--codes", CODE, "--trials", str(2 * ENGINE_BAT
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# the H100 SXM's 32-bit integer rate: 64 INT32 lanes an SM, 132 SMs, at its
+# 1,980 MHz boost clock
+INT_OPS_PER_S = 64 * 132 * 1.98e9
+# K8's integer operations a counter pair: threefry2x32's 72 (two key adds,
+# 20 rounds of an add, a rotate and a XOR, five injections of two adds),
+# the counter's add and two conversions of a shift, a convert and a multiply
+K8_OPS_PER_PAIR = 78
+# K8 at the benchmark's shapes: (samples, uniforms a sample)
+K8_SHAPES = {"dem": (1024, 66981), "code_capacity": (65536, 144)}
 # float32 operations per real edge and BP iteration: the check rule (tanh,
 # the leave-one-out products or log/exp sums, clamp, atanh, scaling) and the
 # variable side (one add into the posterior, one subtraction per message)
@@ -432,10 +446,10 @@ def popcount(words: torch.Tensor) -> int:
     return int((((v * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
 
 
-def bound(moved: float, ops: float) -> dict:
+def bound(moved: float, ops: float, peak: float = PEAK_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate, whichever is larger."""
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -476,10 +490,12 @@ def phase_build() -> None:
         osd_factored_cuda,
         osd_transform_cuda,
         spacetime_bp_cuda,
+        threefry_cuda,
     )
 
     libs = [m._LIB for m in (bp_cuda, osd_cuda, dem_bp_cuda, osd_transform_cuda,
-                             osd_factored_cuda, spacetime_bp_cuda, bp_layered_cuda)]
+                             osd_factored_cuda, spacetime_bp_cuda, bp_layered_cuda,
+                             threefry_cuda)]
     libs.append(osd_transform_cuda._GLOBAL_LIB)
 
     def build(lib):
@@ -497,6 +513,47 @@ def phase_build() -> None:
                 log(f"  ptxas: {line.strip()}")
         lib.lib  # load it and bind the entry points
     log(f"all kernels built in {time.perf_counter() - t0:.2f} s")
+
+
+def phase_k8(card_line: str) -> dict:
+    """K8 against the plain int64 counter stream at the benchmark's DEM and
+    code-capacity shapes, the counter wrapping past 2^32 inside the batch:
+    bit for bit; its ms, device ms, the plain version's ms on the card and
+    the bound (operations at the integer rate, bytes written)."""
+    from qldpc_tpu_torch.ops.threefry_cuda import counter_uniform_cuda, launch_shape
+    from qldpc_tpu_torch.utils import rng
+
+    dev = torch.device("cuda:0")
+    k = rng.fold_in(rng.fold_in(rng.key(2024), 11), 3)
+    recs = {}
+    for label, (B, stride) in K8_SHAPES.items():
+        P = (stride + 1) // 2
+        first = 2**32 // P - B // 2
+
+        def kernel():
+            return counter_uniform_cuda(k, first, B, stride, dev)
+
+        def plain():
+            return rng.counter_uniform_plain(k, first, B, stride, device=dev)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"K8 {label}: the uniforms differ from the plain version")
+        del got, want
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, reps=20)
+        plain_ms = cuda_ms(plain, reps=3)
+        ops, moved = B * P * K8_OPS_PER_PAIR, B * stride * 4
+        b = bound(moved, ops, INT_OPS_PER_S)
+        log(f"K8 {label} {B} x {stride}: bit for bit; geometry (bx, gy, grid) "
+            f"{launch_shape(B, P)}; {ms:.4f} ms ({dev_ms:.4f} on the device, "
+            f"{ops / dev_ms * 1e-9:.2f} T integer operations/s, "
+            f"{moved / dev_ms * 1e-9:.3f} TB/s written); plain {plain_ms:.3f} ms; "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {ops:.4g} operations, "
+            f"{moved:.4g} bytes) on {card_line}")
+        recs[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, shape=[B, stride], **b)
+    return dict(recs["dem"], max_abs_err=0.0, code_capacity=recs["code_capacity"])
 
 
 def sample(H: np.ndarray, p: float, B: int, seed: int):
@@ -619,7 +676,7 @@ def phase_engine(dev, card_line: str) -> dict:
     from qldpc_tpu_torch.codes import get_code
     from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
     from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine
-    from qldpc_tpu_torch.ops import bp_cuda, osd_cuda
+    from qldpc_tpu_torch.ops import bp_cuda, osd_cuda, threefry_cuda
 
     trials = ENGINE_TRIALS
     eng = MonteCarloEngine(
@@ -632,11 +689,13 @@ def phase_engine(dev, card_line: str) -> dict:
     torch.cuda.synchronize()
     bp_cuda.bp_flooding_cuda.launches = 0
     osd_cuda.eliminate_ordered_cuda.launches = 0
+    threefry_cuda.counter_uniform_cuda.launches = 0
     res = eng.sweep(rates, trials=trials)
     torch.cuda.synchronize()
     launches = {
         "bp_flooding": bp_cuda.bp_flooding_cuda.launches,
         "gf2_elim": osd_cuda.eliminate_ordered_cuda.launches,
+        "threefry_uniform": threefry_cuda.counter_uniform_cuda.launches,
     }
     for p, d in zip(rates, res.per_rate):
         scalars = {k: v for k, v in d.items() if not isinstance(v, np.ndarray)}
@@ -3001,6 +3060,7 @@ def main() -> int:
 
     timed(phase_toolchain, card_line)
     timed(phase_build)
+    k8 = timed(phase_k8, card_line)
     k1_err, failures = timed(phase_k1, H, dev)
     k2 = timed(phase_k2, H, dev, failures)
     launches = timed(phase_engine, dev, card_line)
@@ -3105,6 +3165,10 @@ def main() -> int:
         # its path: OSD-0 at the [[288]] DEM, the samples past the budget
         ("gf2_transform_elim_global", "gf2_transform_elim_global.cu",
          "qldpc_tpu/decoders/osd.py:492", k4g["osd0_288"]["run_launches"], k4g),
+        # K8 replaces no Pallas kernel: the JAX counter stream is XLA code;
+        # its launches: phase 5's sweep, one a batch
+        ("threefry_uniform", "threefry_uniform.cu", "none (qldpc_tpu/utils/rng.py:48, XLA)",
+         launches["threefry_uniform"], k8),
     ]
     # K1 where samples iterate, K2's packed-rows entry and its launches on
     # the OSD-e path, K4 on the space-time failures and on the OSD-e path, K5
@@ -3112,7 +3176,8 @@ def main() -> int:
     # device ms in turns and K3's bf16 message path's
     extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288",
              "f32_device_ms", "message_device_ms", "lanes", "stage_ms", "cluster", "t_smem",
-             "no_pivot_panels", "osde_launches", "osd0_288", "past_9312")
+             "no_pivot_panels", "osde_launches", "osd0_288", "past_9312", "shape",
+             "code_capacity")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

@@ -13,7 +13,10 @@ torch has no unsigned 32-bit arithmetic worth using, so words are carried in
 int64 and reduced with ``& 0xFFFFFFFF`` after every add and rotate. A key is
 an int64 tensor of shape (2,) holding the two 32-bit key words, the same
 ``key_data`` layout as ``jax.random.key_data``; keys are explicit values,
-never global state.
+never global state. On a card ``counter_uniform`` launches the kernel K8
+(``ops/threefry_cuda.py``), which computes the same stream in uint32
+registers; the int64 code, ``counter_uniform_plain``, is its plain version
+and the CPU's path.
 
 Beside the counter mode, ``split``, ``uniform`` and ``bernoulli`` compute
 ``jax.random``'s keyed draws bit for bit, as JAX 0.9 does them with
@@ -29,6 +32,7 @@ import math
 
 import torch
 
+from qldpc_tpu_torch.ops import threefry_cuda
 from qldpc_tpu_torch.utils.profiling import count
 
 __all__ = [
@@ -36,6 +40,7 @@ __all__ = [
     "fold_in",
     "threefry2x32",
     "counter_uniform",
+    "counter_uniform_plain",
     "counter_bernoulli",
     "split",
     "random_bits",
@@ -90,7 +95,21 @@ def counter_uniform(
     k: torch.Tensor, first_sample: int, batch: int, stride: int, device=None
 ) -> torch.Tensor:
     """(batch, stride) float32 uniforms in [0, 1) for global samples
-    ``first_sample .. first_sample + batch`` (qldpc_tpu/utils/rng.py:48)."""
+    ``first_sample .. first_sample + batch`` (qldpc_tpu/utils/rng.py:48):
+    ``counter_uniform_plain`` on the CPU, the kernel K8
+    (``ops/threefry_cuda.py``) on a card, never a fallback."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if device.type == "cuda":
+        return threefry_cuda.counter_uniform_cuda(k, first_sample, batch, stride, device)
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return counter_uniform_plain(k, first_sample, batch, stride, device)
+
+
+def counter_uniform_plain(
+    k: torch.Tensor, first_sample: int, batch: int, stride: int, device=None
+) -> torch.Tensor:
+    """``counter_uniform`` in int64 torch on ``device``."""
     P = (stride + 1) // 2  # counter pairs per sample
     k0, k1 = (int(v) for v in k.tolist())
     base = (int(first_sample) * P) & _MASK

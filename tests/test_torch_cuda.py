@@ -33,6 +33,10 @@ K1's bf16-operand instances (``mm_dtype="bfloat16"``) and K3's bf16-stream
 instances (``stream_dtype="bfloat16"``, summary and message paths) are held
 to their plain versions in bf16 by the same standards, and K3's two bf16
 paths to each other bit for bit.
+K8 (the sampler's threefry2x32 stream) is bit-identical to the plain int64
+``counter_uniform_plain`` at every engine's shape, a counter that wraps past
+2^32 and key words with bit 31 set, and each engine's ``_sample`` on the card
+equals the CPU's.
 ``test_k6_geometry_follows_the_state_size`` needs no card.
 """
 
@@ -56,7 +60,7 @@ from qldpc_tpu_torch.mc import (
 from qldpc_tpu_torch.decoders.spacetime_bp import SpaceTimeBPDecoder
 from qldpc_tpu_torch.noise.circuit import memory_experiment_dem, parametric_memory_dem
 from qldpc_tpu_torch.noise.spacetime import space_time_matrix, space_time_prior_llr
-from qldpc_tpu_torch.ops import osd_cuda, osd_transform_cuda
+from qldpc_tpu_torch.ops import osd_cuda, osd_transform_cuda, threefry_cuda
 from qldpc_tpu_torch.ops.bp_cuda import bp_flooding_cuda, bp_flooding_plain
 from qldpc_tpu_torch.ops.bp_layered_cuda import bp_layered_cuda, bp_layered_plain
 from qldpc_tpu_torch.ops.spacetime_bp_cuda import launch_shape, st_bp_cuda, st_bp_plain
@@ -67,6 +71,7 @@ from qldpc_tpu_torch.ops.osd_cuda import (
     pack_rows,
 )
 from qldpc_tpu_torch.ops import osd_factored_cuda as ofc
+from qldpc_tpu_torch.utils import profiling, rng
 from qldpc_tpu_torch.ops.osd_transform_cuda import (
     eliminate_transform_cuda,
     eliminate_transform_plain,
@@ -1554,3 +1559,103 @@ def test_estimate_alpha_on_the_card_equals_the_cpu(cuda, method):
         assert got == ref
     else:
         assert abs(got - ref) <= 1e-6 * abs(ref)
+
+
+# K8, the sampler's counter stream (ops/threefry_cuda.py): bit for bit the
+# plain int64 counter_uniform, compared as int32 views
+
+K8_SHAPES = [
+    (65536, 144),  # code capacity, [[144]]
+    (37, 216),     # [[144]] phenomenological, n + m
+    (1024, 66981),  # the [[144]] DEM, odd stride
+    (1, 66981),
+    (4097, 1),
+    (1, 1),
+    (512, 2592),   # [[144]] space-time at T = 12: T*n + T*m
+    (37, 2592),
+]
+K8_KEYS = {"fold-in": tuple(rng.fold_in(rng.fold_in(rng.key(12345), 11), 2).tolist()),
+           "bit31": (0x80000001, 0xFFFFFFFE)}
+
+
+def _k8_same(got, want):
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("key", list(K8_KEYS))
+@pytest.mark.parametrize("batch,stride", K8_SHAPES)
+def test_k8_matches_plain_bit_for_bit(cuda, batch, stride, key):
+    k = torch.tensor(K8_KEYS[key], dtype=torch.int64)
+    got = threefry_cuda.counter_uniform_cuda(k, 7, batch, stride, cuda)
+    want = rng.counter_uniform_plain(k, 7, batch, stride, device=cuda)
+    torch.cuda.synchronize()
+    _k8_same(got, want)
+
+
+def test_k8_matches_the_cpu_plain_version(cuda):
+    k = torch.tensor(K8_KEYS["bit31"], dtype=torch.int64)
+    got = rng.counter_uniform(k, 3, 129, 145, device=cuda).cpu()
+    _k8_same(got, rng.counter_uniform(k, 3, 129, 145))
+
+
+@pytest.mark.parametrize("stride", [144, 66981])
+def test_k8_counter_wraps_past_2_to_the_32(cuda, stride):
+    """first_sample * P and the rows after it pass 2^32."""
+    P = (stride + 1) // 2
+    first = 2**32 // P - 5
+    k = torch.tensor(K8_KEYS["bit31"], dtype=torch.int64)
+    batch = 65536 if stride == 144 else 64
+    got = threefry_cuda.counter_uniform_cuda(k, first, batch, stride, cuda)
+    _k8_same(got, rng.counter_uniform_plain(k, first, batch, stride, device=cuda))
+
+
+def test_k8_counts_its_launches_and_draws(cuda):
+    k = rng.key(5)
+    before = profiling.counts().get("sample.kernel_draws", 0)
+    for i in range(3):
+        launches = threefry_cuda.counter_uniform_cuda.launches
+        with profiling.batch():
+            rng.counter_uniform(k, 33 * i, 33, 145, device=cuda)
+        assert threefry_cuda.counter_uniform_cuda.launches == launches + 1
+    assert profiling.counts()["sample.kernel_draws"] == before + 3 * 33 * 145
+    # outside a batch the draws are not counted, the launch is
+    launches = threefry_cuda.counter_uniform_cuda.launches
+    rng.counter_uniform(k, 0, 33, 145, device=cuda)
+    assert threefry_cuda.counter_uniform_cuda.launches == launches + 1
+    assert profiling.counts()["sample.kernel_draws"] == before + 3 * 33 * 145
+
+
+K8_ENGINES = {
+    "code-capacity": dict(),
+    "phenomenological": dict(channel="phenomenological"),
+    "space-time": dict(channel="space-time", n_rounds=12),
+}
+
+
+def _k8_engine_samples(make, key, p):
+    """One ``_sample`` call on the card and on the CPU at one key: equal
+    errors, syndromes and priors, through one K8 launch."""
+    launches = threefry_cuda.counter_uniform_cuda.launches
+    got = make("cuda")._sample(key, p)
+    assert threefry_cuda.counter_uniform_cuda.launches == launches + 1
+    ref = make("cpu")._sample(key, p)
+    assert bool(got[0].any())  # some errors drawn
+    for name, g, r in zip(("errors", "syndromes", "priors"), got, ref):
+        assert g.device.type == "cuda", name
+        assert torch.equal(g.cpu(), r), name
+
+
+@pytest.mark.parametrize("case", list(K8_ENGINES))
+def test_k8_engine_samples_match_the_cpu(cuda, case):
+    cfg = EngineConfig(bp=MIN_SUM, osd=None, batch_size=257, **K8_ENGINES[case])
+    code = get_code("[[144, 12, 12]]")
+    key = rng.fold_in(rng.fold_in(rng.key(9), 3), 1)
+    _k8_engine_samples(lambda dev: MonteCarloEngine(code, cfg, device=dev), key, 0.03)
+
+
+def test_k8_dem_engine_samples_match_the_cpu(cuda):
+    dem = parametric_memory_dem(get_code("[[72, 12, 6]]"), basis="z", rounds=6)
+    cfg = DEMEngineConfig(bp=MIN_SUM, osd=None, batch_size=129)
+    key = rng.fold_in(rng.fold_in(rng.key(9), 3), 1)
+    _k8_engine_samples(lambda dev: DEMEngine(dem, cfg, device=dev), key, 0.003)
