@@ -4,9 +4,11 @@
         [--first-seed N] [--out FILE]
 
 In one process: the cell's engine as configured, then its control (the
-configuration's lower precision, the program's own bf16 path), each
-warmed once; for every seed the window's first ``within_first`` batches
-(the traffic file's), the checked batches kept as a run keeps them, and
+configuration's lower precision: the program's own bf16 path, or, where
+the path has none, the reference's BP with bfloat16 messages in its
+place), each warmed once; for every seed the window's first
+``within_first`` batches (the traffic file's), the checked batches kept
+as a run keeps them, and
 the comparison with the reference. One JSON line a seed, on standard
 output and in ``--out``.
 """
@@ -72,7 +74,8 @@ def main() -> int:
     for control, chosen in ((False, seeds[:args.seeds]), (True, seeds[args.seeds:])):
         if not chosen:
             continue
-        engine = harness.build_engine(cell.config, torch.device("cuda"), control=control)
+        engine = harness.build_engine(cell.config, torch.device("cuda"), control=control,
+                                      p=p)
         harness.load_kernels()
         engine.run_rate(p, engine.config.batch_size, seed=chosen[0])
         readings(cell, engine, ref, chosen, control, out)

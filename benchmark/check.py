@@ -1,11 +1,12 @@
 """Whether the timed path decoded correctly: its outputs on the checked
 batches against the plain reference, layer by layer.
 
-The reference builds the code (and for a circuit-level configuration the
-DEM and its priors at p) from the configuration's polynomials, draws the
-errors from the seed, and follows the program stage by stage: each stage
-of the reference takes the program's outputs of the stage before, which
-the comparison before it has judged.
+The reference builds the configuration's decoding problem at p from its
+channel's file, ``reference/channels/<channel>.py`` (the code from its
+polynomials; for a circuit-level configuration the DEM and its priors, for
+a space-time one H_st), draws the errors from the seed, and follows the
+program stage by stage: each stage of the reference takes the program's
+outputs of the stage before, which the comparison before it has judged.
 
   sample_bits_differ    error bits the program drew that the seed's
                         stream does not give, plus syndrome bits that are
@@ -22,52 +23,47 @@ the comparison before it has judged.
                         where BP converged).
   counter_fields_differ counter fields and histogram bins of a batch that
                         differ from the classification of the program's
-                        errors and corrections.
+                        errors and corrections (through the channel's
+                        fold: the net flip of each qubit over rounds).
 """
 
 from __future__ import annotations
 
+import importlib
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from benchmark.reference import bp as ref_bp
-from benchmark.reference import circuit, classify, codes, osd, rng
+from benchmark.reference import classify, osd, rng
 
 NUMBERS = ("sample_bits_differ", "bp_lanes_differ", "bp_llr_gap", "osd_lanes_differ",
            "counter_fields_differ")
-PRIOR_BAND = 2.0 ** -22
 HIST_BINS = 128
+CHANNELS = Path(__file__).resolve().parent / "reference" / "channels"
 
 
 class Reference:
-    """The configuration's decoding problem, worked out from its file."""
+    """The configuration's decoding problem, worked out from its file and
+    its channel's (``reference/channels/<channel>.py``)."""
 
     def __init__(self, config: dict, p: float):
         self.p = p
-        code = codes.bb_code(config["code"])
         self.tanh_clip = float(config["tanh_clip"])
         self.max_iter = int(config["spec"]["bp_max_iter"])
-        if config["channel"] == "circuit-level":
-            dem = circuit.parametric_dem(code, config["basis"], int(config["rounds"]))
-            H, L = dem["H"], dem["L"]
-            if H.shape != (config["detectors"], config["mechanisms"]):
-                raise ValueError(f"the DEM is {H.shape[0]} x {H.shape[1]}; the configuration "
-                                 f"states {config['detectors']} x {config['mechanisms']}")
-            q, llr = circuit.priors(dem, p)
-            self.prior, self.band, self.distance = q, PRIOR_BAND, 0
-        elif config["channel"] == "code-capacity":
-            H = code["Hx"] if config["basis"] == "x" else code["Hz"]
-            L = code["Lx"] if config["basis"] == "x" else code["Lz"]
-            p32 = torch.tensor(p, dtype=torch.float32)
-            llr = torch.log((1.0 - p32) / p32).expand(H.shape[1])
-            self.prior, self.band, self.distance = p32, 0.0, code["distance"]
-        else:
-            raise ValueError(f"no reference for the channel {config['channel']!r}")
-        self.m, self.n = H.shape
-        self.edges = int(np.count_nonzero(H))
-        self.H, self.L, self.llr = H, L, llr
+        path = CHANNELS / f"{config['channel'].replace('-', '_')}.py"
+        if not path.is_file():
+            raise ValueError(f"no reference for the channel {config['channel']!r}: "
+                             f"no file {path}")
+        channel = importlib.import_module(f"benchmark.reference.channels.{path.stem}")
+        problem = channel.problem(config, p)
+        self.H, self.L, self.llr = problem["H"], problem["L"], problem["llr"]
+        self.prior, self.band = problem["prior"], problem["band"]
+        self.distance, self.fold = problem["distance"], problem["fold"]
+        self.m, self.n = self.H.shape
+        self.edges = int(np.count_nonzero(self.H))
 
     def place(self, device) -> None:
         """Put the reference's tables on ``device``, where it runs."""
@@ -136,7 +132,8 @@ def compare(ref: Reference, seed: int, batches: dict, counters: dict,
         lap("osd")
 
         want_counts = classify.counters(errors, final, syn, conv, iters, ref.L,
-                                        ref.graph.parity, ref.distance, HIST_BINS)
+                                        ref.graph.parity, ref.distance, HIST_BINS,
+                                        fold=ref.fold)
         for field, value in want_counts.items():
             value = np.asarray(value)
             have = counters[b].get(field)

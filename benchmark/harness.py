@@ -24,6 +24,7 @@ import gc
 import importlib.util
 import json
 import os
+import resource
 import sys
 import tempfile
 import time
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from benchmark import check, trace
+from benchmark.reference import bp as ref_bp
 
 ROOT = Path(__file__).resolve().parent.parent
 STAGES = ("sample", "bp", "osd", "classify")
@@ -95,20 +97,50 @@ def forbidden_modules() -> list[str]:
 # ---------------------------------------------------------------- program
 def program_spec(config: dict, control: bool = False):
     """The experiment spec the CLI would run: the configuration's preset,
-    its code, its settings and, for the control, its lower precision."""
+    its code, its settings and, for the control, its lower precision's
+    spec fields."""
     from qldpc_tpu_torch.experiments.configs import get_preset
 
     spec = dict(config["spec"])
     if control:
-        spec.update(config["control"])
+        spec.update({k: v for k, v in config["control"].items() if k != "bp"})
     return get_preset(config["preset"]).replace(codes=[config["code"]["name"]], **spec)
 
 
-def build_engine(config: dict, device, control: bool = False):
-    """The engine as the CLI builds it (``runners.build_engine``)."""
+def build_engine(config: dict, device, control: bool = False, p: float | None = None):
+    """The engine as the CLI builds it (``runners.build_engine``). For a
+    control that names ``bp``, the reference's BP at that precision takes
+    the place of the engine's BP decoders (``ReferenceBP``; its graph is
+    the configuration's decoding problem at ``p``)."""
     from qldpc_tpu_torch.experiments.runners import build_engine as build
 
-    return build(program_spec(config, control), config["code"]["name"], device=device)
+    engine = build(program_spec(config, control), config["code"]["name"], device=device)
+    if control and "bp" in config["control"]:
+        if config["control"]["bp"] != "bfloat16":
+            raise ValueError(f"the control's bp {config['control']['bp']!r} is not bfloat16")
+        ref = check.Reference(config, p)
+        graph = ref_bp.Graph(ref.H, engine.device)
+        engine.bp = ReferenceBP(graph, ref.max_iter, ref.tanh_clip)
+        if engine.bp_short is not None:
+            engine.bp_short = ReferenceBP(graph, engine.config.rescue_iters, ref.tanh_clip)
+    return engine
+
+
+class ReferenceBP:
+    """The control of a BP path that has no lower precision of its own
+    (K6): the reference's BP with its messages kept in bfloat16, called as
+    the engine calls its BP decoder, on the program's syndromes and
+    priors."""
+
+    def __init__(self, graph, max_iter: int, tanh_clip: float):
+        self.graph, self.max_iter, self.tanh_clip = graph, max_iter, tanh_clip
+
+    def __call__(self, syndromes, priors, alpha=None):
+        from qldpc_tpu_torch.decoders.bp import BPResult
+
+        post, conv, iters, hard = ref_bp.decode(self.graph, syndromes, priors, self.max_iter,
+                                                self.tanh_clip, messages=torch.bfloat16)
+        return BPResult(hard=hard, converged=conv, llrs=post, iterations=iters)
 
 
 def load_kernels() -> int:
@@ -177,12 +209,22 @@ class Capture:
         self.engine = None
 
 
+def host_load() -> dict:
+    """Readings in which a stall of the host shows: this process's CPU
+    seconds (short of the window's length where the machine stood still)
+    and the interpreter's full garbage collections."""
+    use = resource.getrusage(resource.RUSAGE_SELF)
+    return {"proc_cpu": use.ru_utime + use.ru_stime, "full_gcs": gc.get_stats()[2]["collections"]}
+
+
 def window(engine, p: float, seed: int, seconds: float, capture: Capture | None,
            max_batches: int | None = None) -> dict:
     """Run batches of the seed's stream at ``p`` until ``seconds`` have
-    passed (or ``max_batches`` have run): (t0, each batch's end, running
-    counters)."""
-    stamps, totals = [], []
+    passed (or ``max_batches`` have run): (t0, each batch's end, the running
+    counters after the batches that the capture keeps, the closing one and
+    the batch before each)."""
+    stamps, totals, last = [], {}, [None]
+    needed = {b - d for b in capture.keep for d in (0, 1)} if capture is not None else set()
     B = engine.config.batch_size
     sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
     sync()
@@ -191,22 +233,30 @@ def window(engine, p: float, seed: int, seconds: float, capture: Capture | None,
     def on_batch(b, n_batches, total):
         now = time.perf_counter()
         stamps.append(now)
-        totals.append(total)
+        i = len(stamps) - 1
         closing = now - t0 >= seconds or len(stamps) == max_batches
+        if i in needed or closing:
+            totals[i] = total
+        if closing and i:
+            totals[i - 1] = last[0]
+        last[0] = total
         if capture is not None:
             capture.batch_done(closing)
         if closing:
             raise WindowClosed
 
+    load0 = host_load()
     try:
         engine.run_rate(p, B * 10**9, seed=seed, on_batch=on_batch)
     except WindowClosed:
         pass
-    return {"t0": t0, "stamps": stamps, "totals": totals, "batch": B}
+    load1 = host_load()
+    return {"t0": t0, "stamps": stamps, "totals": totals, "batch": B,
+            "host": {k: load1[k] - load0[k] for k in load1}}
 
 
-def batch_counters(totals: list, b: int) -> dict:
-    """Batch b's own counters, from the running totals."""
+def batch_counters(totals: dict, b: int) -> dict:
+    """Batch b's own counters, from the running totals after b and b - 1."""
     now = totals[b]._asdict()
     before = totals[b - 1]._asdict() if b else None
     return {k: (v - before[k] if before else v).numpy() for k, v in now.items()}
@@ -305,7 +355,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
     on_card = device.type == "cuda"
     p = float(cell.traffic["p"])
     t = [time.perf_counter()]
-    engine = build_engine(cell.config, device, control=control)
+    engine = build_engine(cell.config, device, control=control, p=p)
     t.append(time.perf_counter())
     if on_card:
         load_kernels()
@@ -354,7 +404,12 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
     ends = np.array(win["stamps"]) - win["t0"]
     quarters = [int(((ends > q * ends[-1] / 4) & (ends <= (q + 1) * ends[-1] / 4)).sum())
                 for q in range(4)]
-    log(f"window quarters: batches {quarters}")
+    gaps = np.diff(np.concatenate([[0.0], ends]))
+    host = win["host"]
+    log(f"window quarters: batches {quarters}; batch gaps: median {np.median(gaps) * 1e3:.2f} ms, "
+        f"longest {gaps.max() * 1e3:.2f} ms, over twice the median {int((gaps > 2 * np.median(gaps)).sum())}")
+    log(f"window host: this process's CPU {host['proc_cpu']:.3f} s, {host['full_gcs']} full "
+        f"collections; {len(os.sched_getaffinity(0))} CPUs, {torch.get_num_threads()} torch threads")
     log(f"window {win['stamps'][-1] - win['t0']:.3f} s, {len(win['stamps'])} batches; "
         f"reference and check {time.perf_counter() - t_ref:.3f} s (traced passes included; "
         f"by stage {', '.join(f'{k} {v:.3f}' for k, v in ref_s.items())})")

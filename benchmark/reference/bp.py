@@ -21,6 +21,12 @@ the leave-one-out product is, for a check of up to ``LARGE_DC`` slots,
 the product of the slots before it times the product, folded from the
 right, of the slots after it, and for a larger one the exp of the fold of
 log |tanh| less the slot's own, with the signs apart.
+
+With ``messages=torch.bfloat16`` every message is rounded to bfloat16
+where it is kept between the passes (the check-to-variable R, the
+variable-to-check Q) and all arithmetic stays float32, as the program's
+bf16 paths round: the control of a path without a lower precision of
+its own.
 """
 
 from __future__ import annotations
@@ -104,15 +110,19 @@ def check_messages(g: Graph, Q: torch.Tensor, sgn: torch.Tensor, clip: float) ->
 
 
 def decode(graph: Graph, syndromes: torch.Tensor, prior_llr: torch.Tensor, max_iter: int,
-           tanh_clip: float, chunk: int = 256):
+           tanh_clip: float, chunk: int = 256, messages: torch.dtype = torch.float32):
     """(posteriors (B, n) float32, converged (B,), iterations (B,) int32,
     hard (B, n) int8) of every sample, ``chunk`` samples at a time."""
-    outs = [_decode(graph, syndromes[s:s + chunk], prior_llr, max_iter, tanh_clip)
+    outs = [_decode(graph, syndromes[s:s + chunk], prior_llr, max_iter, tanh_clip, messages)
             for s in range(0, syndromes.shape[0], chunk)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _decode(g: Graph, syn: torch.Tensor, prior: torch.Tensor, max_iter: int, clip: float):
+def _decode(g: Graph, syn: torch.Tensor, prior: torch.Tensor, max_iter: int, clip: float,
+            messages: torch.dtype):
+    def kept(x):  # a message as it is kept between the passes
+        return x.to(messages).to(torch.float32)
+
     B, dev = syn.shape[0], syn.device
     syn = syn.to(torch.int32)
     prior = prior.to(device=dev, dtype=torch.float32)
@@ -121,16 +131,16 @@ def _decode(g: Graph, syn: torch.Tensor, prior: torch.Tensor, max_iter: int, cli
     hard = torch.zeros((B, g.n), dtype=torch.int8, device=dev)
     conv = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.full((B,), max_iter - 1, dtype=torch.int32, device=dev)
-    Q = torch.cat([prior, prior.new_zeros(1)])[g.var_of_slot].expand(B, g.dc, g.m).clone()
+    Q = kept(torch.cat([prior, prior.new_zeros(1)])[g.var_of_slot].expand(B, g.dc, g.m).clone())
     live = torch.arange(B, device=dev)
     for it in range(max_iter):
-        R = check_messages(g, Q, sgn[live], clip)
+        R = kept(check_messages(g, Q, sgn[live], clip))
         flat = torch.cat([R.reshape(len(live), -1), R.new_zeros(len(live), 1)], dim=1)
         vals = _fold(flat[:, g.slots_of_var]) + prior
         h = (vals < 0).to(torch.int8)
         ok = (g.parity(h) == syn[live]).all(-1)
         post[live], hard[live], iters[live], conv[live] = vals, h, it, ok
-        Q = torch.cat([vals, vals.new_zeros(len(live), 1)], dim=1)[:, g.var_of_slot] - R
+        Q = kept(torch.cat([vals, vals.new_zeros(len(live), 1)], dim=1)[:, g.var_of_slot] - R)
         keep = ~ok
         live, Q = live[keep], Q[keep]
         if not len(live):

@@ -1,18 +1,23 @@
 """The outcome counters of one batch, from the errors drawn, the syndrome,
 BP's convergence and iterations and the final correction.
 
-With residual r = e + final: a logical error is L r != 0 (BP + OSD counts
-the final correction; the residual logical is the same test), a
+With residual r = e + final: a logical error is L fold(r) != 0 (BP + OSD
+counts the final correction; the residual logical is the same test), a
 degeneracy a final correction that differs from e without a logical
-error, valid when it reproduces the syndrome; low weight is 2 |e| < d;
-OSD ran on every sample BP did not converge on. The histograms count the
-residual weight, clipped into the last of ``bins`` bins, of degeneracies
-and logical errors after BP alone and after OSD.
+error, valid when it reproduces the syndrome; low weight is
+2 |fold(e)| < d; OSD ran on every sample BP did not converge on. The
+histograms count the weight of fold(r), clipped into the last of ``bins``
+bins, of degeneracies and logical errors after BP alone and after OSD.
+``fold`` is the channel's map to the code's qubits (the identity where
+the variables are the qubits); the mismatch and the syndrome test read
+the whole vectors.
 """
 
 from __future__ import annotations
 
 import torch
+
+from benchmark.reference.channels import identity
 
 FIELDS = ("trials", "logical_errors", "residual_logicals", "bp_converged", "bp_faults",
           "osd_invocations", "miscorrected", "incorrectable", "degeneracies",
@@ -21,19 +26,21 @@ FIELDS = ("trials", "logical_errors", "residual_logicals", "bp_converged", "bp_f
 
 
 def counters(errors, final, syndromes, converged, iterations, L, parity, distance: int,
-             bins: int) -> dict:
+             bins: int, fold=identity) -> dict:
     """{field: int or (bins,) int64 tensor on the CPU}; ``parity`` maps
-    (B, n) bits to (B, m) syndromes."""
+    (B, n) bits to (B, m) syndromes, ``fold`` (B, n) bits to the (B, n')
+    bits that ``L`` and the weights read."""
     e, f = errors.to(torch.int64), final.to(torch.int64)
     r = (e + f) % 2
-    logical = ((r.to(torch.float32) @ L.T) % 2 != 0).any(-1)
+    net = fold(r)
+    logical = ((net.to(torch.float32) @ L.T) % 2 != 0).any(-1)
     conv = converged.to(torch.bool)
     mismatch = (e != f).any(-1)
     reproduced = parity(f)
     valid = (reproduced == syndromes.to(reproduced.dtype)).all(-1)
-    low = 2 * e.sum(-1) < distance
+    low = 2 * fold(e).sum(-1) < distance
     degenerate = ~logical & mismatch
-    weight = r.sum(-1).clamp(max=bins - 1)
+    weight = net.sum(-1).clamp(max=bins - 1)
 
     def hist(mask):
         return torch.bincount(weight[mask], minlength=bins).cpu()

@@ -93,3 +93,58 @@ def test_files_under_paths_are_named_from_name_characters():
             continue
         rel = path.relative_to(ROOT).as_posix()
         assert re.fullmatch(r"[A-Za-z0-9_./-]+", rel), rel
+
+
+def test_a_space_time_cell_needs_only_new_files(tmp_path, capsys):
+    """A space-time configuration, traffic mix and limits added as new files,
+    and entries in BENCHMARK.json, in a copy of the benchmark: no file the
+    benchmark had changes, the cell loads, its reference builds, and
+    ``calibrate.readings`` reads the program within the limits and its
+    control outside them."""
+    import shutil
+
+    from benchmark import calibrate
+    from benchmark.tests import tiny
+
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    config = tiny.st_config()
+    limits = json.loads((ROOT / "benchmark" / "limits" / "cc144_p050.json").read_text())
+    new = {
+        "benchmark/configs/bb72_st_bposd.json": config,
+        "benchmark/workloads/st_p0.03.json": {
+            "name": "st_p0.03", "p": 0.03, "why": "p = 0.03 over four rounds",
+            "check": {"drawn": 1, "within_first": 2}, "stage_reps": 2, "idle_batches": 2},
+        "benchmark/limits/st72_t4_p003.json": {"limits": limits["limits"], "readings": {}},
+    }
+    for rel, body in new.items():
+        assert not (tmp_path / rel).exists()
+        (tmp_path / rel).write_text(json.dumps(body, indent=2))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": config["name"], "source": config["source"],
+                             "file": "benchmark/configs/bb72_st_bposd.json", "reduced": [],
+                             "why": "space-time BP (K6) and OSD-0 on H_st"})
+    bench["workloads"].append({"name": "st72_t4_p003", "config": config["name"],
+                               "traffic": "st_p0.03", "chips": 1, "why": "T = 4, p = 0.03"})
+    for m in bench["per_layer"]:
+        if m["name"] != "k4g_lanes_per_batch":
+            m["workloads"].append("st72_t4_p003")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench, indent=2))
+    for path in (ROOT / "benchmark").rglob("*"):
+        if path.is_file() and "__pycache__" not in path.parts:
+            rel = path.relative_to(ROOT)
+            assert (tmp_path / rel).read_bytes() == path.read_bytes(), rel
+
+    cell = harness.load_cell("st72_t4_p003", root=tmp_path)
+    assert cell.config == config and cell.per_layer
+    assert {"setup_s", "trials_per_s"} <= {m["name"] for m in cell.end_to_end}
+    p = float(cell.traffic["p"])
+    ref = check.Reference(cell.config, p)
+    ref.place("cpu")
+    for control in (False, True):
+        engine = harness.build_engine(cell.config, "cpu", control=control, p=p)
+        calibrate.readings(cell, engine, ref, [2**33 + 777], control, None)
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines() if s.startswith("{")]
+    within = [all(line["numbers"][k] <= cell.limits["limits"][k] for k in check.NUMBERS)
+              for line in lines]
+    assert [line["control"] for line in lines] == [False, True] and within == [True, False]

@@ -33,7 +33,7 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_reference_imports_only_numpy_torch_and_itself():
-    for path in sorted((BENCH / "reference").glob("*.py")):
+    for path in sorted((BENCH / "reference").rglob("*.py")):
         assert _imports(path) <= {"__future__", "numpy", "torch", "benchmark"}, path
 
 

@@ -114,3 +114,94 @@ def test_classification_equals_the_engines_counters():
             continue
         assert np.array_equal(np.asarray(value), want[field].numpy()), field
     assert got["logical_errors"] > 0 and got["degeneracies"] > 0
+
+
+# ------------------------------------------------- the channels' problems
+def _engine_problem(kind, **spec):
+    """(config, p, engine) of the tiny cell ``kind``, its spec updated by
+    ``spec``, with its engine on the CPU."""
+    from benchmark import harness
+
+    c = tiny.cell(kind)
+    c.config["spec"].update(spec)
+    return c.config, float(c.traffic["p"]), harness.build_engine(c.config, "cpu")
+
+
+def _held_to_draws(ref, engine, p, seed=11):
+    """The engine's errors, syndromes and priors of batch 0 against the
+    reference's draws, parity and LLRs, bit for bit."""
+    key = port_rng.fold_in(port_rng.fold_in(port_rng.key(seed), hash(p) % 2**31), 0)
+    errors, syn, priors = engine._sample(key, p)
+    _, want = ref.draws(seed, 0, errors.shape[0])
+    assert torch.equal(errors != 0, want)
+    assert torch.equal(ref.graph.parity(errors), syn.to(torch.int32))
+    assert torch.equal(torch.as_tensor(priors).expand(ref.n), ref.llr)
+    return errors, syn, priors
+
+
+@pytest.mark.parametrize("kind", ["cc", "dem"])
+def test_channel_files_give_the_engines_problem(kind):
+    config, p, engine = _engine_problem(kind)
+    ref = check.Reference(config, p)
+    port = get_code("[[72, 12, 6]]")
+    if kind == "cc":
+        H, L = port.Hx, port.Lx
+        prior = torch.tensor(p, dtype=torch.float32)
+        llr = torch.log((1.0 - prior) / prior).expand(H.shape[1])
+        assert (ref.band, ref.distance) == (0.0, port.distance)
+    else:
+        dem = parametric_memory_dem(port, basis="z", rounds=2)
+        H, L = dem.H, dem.L
+        prior, llr = engine.priors(p)
+        assert (ref.band, ref.distance) == (2.0 ** -22, 0)
+    assert np.array_equal(ref.H, H) and ref.H.dtype == np.uint8
+    assert np.array_equal(ref.L, L)
+    assert torch.equal(ref.prior, prior) and torch.equal(ref.llr, llr)
+    bits = torch.randint(0, 2, (4, ref.n), dtype=torch.int8)
+    assert ref.fold(bits) is bits
+    ref.place("cpu")
+    _held_to_draws(ref, engine, p)
+
+
+def test_an_unknown_channel_names_the_file_looked_for():
+    config = dict(tiny.cell("cc").config, channel="phenomenological")
+    with pytest.raises(ValueError, match=r"channels/phenomenological\.py"):
+        check.Reference(config, 0.01)
+
+
+@pytest.mark.parametrize("flip_rate", [None, 0.02])
+def test_space_time_channel_is_the_engines(flip_rate):
+    from qldpc_tpu_torch.noise import spacetime as st
+
+    config, p, engine = _engine_problem("st", syndrome_flip_rate=flip_rate)
+    ref = check.Reference(config, p)
+    H = get_code("[[72, 12, 6]]").Hx
+    assert engine.n_rounds == 4
+    assert np.array_equal(ref.H, st.space_time_matrix(H, 4))
+    assert np.array_equal(ref.L, get_code("[[72, 12, 6]]").Lx)
+    assert (ref.band, ref.distance) == (0.0, 6)
+    q = p if flip_rate is None else flip_rate
+    assert torch.equal(ref.prior[: 4 * 72], torch.tensor(p, dtype=torch.float32).expand(288))
+    assert torch.equal(ref.prior[4 * 72:], torch.tensor(q, dtype=torch.float32).expand(144))
+    ref.place("cpu")
+    errors, syn, priors = _held_to_draws(ref, engine, p)
+    assert torch.equal(ref.fold(errors), st.fold_data_correction(errors, 72, 4).to(torch.int8))
+
+
+def test_space_time_folded_classification_equals_the_engines_counters():
+    config, p, engine = _engine_problem("st")
+    ref = check.Reference(config, 0.04)
+    ref.place("cpu")
+    key = port_rng.fold_in(port_rng.fold_in(port_rng.key(3), hash(0.04) % 2**31), 0)
+    errors, syn, priors = engine._sample(key, 0.04)
+    res = engine._decode(syn, priors, 1.0)
+    final, _ = engine._post_process(syn, res)
+    valid = torch.ones(errors.shape[0], dtype=torch.bool)
+    want = engine._classify(errors, final, syn, res, valid)._asdict()
+    got = classify.counters(errors, final, syn, res.converged, res.iterations, ref.L,
+                            ref.graph.parity, ref.distance, check.HIST_BINS, fold=ref.fold)
+    for field, value in got.items():
+        if field == "osd_overflow":
+            continue
+        assert np.array_equal(np.asarray(value), want[field].numpy()), field
+    assert got["bp_faults"] > 0 and got["logical_errors"] > 0 and got["degeneracies"] > 0
