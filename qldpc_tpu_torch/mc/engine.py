@@ -280,9 +280,10 @@ class MonteCarloEngine:
         residual = (errors_i + final_i) % 2
         if self.n_rounds:
             # the logical check and both weights see the net flip per qubit
-            residual = st.fold_data_correction(residual, self.n_qubits, self.n_rounds)
-            err_weight = st.fold_data_correction(
-                errors_i, self.n_qubits, self.n_rounds).sum(-1)
+            with span("classify.fold"):
+                residual = st.fold_data_correction(residual, self.n_qubits, self.n_rounds)
+                err_weight = st.fold_data_correction(
+                    errors_i, self.n_qubits, self.n_rounds).sum(-1)
         else:
             err_weight = errors_i.sum(-1)
         logical_vec = torch.remainder(residual.to(torch.float32) @ self._Lf.T, 2.0)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qldpc_tpu_torch.utils.profiling import count
+from qldpc_tpu_torch.utils.profiling import count, span
 from qldpc_tpu_torch.utils.rng import bernoulli, counter_uniform, split
 
 __all__ = [
@@ -106,7 +106,8 @@ def sample_space_time_counters(key, base: int, H, p, batch: int, n_rounds: int,
     count("host_syncs", 2)  # p's and q's copies to the device
     e = (u_all[:, : T * n].reshape(batch, T, n) < p32).to(torch.int8)
     u = (u_all[:, T * n:].reshape(batch, T, m) < q32).to(torch.int8)
-    return _detectors(e, u, Hf, batch, T)
+    with span("sample.detectors"):
+        return _detectors(e, u, Hf, batch, T)
 
 
 def fold_data_correction(v: torch.Tensor, n: int, n_rounds: int) -> torch.Tensor:

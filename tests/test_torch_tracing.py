@@ -28,6 +28,13 @@ def _cc_engine(batch=64):
     return eng
 
 
+def _st_engine():
+    """[[72]] space time over three rounds, BP(100) sum-product + OSD-0."""
+    cfg = EngineConfig(bp=BPConfig(max_iter=100, method="sum-product"), channel="space-time",
+                       n_rounds=3, batch_size=64)
+    return MonteCarloEngine(get_code("[[72, 12, 6]]"), cfg, device="cpu")
+
+
 def _past_the_block(monkeypatch, code="steane", rounds=3):
     """A memory DEM past K4's block with a column budget of rank(H): OSD-0
     takes the route ``factored+transform``, and at [[72]] over two rounds
@@ -114,6 +121,11 @@ def test_counters_are_the_same_with_and_without_a_profiler(factored_dem, tmp_pat
     plain = cc.run_rate(0.06, 128, seed=2)
     _profiled(lambda: got.append(cc.run_rate(0.06, 128, seed=2)), tmp_path)
     _same(plain, got[1])
+    st = _st_engine()  # its own spans open inside sample and classify
+    plain = st.run_rate(0.03, 192, seed=8)
+    assert int(plain.osd_invocations) > 0
+    _profiled(lambda: got.append(st.run_rate(0.03, 192, seed=8)), tmp_path)
+    _same(plain, got[2])
 
 
 def test_host_syncs_a_code_capacity_batch_are_its_sites():
@@ -161,3 +173,50 @@ def test_stage_times_add_no_counts():
     before = profiling.counts()
     eng.stage_times(0.06, reps=1)
     assert profiling.counts() == before
+
+
+def _batches_and_inner(spans):
+    """Each ``qldpc.batch`` span with the names of the spans inside it."""
+    return [(b, _inside(spans, b)) for b in spans if b[0] == "qldpc.batch"]
+
+
+def test_space_time_spans_lie_inside_their_stages(tmp_path):
+    """``qldpc.sample.detectors`` inside ``qldpc.sample`` and
+    ``qldpc.classify.fold`` inside ``qldpc.classify``, once each batch."""
+    eng = _st_engine()
+    spans = _profiled(lambda: eng.run_rate(0.03, 3 * 64, seed=6), tmp_path)
+    batches = _batches_and_inner(spans)
+    assert len(batches) == 3
+    for _, within in batches:
+        for outer, inner in (("qldpc.sample", "qldpc.sample.detectors"),
+                             ("qldpc.classify", "qldpc.classify.fold")):
+            stage = [s for s in within if s[0] == outer]
+            assert len(stage) == 1
+            assert [s[0] for s in within if s[0] == inner] == [inner]
+            assert [s[0] for s in _inside(within, stage[0]) if s[0] == inner] == [inner]
+
+
+def test_code_capacity_opens_neither_space_time_span(tmp_path):
+    eng = _cc_engine()
+    spans = _profiled(lambda: eng.run_rate(0.06, 2 * 64, seed=3), tmp_path)
+    names = {s[0] for s in spans}
+    assert "qldpc.sample" in names and "qldpc.classify" in names
+    assert not names & {"qldpc.sample.detectors", "qldpc.classify.fold"}
+
+
+@pytest.mark.parametrize("kind", ["space-time", "code-capacity"])
+def test_host_syncs_a_batch_are_unchanged_by_the_space_time_spans(kind, tmp_path):
+    """Space time: p's and q's copies, the priors' copy, the failure count,
+    its ``nonzero``, the overflow's copy (6); code capacity: p's copy, the
+    prior's, the failure count, its ``nonzero``, the overflow's (5). The
+    same under a profiler, where the spans open."""
+    eng, p, sites = (_st_engine(), 0.03, 6) if kind == "space-time" else (_cc_engine(), 0.06, 5)
+    for profiled in (False, True):
+        before = profiling.counts()
+        if profiled:
+            _profiled(lambda: eng.run_rate(p, 2 * 64, seed=4), tmp_path)
+        else:
+            eng.run_rate(p, 2 * 64, seed=4)
+        after = profiling.counts()
+        assert after["batches"] - before["batches"] == 2
+        assert after["host_syncs"] - before["host_syncs"] == 2 * sites
