@@ -7,8 +7,8 @@ Phases (any failure raises and the script exits non-zero):
   2. build the kernels K1 (fused BP), K2 (GF(2) elimination), K3 (DEM BP),
      K4 and K4g (transform GF(2) elimination, T in shared or global
      memory), K5a-d (factored GF(2) elimination), K6 (structured space-time
-     BP), K7 (layered BP) and K8 (the sampler's threefry2x32 counter
-     stream) with nvcc from qldpc_tpu_torch/ops/csrc/, one nvcc per source,
+     BP), K7 (layered BP), K8 (the sampler's threefry2x32 counter
+     stream) and K9 (classification) with nvcc from qldpc_tpu_torch/ops/csrc/, one nvcc per source,
      all at once;
   2b. K8 against the plain int64 counter stream at the benchmark's shapes
      (1,024 x 66,981, the [[144]] DEM; 65,536 x 144, code capacity), the
@@ -53,6 +53,11 @@ Phases (any failure raises and the script exits non-zero):
       of one OSD call on all of them (K5a's and K5c's running samples,
       columns before the block and µs logged per block); the factored OSD-0
       solutions against the plain transform elimination's on 32;
+  12b. K9 (classification) against the plain ``_classify`` on one batch of
+      each benchmark cell's shape (65,536 x 144, code capacity; 16,384 x
+      2,592, the [[144]] space time at T = 12; 1,024 x 66,981, phase 11's
+      DEM engine): every counter identical, its ms, device ms, the plain
+      version's ms on the card and the bound (the bytes it reads once);
   13. the DEM engine's sweep at p = 0.001 and 0.002 (launches K3 and K5a-d,
       never K4), held against docs/circuit_ler.md, and its counters held
       against the CPU DEM engine on 16 trials;
@@ -377,6 +382,12 @@ INT_OPS_PER_S = 64 * 132 * 1.98e9
 K8_OPS_PER_PAIR = 78
 # K8 at the benchmark's shapes: (samples, uniforms a sample)
 K8_SHAPES = {"dem": (1024, 66981), "code_capacity": (65536, 144)}
+# K9 at the benchmark's cells (phase 12b): the code-capacity batch at
+# p = 0.014360, the space-time batch at p = q = 0.004, the [[144]] DEM's at
+# p = 0.001
+K9_CC = dict(batch=65536, p=0.014360)
+K9_ST = dict(batch=16384, rounds=12, p=0.004, max_iter=100)
+K9_DEM_P = 0.001
 # float32 operations per real edge and BP iteration: the check rule (tanh,
 # the leave-one-out products or log/exp sums, clamp, atanh, scaling) and the
 # variable side (one add into the posterior, one subtraction per message)
@@ -489,13 +500,14 @@ def phase_build() -> None:
         osd_cuda,
         osd_factored_cuda,
         osd_transform_cuda,
+        classify_cuda,
         spacetime_bp_cuda,
         threefry_cuda,
     )
 
     libs = [m._LIB for m in (bp_cuda, osd_cuda, dem_bp_cuda, osd_transform_cuda,
                              osd_factored_cuda, spacetime_bp_cuda, bp_layered_cuda,
-                             threefry_cuda)]
+                             threefry_cuda, classify_cuda)]
     libs.append(osd_transform_cuda._GLOBAL_LIB)
 
     def build(lib):
@@ -554,6 +566,68 @@ def phase_k8(card_line: str) -> dict:
             f"{moved:.4g} bytes) on {card_line}")
         recs[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, shape=[B, stride], **b)
     return dict(recs["dem"], max_abs_err=0.0, code_capacity=recs["code_capacity"])
+
+
+def phase_k9(dev, card_line: str, dem_eng) -> dict:
+    """K9 against the plain ``_classify`` on one batch of each benchmark
+    cell's shape (its stages' outputs at the cell's p): every counter field
+    identical; its ms, device ms, the plain version's ms on the card and the
+    bound (errors, correction, syndrome and the per-sample bytes read once,
+    the counters written once)."""
+    from qldpc_tpu_torch.codes import get_code
+    from qldpc_tpu_torch.decoders import BPConfig
+    from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine
+    from qldpc_tpu_torch.ops.classify_cuda import launch_shape
+    from qldpc_tpu_torch.utils import rng
+
+    code = get_code(CODE)
+    engines = {
+        "code_capacity": (MonteCarloEngine(code, EngineConfig(
+            bp=BPConfig(max_iter=50), batch_size=K9_CC["batch"]), device=dev), K9_CC["p"]),
+        "space_time": (MonteCarloEngine(code, EngineConfig(
+            bp=BPConfig(max_iter=K9_ST["max_iter"]), channel="space-time",
+            n_rounds=K9_ST["rounds"], batch_size=K9_ST["batch"]), device=dev), K9_ST["p"]),
+        "dem": (dem_eng, K9_DEM_P),
+    }
+    recs = {}
+    for label, (eng, p) in engines.items():
+        errors, syn, priors = eng._sample(rng.fold_in(rng.key(2024), 9), p)
+        res = eng._decode(syn, priors, float(np.float32(eng.config.bp.alpha)))
+        final = eng._post_process(syn, res)[0]
+        B = errors.shape[0]
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+
+        def kernel():
+            return eng._classify(errors, final, syn, res, valid)
+
+        def plain():
+            return eng._classify_plain(errors, final, syn, res, valid)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        for name, g, w in zip(got._fields, got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K9 {label}: {name} differs from the plain version")
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, reps=20)
+        plain_ms = cuda_ms(plain, reps=5)
+        moved = nbytes(errors, final, syn, res.converged, res.iterations, valid) + nbytes(*got)
+        b = bound(moved, 0.0)
+        warps, unroll = launch_shape(eng.n_vars)
+        log(f"K9 {label} {B} x {eng.n_vars} (m {eng.m_checks}, T {eng._k9.T}): every "
+            f"counter identical ({int(got.logical_errors)} logical errors, "
+            f"{int(got.degeneracies)} degeneracies); {warps} warp(s) a sample, {unroll} word(s) a "
+            f"thread a step; "
+            f"{ms:.4f} ms ({dev_ms:.4f} on the device, {moved / dev_ms * 1e-9:.3f} TB/s read); "
+            f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+            f"{moved:.4g} bytes) on {card_line}")
+        recs[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           shape=[B, eng.n_vars], **b)
+        del errors, syn, priors, res, final, got, want
+    del engines
+    torch.cuda.empty_cache()
+    return dict(recs["code_capacity"], max_abs_err=0.0, space_time=recs["space_time"],
+                dem=recs["dem"])
 
 
 def sample(H: np.ndarray, p: float, B: int, seed: int):
@@ -676,7 +750,7 @@ def phase_engine(dev, card_line: str) -> dict:
     from qldpc_tpu_torch.codes import get_code
     from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
     from qldpc_tpu_torch.mc import EngineConfig, MonteCarloEngine
-    from qldpc_tpu_torch.ops import bp_cuda, osd_cuda, threefry_cuda
+    from qldpc_tpu_torch.ops import bp_cuda, classify_cuda, osd_cuda, threefry_cuda
 
     trials = ENGINE_TRIALS
     eng = MonteCarloEngine(
@@ -690,12 +764,14 @@ def phase_engine(dev, card_line: str) -> dict:
     bp_cuda.bp_flooding_cuda.launches = 0
     osd_cuda.eliminate_ordered_cuda.launches = 0
     threefry_cuda.counter_uniform_cuda.launches = 0
+    classify_cuda.classify_cuda.launches = 0
     res = eng.sweep(rates, trials=trials)
     torch.cuda.synchronize()
     launches = {
         "bp_flooding": bp_cuda.bp_flooding_cuda.launches,
         "gf2_elim": osd_cuda.eliminate_ordered_cuda.launches,
         "threefry_uniform": threefry_cuda.counter_uniform_cuda.launches,
+        "classify": classify_cuda.classify_cuda.launches,
     }
     for p, d in zip(rates, res.per_rate):
         scalars = {k: v for k, v in d.items() if not isinstance(v, np.ndarray)}
@@ -3088,6 +3164,7 @@ def main() -> int:
     k3, failures144 = timed(phase_k3, eng144, dev, rates=(0.002,), methods=("sum-product",))
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_72["max_abs_err"])
     k5 = timed(phase_k5, eng144, failures144)
+    k9 = timed(phase_k9, dev, card_line, eng144)
     k5_wrappers = {name: getattr(osd_factored_cuda, f"{name}_cuda") for name in K5_NAMES}
     dem144_launches = timed(phase_dem_engine, eng144, card_line, DEM144_REF,
                             {"dem_bp": k3_wrapper, **k5_wrappers},
@@ -3169,6 +3246,10 @@ def main() -> int:
         # its launches: phase 5's sweep, one a batch
         ("threefry_uniform", "threefry_uniform.cu", "none (qldpc_tpu/utils/rng.py:48, XLA)",
          launches["threefry_uniform"], k8),
+        # K9 replaces no Pallas kernel: the JAX classification is XLA code;
+        # its launches: phase 5's sweep, one a batch
+        ("classify", "classify.cu", "none (qldpc_tpu/mc/engine.py _classify, XLA)",
+         launches["classify"], k9),
     ]
     # K1 where samples iterate, K2's packed-rows entry and its launches on
     # the OSD-e path, K4 on the space-time failures and on the OSD-e path, K5
@@ -3177,7 +3258,7 @@ def main() -> int:
     extra = ("at_p_0_050119", "rows", "osde_rows", "h_st", "osde", "at_288",
              "f32_device_ms", "message_device_ms", "lanes", "stage_ms", "cluster", "t_smem",
              "no_pivot_panels", "osde_launches", "osd0_288", "past_9312", "shape",
-             "code_capacity")
+             "code_capacity", "space_time", "dem")
     kernels = [
         dict(name=name, route="cuda", source=f"qldpc_tpu_torch/ops/csrc/{src}",
              replaces=replaces, launches=count, max_abs_err=rec["max_abs_err"],

@@ -93,6 +93,7 @@ class DEMEngine(MonteCarloEngine):
             vos, self._dc_parity = parity_tables(dem.H)
             self._vos_parity = torch.from_numpy(vos.astype(np.int64)).to(dev)
         self._Lf = torch.tensor(np.asarray(dem.L) % 2, dtype=torch.float32, device=dev)
+        self._k9 = self._classify_tables(dem.H, dem.L, self.n_vars, 0)
         # one uniform per mechanism: the largest stride of any engine
         self._check_counter_space(self.n_vars)
         self._parametric = isinstance(dem, ParametricDEM)

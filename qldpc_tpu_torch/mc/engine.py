@@ -2,7 +2,8 @@
 
 Port of qldpc_tpu/mc/engine.py: per batch, counter-mode RNG draws the
 errors, the syndrome is computed, BP decodes, OSD-0 runs on the samples BP
-did not converge, and every sample is classified into the counters.
+did not converge, and every sample is classified into the counters (on a
+card by one kernel, K9: ``ops/classify_cuda.py``).
 
 The batch keys are the JAX engine's: ``fold_in(fold_in(key(seed),
 hash(p) % 2**31), b)`` for batch b, with global sample ids starting at 0,
@@ -39,6 +40,7 @@ mesh ``run_rates_sharded`` splits the rate grid over the rate groups.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import ClassVar
@@ -57,6 +59,7 @@ from qldpc_tpu_torch.mc.metrics import (
 )
 from qldpc_tpu_torch.noise import channels as ch
 from qldpc_tpu_torch.noise import spacetime as st
+from qldpc_tpu_torch.ops import classify_cuda
 from qldpc_tpu_torch.parallel.mesh import Mesh, make_mesh
 from qldpc_tpu_torch.utils import profiling, rng
 from qldpc_tpu_torch.utils.profiling import count, span
@@ -164,6 +167,7 @@ class MonteCarloEngine:
         )
         self._Hf = torch.tensor(np.asarray(H_dec) % 2, dtype=torch.float32, device=self.device)
         self._Lf = torch.tensor(np.asarray(L) % 2, dtype=torch.float32, device=self.device)
+        self._k9 = self._classify_tables(H_dec, L, self.n_qubits, self.n_rounds)
         # space-time's n*T + m*T variables are its draws
         self._check_counter_space(self.n_vars + (
             self.m_checks if config.channel == "phenomenological" else 0
@@ -181,6 +185,7 @@ class MonteCarloEngine:
         self.local_batch = config.batch_size // self.mesh.batch_shards
         self.base = self.mesh.batch_rank * self.local_batch
         self.k_osd = max(1, int(round(self.local_batch * config.osd_fraction)))
+        self._all_valid = torch.ones(self.local_batch, dtype=torch.bool, device=self.device)
 
     def _bp_decoders(self, H):
         """The BP decoder, and the short one of ``rescue_iters`` (or None):
@@ -197,6 +202,14 @@ class MonteCarloEngine:
         if 0 < cfg.rescue_iters < cfg.bp.max_iter:
             short = make(dataclasses.replace(cfg.bp, max_iter=cfg.rescue_iters))
         return make(cfg.bp), short
+
+    def _classify_tables(self, H_dec, L, n_qubits: int, n_rounds: int):
+        """K9's tables of the decoding problem on a card; None on the CPU,
+        which classifies with the plain version."""
+        if self.device.type != "cuda":
+            return None
+        return classify_cuda.classify_tables(H_dec, L, n_qubits, n_rounds, self.distance,
+                                             self.device)
 
     def _check_counter_space(self, stride: int) -> None:
         """One batch draws ``batch_size * ceil(stride / 2)`` counter pairs;
@@ -272,8 +285,24 @@ class MonteCarloEngine:
             final[sel] = self.osd(syn[sel], bp_res.llrs[sel], bp_res.hard[sel])
         return final, max(n_fail - self.k_osd, 0)
 
-    def _classify(self, errors, final, syn, bp_res: BPResult, valid) -> Counters:
-        """Outcome taxonomy of the JAX engine's ``_classify``."""
+    def _classify(self, errors, final, syn, bp_res: BPResult, valid, *,
+                  overflow: int = 0) -> Counters:
+        """Outcome taxonomy of the JAX engine's ``_classify``: K9 on a card
+        (``ops/classify_cuda.py``), the plain version on the CPU. ``valid``
+        is the (B,) bool mask of the samples that count; ``overflow`` is the
+        batch's ``osd_overflow``."""
+        if self.device.type != "cuda":
+            return self._classify_plain(errors, final, syn, bp_res, valid, overflow=overflow)
+        # K9 folds the data rounds: the fold's span is its launch
+        with span("classify.fold") if self.n_rounds else contextlib.nullcontext():
+            return classify_cuda.classify_cuda(
+                self._k9, errors, final, syn, bp_res.converged, bp_res.iterations, valid,
+                overflow, bp_only=self.osd is None)
+
+    def _classify_plain(self, errors, final, syn, bp_res: BPResult, valid, *,
+                        overflow: int = 0) -> Counters:
+        """``_classify`` in torch, on any device: the CPU's path and K9's
+        reference."""
         conv = bp_res.converged
         errors_i = errors.to(torch.int32)
         final_i = final.to(torch.int32)
@@ -305,7 +334,6 @@ class MonteCarloEngine:
             h = torch.zeros(HIST_BINS, dtype=torch.int64, device=self.device)
             return h.index_add_(0, w, (mask & valid).to(torch.int64))
 
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
         return Counters(
             trials=valid.sum(dtype=torch.int64),
             logical_errors=cnt(logical),
@@ -318,7 +346,7 @@ class MonteCarloEngine:
             degeneracies=cnt(degenerate),
             valid_degenerate=cnt(degenerate & sol_valid),
             osd_and_logical=cnt(logical & ~conv),
-            osd_overflow=zero,
+            osd_overflow=torch.tensor(overflow, dtype=torch.int64, device=self.device),
             sum_iterations=torch.where(
                 valid, bp_res.iterations, 0
             ).sum(dtype=torch.int64),
@@ -342,13 +370,15 @@ class MonteCarloEngine:
         else:
             final, overflow = bp_res.hard, 0
         with span("classify"):
-            ids = self.base + torch.arange(self.local_batch, device=self.device)
-            valid = ids < n_valid
-            counters = self._classify(errors, final, syn, bp_res, valid)
-            count("host_syncs")  # the overflow's copy to the device
-            return counters._replace(
-                osd_overflow=torch.tensor(overflow, dtype=torch.int64, device=self.device)
-            )
+            k = n_valid - self.base  # the samples of this slice that count
+            valid = self._all_valid if k >= self.local_batch else (
+                torch.arange(self.local_batch, device=self.device) < k)
+            if self.device.type != "cuda":
+                count("host_syncs")  # the plain version's copy of the overflow to the device
+            # without an overflow, the five-argument call that the benchmark's
+            # fault-injection tests wrap
+            extra = {"overflow": overflow} if overflow else {}
+            return self._classify(errors, final, syn, bp_res, valid, **extra)
 
     def stage_times(self, p: float, reps: int = 5) -> dict:
         """Median wall milliseconds of each stage of one batch at ``p``:
