@@ -61,7 +61,6 @@ Phases (any failure raises and the script exits non-zero):
   13. the DEM engine's sweep at p = 0.001 and 0.002 (launches K3 and K5a-d,
       never K4), held against docs/circuit_ler.md, and its counters held
       against the CPU DEM engine on 16 trials;
-  14. steady-state trials/s of the DEM engine;
   14b. K3's bf16-stream instances (``stream_dtype="bfloat16"``) on the
       batch of phase 11, sum-product and min-sum, against the plain version
       in bf16 (K3's standard) and summary path against message path bit for
@@ -85,8 +84,7 @@ Phases (any failure raises and the script exits non-zero):
       batch of 1,024 at p = 0.002, with ``--set osd_order=7`` and with 0 at
       the same seed: equal counters (in-image syndromes: OSD-e is OSD-0
       after the consistency test; K5a-d launch, and K4g as often under both
-      orders, on samples past the factored column budget), the OSD stage's
-      ms under both;
+      orders, on samples past the factored column budget);
   space-time, [[144,12,12]] at T = 12 (H_st 864 x 2592), the space-time
   preset's BP(100) + OSD-0 at batch 512:
   15. K6 (one sample over a cluster of blocks) against its plain torch
@@ -100,7 +98,6 @@ Phases (any failure raises and the script exits non-zero):
       K4, never K2), its counters held against the CPU engine on small
       inputs and against the JAX engine's recorded ones (min-sum identical,
       sum-product LER and OSD rate within 4 sigma);
-  18. steady-state trials/s of the space-time engine;
   layered schedule, code capacity [[144,12,12]], BP(50) + OSD-0:
   19. K7 (one warp a sample, samples from a work counter) against its plain
       torch version, B = 65,536, p = 0.050119, and both per-call times;
@@ -124,15 +121,14 @@ Phases (any failure raises and the script exits non-zero):
       0.003 through run_experiment with the preset's OSD-0 (float32
       streams): K5a-d on every BP failure, K4g on those past the factored
       column budget, which the JAX lanes path (no budget) solves too (obs-err
-      and logical errors, OSD rate, K4g's launches and lanes, peak memory,
-      stage times with the OSD stage's ms; K4g's launches there are the
-      kernels line's); K3 against its plain version on 256 samples of a
-      batch (sum-product and min-sum), K5a-d against their plain versions at
-      blocks 0 and 1 of one OSD call; on a second batch's BP failures, those
-      past the budget counted, K4g on them against its plain version (T, b,
-      rank, piv bit for bit) and timed, the decoder's solutions on them
-      equal to the plain transform's OSD-0 and each satisfying its
-      syndrome (``osd0_288`` in K4g's row); K5's device ms over a whole OSD
+      and logical errors, OSD rate, K4g's launches and lanes, peak memory;
+      K4g's launches there are the kernels line's); K3 against its plain
+      version on 256 samples of a batch (sum-product and min-sum), K5a-d
+      against their plain versions at blocks 0 and 1 of one OSD call; on a
+      second batch's BP failures, those past the budget counted, K4g on
+      them against its plain version (T, b, rank, piv bit for bit) and
+      timed, the decoder's solutions on them equal to the plain transform's
+      OSD-0 and each satisfying its syndrome (``osd0_288`` in K4g's row); K5's device ms over a whole OSD
       call and K5a's and K5b's products as float16 ``torch.bmm`` over the
       same blocks (``at_288`` in K5's rows of the kernels line);
   23b. OSD-e(7) past K4's block on 4 BP failures of phase 23's engine, as
@@ -163,8 +159,7 @@ Phases (any failure raises and the script exits non-zero):
       K2's packed-rows loader on the inconsistent BP failures against its
       plain version (A, b, piv) and the ordered loader's (b, piv), the card's
       OSD-e solutions against the CPU's on 512, every cost at most OSD-0's,
-      the search's and the OSD-e stage's ms, peak memory and the batch's
-      stage times; then the
+      the search's and the OSD-e stage's ms and peak memory; then the
       engine's counters on 512 trials against the JAX engine's (K1 and both
       K2 loaders launch);
   27. OSD-e(7) on the transform path: the [[72]] DEM's BP failures at
@@ -203,10 +198,10 @@ launches on the OSD-e path (phase 27), and K5a-d's their device ms over one
 OSD call at the [[288]] DEM (phase 23). The row ``gf2_transform_elim_global``
 is K4g, which computes the JAX package's XLA transform elimination
 (qldpc_tpu/decoders/osd.py:492), not a Pallas kernel: its launches are
-OSD-0's in phase 23's run (``osd0_288``: its lanes there, the OSD stage's
-ms, and K4g's times on a second batch's samples past the budget), its
-times phase 14c's (``osde_launches``: the OSD-e stage's there) and, under
-``at_288`` and ``past_9312``, phase 23b's and 23c's.
+OSD-0's in phase 23's run (``osd0_288``: its lanes there and K4g's times
+on a second batch's samples past the budget), its times phase 14c's
+(``osde_launches``: the OSD-e stage's there) and, under ``at_288`` and
+``past_9312``, phase 23b's and 23c's.
 K5a's and K5b's rows hold ``library_ms``: the same GF(2) products as
 ``torch.bmm`` of the unpacked 0/1 operands in float16, accumulated in
 float32, summed over one OSD call (phase 12; at the [[288]] DEM under
@@ -235,6 +230,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+from benchmark.roofline import HBM_BYTES_PER_S, PEAK_F32_OPS_PER_S
 
 CODE = "[[144, 12, 12]]"
 # BP(50)+OSD-0 LER of [[144,12,12]] at p = 0.050119 in the reference's
@@ -371,8 +368,6 @@ MESH_TIMEOUT = 300  # seconds, for one multi-process launch
 MESH_CLI_ARGS = ["run", "study", "--codes", CODE, "--trials", str(2 * ENGINE_BATCH),
                  "--batch-size", str(ENGINE_BATCH), "--error-rates", "0.03", str(REF_P)]
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS_PER_S = 67e12  # float32 outside the tensor cores
 # the H100 SXM's 32-bit integer rate: 64 INT32 lanes an SM, 132 SMs, at its
 # 1,980 MHz boost clock
 INT_OPS_PER_S = 64 * 132 * 1.98e9
@@ -457,7 +452,7 @@ def popcount(words: torch.Tensor) -> int:
     return int((((v * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
 
 
-def bound(moved: float, ops: float, peak: float = PEAK_OPS_PER_S) -> dict:
+def bound(moved: float, ops: float, peak: float = PEAK_F32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate, whichever is larger."""
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
@@ -1503,12 +1498,6 @@ def phase_k5(eng, failures: dict, reps: int = 3) -> dict:
     return records
 
 
-def phase_dem144_throughput(eng, card_line: str) -> None:
-    for p in DEM144_REF:
-        log(f"DEM engine steady state {eng.code.name} p={p}: "
-            f"{steady_rate(eng, p, 4 * DEM_BATCH):.1f} trials/s with K3 and K5a-d, "
-            f"on {card_line}")
-
 K3_MESSAGE_SPLIT = ("dem_check_kernel", "dem_var_kernel", "dem_syndrome_kernel",
                     "dem_freeze_kernel", "dem_init")
 
@@ -1825,14 +1814,6 @@ def phase_st_engine_checks(dev) -> None:
         f"BP faults {got['BPs_fault']}, OSD histogram {got['weights_found_OSD']})")
     if differ:
         raise AssertionError(f"the space-time counters differ from the JAX engine's: {differ}")
-
-
-def phase_st_throughput(dev, card_line: str) -> None:
-    eng = st_engine(dev)
-    steady_rate(eng, ST_RATES[0], ST_BATCH)  # warm
-    for p in ST_RATES:
-        log(f"space-time engine steady state {ST_CODE} T={ST_ROUNDS} p={p}: "
-            f"{steady_rate(eng, p, 4 * ST_BATCH):.1f} trials/s with K6 and K4, on {card_line}")
 
 
 def phase_k7(H: np.ndarray, dev) -> dict:
@@ -2276,10 +2257,6 @@ def phase_dem288(dev, card_line: str, out_dir: str) -> dict:
     if osd.config.order or osd.elimination != "factored+transform" or k4g_launches < 1:
         raise AssertionError("[[288]] DEM OSD-0 did not send the samples past the factored "
                              "budget through K4g")
-    stages = eng.stage_times(DEM288_P, reps=2)
-    log(f"  [[288]] DEM batch stages (ms, median of 2 after a warm one, each ending in a "
-        f"synchronize): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
-        + f"; total {sum(stages.values()):.1f}")
     _, syn, llr = eng._sample(rng.key(7), DEM288_P)
     for method in ("sum-product", "min-sum"):
         k3_held(eng, syn[:K3_288_LANES], llr, dataclasses.replace(eng.bp.config, method=method),
@@ -2290,7 +2267,7 @@ def phase_dem288(dev, card_line: str, out_dir: str) -> dict:
     resid = osd._residual(syn, hard.to(torch.int32))
     overflow = osd_factored_cuda.eliminate_factored_cuda(order, resid, osd.Hc, osd.h_rank,
                                                          osd.max_cols)[3]
-    rec = dict(stage_ms=stages["osd"], past_budget=int(overflow.sum()),
+    rec = dict(past_budget=int(overflow.sum()),
                bp_failures=len(syn), logical_errors=round(d["ler"] * d["trials"]),
                run_launches=k4g_launches, run_lanes=sum(taken))
     over = torch.nonzero(overflow).flatten()
@@ -2670,8 +2647,6 @@ def phase_osde_rows(dev, card_line: str) -> dict:
         f"{int((sol != osd0).any(dim=1).sum())}; costing more than OSD-0's: {int(worse.sum())}")
     if bool(worse.any()):
         raise AssertionError("an OSD-e solution costs more than the OSD-0 one")
-    stages = eng.stage_times(PH_P, reps=3)
-    log(f"  the batch's stages, median ms of 3: {json.dumps(stages)}")
     k = min(OSDE_CPU_LANES, len(syn_f))
     cpu = OSDDecoder(get_code(PH_CODE).Hx, OSDConfig(order=PH_ORDER))
     t0 = time.perf_counter()
@@ -2995,12 +2970,10 @@ def phase_cli_osde(dev, card_line: str, out_dir: str) -> None:
         if code != 0:
             raise AssertionError(f"the CLI exited {code}")
         eng = engines[0]
-        stages = eng.stage_times(OSDE_WIDE_P, reps=2)
         res[order] = load_results(f"{out_dir}/o{order}/complete-bposd.npz")[DEM144_CODE][OSDE_WIDE_P]
         log(f"CLI complete-bposd {DEM144_CODE} DEM, osd_order={order}, one batch of {DEM_BATCH} at "
             f"p={OSDE_WIDE_P}: {wall:.1f} s (the DEM build included), route "
-            f"{eng.osd.elimination}, launches {json.dumps(launches)}; a batch's stages, median ms "
-            f"of 2: {json.dumps(stages)} on {card_line}")
+            f"{eng.osd.elimination}, launches {json.dumps(launches)}, on {card_line}")
         if launches["factored_y"] < 1:
             raise AssertionError("the CLI's OSD did not take K5 on in-image syndromes")
         k4g_launches[order] = launches["gf2_transform_elim_global"]
@@ -3171,7 +3144,6 @@ def main() -> int:
                             {"gf2_transform_elim": k4_wrapper})
     timed(phase_dem_engine_vs_cpu, dev, DEM144_CPU_TRIALS, code=DEM144_CODE,
           rounds=DEM144_ROUNDS)
-    timed(phase_dem144_throughput, eng144, card_line)
     k3_bf16 = timed(phase_k3_bf16, eng144, dev, card_line)
     k4g = timed(phase_osde_wide, eng144, card_line, OSDE_WIDE_P, OSDE_WIDE_LANES,
                 OSDE_WIDE_CPU_LANES)
@@ -3184,7 +3156,6 @@ def main() -> int:
     k4["h_st"] = timed(phase_st_osd, dev, st_failures)
     st_launches = timed(phase_st_engine, dev, card_line)
     timed(phase_st_engine_checks, dev)
-    timed(phase_st_throughput, dev, card_line)
 
     k7 = timed(phase_k7, H, dev)
     layered_launches = timed(phase_layered_engine, dev, card_line)

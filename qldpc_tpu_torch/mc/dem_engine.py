@@ -31,8 +31,7 @@ import numpy as np
 import torch
 
 from qldpc_tpu_torch.ops.tanner import parity_tables
-from qldpc_tpu_torch.decoders.osd import OSDDecoder
-from qldpc_tpu_torch.mc.engine import EngineConfig, MonteCarloEngine, engine_device
+from qldpc_tpu_torch.mc.engine import EngineConfig, MonteCarloEngine
 from qldpc_tpu_torch.mc.metrics import counters_to_dict
 from qldpc_tpu_torch.noise.circuit import ParametricDEM
 from qldpc_tpu_torch.noise.dem import DEMData
@@ -67,7 +66,6 @@ class DEMEngine(MonteCarloEngine):
     def __init__(self, dem: DEMData | ParametricDEM,
                  config: DEMEngineConfig = DEMEngineConfig(),
                  device="cuda", name: str = "dem", mesh: Mesh | None = None):
-        dev = engine_device(device)
         if not isinstance(dem, (DEMData, ParametricDEM)):
             raise TypeError(
                 f"expected the port's DEMData or ParametricDEM, got {type(dem)!r}; "
@@ -78,24 +76,18 @@ class DEMEngine(MonteCarloEngine):
             config = DEMEngineConfig(**{**fields, "channel": "dem"})
         self.dem = dem
         self.code = _DEMCodeShim(name=name)
-        self.config = config
-        self.device = dev
-        self._shard(config, mesh)
-        self.m_checks, self.n_vars = dem.H.shape
-        self.distance = 0  # every logical error is "incorrectable"
-        self.n_rounds = 0  # the DEM's rounds are in its H: no data folding
-        self.bp, self.bp_short = self._bp_decoders(dem.H)
-        self.osd = OSDDecoder(dem.H, config.osd).to(dev) if config.osd is not None else None
+        # every logical error is "incorrectable" (distance 0), and the DEM's
+        # rounds are in its H (no data folding); one uniform per mechanism
+        n = dem.H.shape[1]
+        self._set_problem(config, device, mesh, dem.H, dem.H, dem.L, n_qubits=n, distance=0,
+                          n_rounds=0, draws=n)
+        dev = self.device
         if self.osd is not None and self.osd.elimination != "rows":
             # the OSD decoder's residual uses the same gather-parity tables
             self._vos_parity, self._dc_parity = self.osd.vos_parity, self.osd.dc_parity
         else:
             vos, self._dc_parity = parity_tables(dem.H)
             self._vos_parity = torch.from_numpy(vos.astype(np.int64)).to(dev)
-        self._Lf = torch.tensor(np.asarray(dem.L) % 2, dtype=torch.float32, device=dev)
-        self._k9 = self._classify_tables(dem.H, dem.L, self.n_vars, 0)
-        # one uniform per mechanism: the largest stride of any engine
-        self._check_counter_space(self.n_vars)
         self._parametric = isinstance(dem, ParametricDEM)
         if self._parametric:
             self._ratios = torch.tensor(dem.ratios, dtype=torch.float32)

@@ -143,35 +143,41 @@ class MonteCarloEngine:
     alone)."""
 
     def __init__(self, code, config: EngineConfig, device="cuda", mesh: Mesh | None = None):
-        self.device = engine_device(device)
-        self._shard(config, mesh)
         self.code = code
-        self.config = config
         H = code.Hx if config.basis == "x" else code.Hz
         L = code.Lx if config.basis == "x" else code.Lz
-        self.n_qubits = H.shape[1]
-        self.distance = code.distance
+        n_rounds, H_dec = 0, H
         if config.channel == "space-time":
-            self.n_rounds = config.n_rounds or max(code.distance, 1)
-            H_dec = st.space_time_matrix(H, self.n_rounds)
+            n_rounds = config.n_rounds or max(code.distance, 1)
+            H_dec = st.space_time_matrix(H, n_rounds)
+        # space-time's n*T + m*T variables are its draws
+        draws = H_dec.shape[1] + (H_dec.shape[0] if config.channel == "phenomenological" else 0)
+        self._set_problem(config, device, mesh, H, H_dec, L, n_qubits=H.shape[1],
+                          distance=code.distance, n_rounds=n_rounds, draws=draws)
+        self._Hf = torch.tensor(np.asarray(H_dec) % 2, dtype=torch.float32, device=self.device)
+        if n_rounds:
             self._H_space = torch.tensor(np.asarray(H) % 2, dtype=torch.float32,
                                          device=self.device)
-        else:
-            self.n_rounds = 0
-            H_dec = H
-        self.bp, self.bp_short = self._bp_decoders(H)
+
+    def _set_problem(self, config: EngineConfig, device, mesh: Mesh | None, H_bp, H_dec, L, *,
+                     n_qubits: int, distance: int, n_rounds: int, draws: int) -> None:
+        """Everything the batch loop reads of a decoding problem, for every
+        engine: BP decodes ``H_bp`` (space-time: T rounds of it), OSD and the
+        classification ``H_dec``, and a sample takes ``draws`` uniforms. A
+        batch past the counter space is refused before anything is built."""
+        self.device = engine_device(device)
+        self.config = config
+        self._check_counter_space(draws)
+        self._shard(config, mesh)
+        self.n_qubits, self.distance, self.n_rounds = n_qubits, distance, n_rounds
         self.m_checks, self.n_vars = H_dec.shape
+        self.bp, self.bp_short = self._bp_decoders(H_bp)
         self.osd = (
             OSDDecoder(H_dec, config.osd).to(self.device)
             if config.osd is not None else None
         )
-        self._Hf = torch.tensor(np.asarray(H_dec) % 2, dtype=torch.float32, device=self.device)
         self._Lf = torch.tensor(np.asarray(L) % 2, dtype=torch.float32, device=self.device)
-        self._k9 = self._classify_tables(H_dec, L, self.n_qubits, self.n_rounds)
-        # space-time's n*T + m*T variables are its draws
-        self._check_counter_space(self.n_vars + (
-            self.m_checks if config.channel == "phenomenological" else 0
-        ))
+        self._k9 = self._classify_tables(H_dec, L, n_qubits, n_rounds)
 
     def _shard(self, config: EngineConfig, mesh: Mesh | None) -> None:
         """This process's slice of every batch: ``local_batch`` samples from
@@ -379,34 +385,6 @@ class MonteCarloEngine:
             # fault-injection tests wrap
             extra = {"overflow": overflow} if overflow else {}
             return self._classify(errors, final, syn, bp_res, valid, **extra)
-
-    def stage_times(self, p: float, reps: int = 5) -> dict:
-        """Median wall milliseconds of each stage of one batch at ``p``:
-        sampling, BP, OSD-0 post-processing, classification, each ending in
-        a device synchronize (on a card); the first of ``reps + 1`` batches
-        warms the caches."""
-        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
-        a32 = float(np.float32(self.config.bp.alpha))
-        kp = rng.fold_in(rng.key(0), hash(p) % (2**31))
-        valid = torch.ones(self.local_batch, dtype=torch.bool, device=self.device)
-        rows = []
-        for b in range(reps + 1):
-            t = [time.perf_counter()]
-            errors, syn, priors = self._sample(rng.fold_in(kp, b), p)
-            sync()
-            t.append(time.perf_counter())
-            bp_res = self._decode(syn, priors, a32)
-            sync()
-            t.append(time.perf_counter())
-            final = self._post_process(syn, bp_res)[0] if self.osd is not None else bp_res.hard
-            sync()
-            t.append(time.perf_counter())
-            self._classify(errors, final, syn, bp_res, valid)
-            sync()
-            t.append(time.perf_counter())
-            rows.append(np.diff(t) * 1e3)
-        med = np.median(np.array(rows[1:]), axis=0)
-        return dict(zip(("sample", "bp", "osd", "classify"), med.tolist()))
 
     # ------------------------------------------------------------------ run
     def _local_counters(self, p: float, trials: int, seed: int, alpha: float | None,

@@ -98,20 +98,21 @@ def test_sweep_matches_per_rate_runs():
     assert res.curve("trials").tolist() == [100, 100]
 
 
-@pytest.mark.parametrize("with_osd", [False, True])
-def test_stage_times_cover_every_stage_of_a_batch(with_osd):
-    """stage_times runs a batch stage by stage on the CPU: four finite,
-    non-negative wall times, and the engine's counters are unchanged."""
-    cfg = EngineConfig(bp=PortBPConfig(max_iter=20), osd=PortOSDConfig(order=0) if with_osd else None,
-                       batch_size=64)
-    eng = MonteCarloEngine(port_code("steane"), cfg, device="cpu")
-    before = counters_to_dict(eng.run_rate(0.05, 128, seed=2))
-    st = eng.stage_times(0.05, reps=2)
-    assert list(st) == ["sample", "bp", "osd", "classify"]
-    assert all(np.isfinite(v) and v >= 0 for v in st.values())
-    after = counters_to_dict(eng.run_rate(0.05, 128, seed=2))
-    for k in before:
-        np.testing.assert_array_equal(before[k], after[k], err_msg=k)
+@pytest.mark.parametrize("channel", ["code-capacity", "doubled", "phenomenological", "space-time"])
+def test_a_batch_past_the_counter_space_is_refused_before_anything_is_built(channel, monkeypatch):
+    """Steane's 7 to 30 draws a sample at 2^30 samples pass 2^32 counter
+    pairs: the engine refuses before the batch's mask, BP or OSD exists."""
+    from qldpc_tpu_torch.mc import engine as engine_module
+
+    def built(*args, **kwargs):
+        raise AssertionError("built before the counter space was checked")
+
+    for name in ("BPDecoder", "SpaceTimeBPDecoder", "OSDDecoder"):
+        monkeypatch.setattr(engine_module, name, built)
+    monkeypatch.setattr(MonteCarloEngine, "_shard", built)
+    with pytest.raises(ValueError, match="counter space"):
+        MonteCarloEngine(port_code("steane"), EngineConfig(channel=channel, batch_size=2**30),
+                         device="cpu")
 
 
 def test_config_conversion_and_out_of_slice_features():

@@ -118,7 +118,7 @@ for name in ("parallel.mesh", "parallel.smoke", "examples.quickstart", "examples
              "examples.degeneracy_count"):
     assert "qldpc_tpu_torch." + name in names, name
 import chip_smoke
-for script in ("profile_torch_engine", "probe_factored_k5", "validate_port", "mesh_throughput"):
+for script in ("validate_port", "mesh_throughput"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(names))

@@ -168,13 +168,6 @@ def test_k4g_lanes_are_the_samples_past_the_factored_budget(monkeypatch):
     assert after["osd.k4g_lanes"] - before.get("osd.k4g_lanes", 0) == sum(past)
 
 
-def test_stage_times_add_no_counts():
-    eng = _cc_engine()
-    before = profiling.counts()
-    eng.stage_times(0.06, reps=1)
-    assert profiling.counts() == before
-
-
 def _batches_and_inner(spans):
     """Each ``qldpc.batch`` span with the names of the spans inside it."""
     return [(b, _inside(spans, b)) for b in spans if b[0] == "qldpc.batch"]
