@@ -56,13 +56,13 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(
-    k0, k1, x0: torch.Tensor, x1: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Threefry-2x32 with 20 rounds on int64 tensors holding uint32 words.
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds on int64 tensors or Python ints holding
+    uint32 words.
 
     ``k0``/``k1`` are Python ints or 0-d/broadcastable int64 tensors; ``x0``
-    and ``x1`` are the two counter words. Returns the two output words.
+    and ``x1`` are the two counter words, int64 tensors or Python ints.
+    Returns the two output words, Python ints when all four inputs are.
     """
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
@@ -83,12 +83,11 @@ def key(seed: int) -> torch.Tensor:
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry2x32 of the counter pair ``(0, data)``."""
+    """``jax.random.fold_in``: threefry2x32 of the counter pair ``(0, data)``,
+    one block computed on Python ints, so a batch key costs one tensor."""
     k0, k1 = (int(v) for v in k.tolist())
-    x0 = torch.zeros(1, dtype=torch.int64)
-    x1 = torch.tensor([int(data) & _MASK], dtype=torch.int64)
-    o0, o1 = threefry2x32(k0, k1, x0, x1)
-    return torch.cat([o0, o1])
+    o0, o1 = threefry2x32(k0, k1, 0, int(data) & _MASK)
+    return torch.tensor([o0, o1], dtype=torch.int64)
 
 
 def counter_uniform(

@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from qldpc_tpu.noise import channels as jax_channels
 from qldpc_tpu.utils.rng import counter_uniform as jax_counter_uniform
@@ -15,15 +16,46 @@ from qldpc_tpu_torch.utils import rng
 torch.set_num_threads(2)
 
 SEEDS = [0, 1, 7, 12345, 2**31 - 1, 2**32 + 5]
+# batch indices up to the top of the uint32 counter word
+FOLD_DATA = (0, 1, 3, 2**16 + 3, 10**6, 2**31 - 1, 2**31 + 7, 2**32 - 1)
+# the benchmark's rates: the engines key batch b of rate p as
+# fold_in(fold_in(key(seed), hash(p) % 2**31), b)
+CELL_RATES = (0.001, 0.003, 0.014360, 0.050119, 0.004)
 
 
-@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("seed", SEEDS + [2**31 + 12345, 3_000_000_019])
 def test_key_and_fold_in(seed):
     k = jax.random.key(seed)
     assert np.array_equal(rng.key(seed).numpy(), np.asarray(jax.random.key_data(k)))
-    for data in (0, 1, 3, 2**31 - 1):
+    for data in FOLD_DATA:
         ref = np.asarray(jax.random.key_data(jax.random.fold_in(k, data)))
-        assert np.array_equal(rng.fold_in(rng.key(seed), data).numpy(), ref)
+        got = rng.fold_in(rng.key(seed), data)
+        assert got.dtype == torch.int64 and got.shape == (2,)
+        assert np.array_equal(got.numpy(), ref)
+    for p in CELL_RATES:
+        kp, kpt = jax.random.fold_in(k, hash(p) % 2**31), rng.fold_in(rng.key(seed), hash(p) % 2**31)
+        for b in (0, 1, 977, 2**20 + 1):
+            ref = np.asarray(jax.random.key_data(jax.random.fold_in(kp, b)))
+            assert np.array_equal(rng.fold_in(kpt, b).numpy(), ref)
+
+
+def test_fold_in_is_one_host_block():
+    """A batch key is one threefry2x32 block on Python ints: the only torch
+    operator it dispatches is the one that builds the output tensor."""
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    kp = rng.fold_in(rng.key(2**31 + 12345), hash(0.014360) % 2**31)
+    with Count() as counter:
+        rng.fold_in(kp, 10**6)
+    assert len(counter.ops) <= 3, counter.ops
 
 
 @pytest.mark.parametrize("seed", SEEDS[:4])
