@@ -35,7 +35,8 @@ All products are over GF(2). A sample stops at a block boundary once no
 unresolved syndrome bit is left or its rank reaches rank(H) (the JAX
 ``lane_done``); exited samples cost no work: each block starts with one
 host sync that lists the samples still running, and the kernels run on
-those alone (the block's pivots are then written out through three
+those alone (counted, from that list, as ``osd.factored_blocks`` and
+``osd.factored_lanes``; the block's pivots are then written out through three
 boolean-mask reads, each a host sync too). The JAX eliminator runs a
 128-lane slab until its last lane is done, so its outputs equal this
 function's run on each sample alone.
@@ -353,6 +354,8 @@ def _eliminate(order, resid, Hc, h_rank: int, max_cols: int, kernels):
             count("host_syncs")
             if lanes.numel() == 0:
                 break
+            count("osd.factored_blocks")
+            count("osd.factored_lanes", lanes.numel())  # known since the nonzero's sync
             lanes32 = lanes.to(torch.int32)
             scur = blk * K
             ids = sched[lanes, scur: scur + K].contiguous()

@@ -1,6 +1,7 @@
 """The engine's own spans and counters (``utils.profiling``): the spans a
 profiled ``run_rate`` shows, counters that a profiler leaves unchanged, and
-the counts of host syncs and K4g lanes against what each batch does."""
+the counts of host syncs, K4g lanes and the factored loop's blocks and
+lanes against what each batch does."""
 
 import json
 
@@ -12,6 +13,7 @@ from qldpc_tpu_torch.decoders import BPConfig, OSDConfig
 from qldpc_tpu_torch.decoders import osd as osd_module
 from qldpc_tpu_torch.mc import DEMEngine, DEMEngineConfig, EngineConfig, MonteCarloEngine
 from qldpc_tpu_torch.mc.metrics import Counters
+from qldpc_tpu_torch.ops import osd_factored_cuda
 from qldpc_tpu_torch.noise.circuit import parametric_memory_dem
 from qldpc_tpu_torch.utils import profiling
 
@@ -166,6 +168,81 @@ def test_k4g_lanes_are_the_samples_past_the_factored_budget(monkeypatch):
     after = profiling.counts()
     assert len(past) == 2 and sum(past) > 0
     assert after["osd.k4g_lanes"] - before.get("osd.k4g_lanes", 0) == sum(past)
+
+
+class _FactoredLoop:
+    """Records what the factored elimination's loop does, through its first
+    kernel (K5a's plain version, a call a block with the block's running
+    samples): the blocks and the running samples of each OSD call."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        y, eliminate = osd_factored_cuda.factored_y_plain, osd_module.eliminate_factored
+
+        def y_recorded(P, lanes, *args):
+            self.calls[-1].append(int(lanes.numel()))
+            return y(P, lanes, *args)
+
+        def eliminate_recorded(*args):
+            self.calls.append([])
+            return eliminate(*args)
+
+        monkeypatch.setattr(osd_factored_cuda, "factored_y_plain", y_recorded)
+        monkeypatch.setattr(osd_module, "eliminate_factored", eliminate_recorded)
+
+    def blocks(self) -> int:
+        return sum(len(c) for c in self.calls)
+
+    def lanes(self) -> int:
+        return sum(sum(c) for c in self.calls)
+
+
+def _delta(before: dict, after: dict, name: str) -> int:
+    return after.get(name, 0) - before.get(name, 0)
+
+
+def test_factored_blocks_and_lanes_are_the_loop_s_own(factored_dem, monkeypatch):
+    loop = _FactoredLoop(monkeypatch)
+    before = profiling.counts()
+    factored_dem.run_rate(0.006, 3 * 64, seed=12)
+    after = profiling.counts()
+    assert len(loop.calls) == 3 and all(loop.calls)  # every batch reaches the loop
+    assert _delta(before, after, "osd.factored_blocks") == loop.blocks()
+    assert _delta(before, after, "osd.factored_lanes") == loop.lanes()
+    # a block takes the samples still running: never more than the block before
+    assert all(a >= b for c in loop.calls for a, b in zip(c, c[1:]))
+
+
+def test_factored_counts_are_the_same_with_and_without_a_profiler(factored_dem, tmp_path):
+    names = ("osd.factored_blocks", "osd.factored_lanes", "host_syncs")
+    got = []
+    for profiled in (False, True):
+        before = profiling.counts()
+        if profiled:
+            _profiled(lambda: factored_dem.run_rate(0.006, 2 * 64, seed=13), tmp_path)
+        else:
+            factored_dem.run_rate(0.006, 2 * 64, seed=13)
+        after = profiling.counts()
+        got.append([_delta(before, after, n) for n in names])
+    assert got[0] == got[1] and got[0][0] > 0
+
+
+def test_host_syncs_a_factored_batch_are_its_sites(factored_dem, monkeypatch):
+    """The priors' two copies, the failure count, its ``nonzero``, K4g's
+    ``nonzero`` and the overflow's copy a batch (6), and in the loop a
+    block's ``nonzero`` and three mask reads (4), and the ``nonzero`` that
+    finds no sample left where the loop ends before its last block: the
+    factored counters add none."""
+    loop = _FactoredLoop(monkeypatch)
+    eng = factored_dem
+    nb = -(-min(eng.osd.max_cols, eng.osd.n) // osd_factored_cuda.BLOCK_COLS)
+    before = profiling.counts()
+    eng.run_rate(0.006, 3 * 64, seed=14)
+    after = profiling.counts()
+    batches = after["batches"] - before["batches"]
+    assert batches == 3 and len(loop.calls) == batches
+    in_loop = sum(4 * len(c) + (len(c) < nb) for c in loop.calls)
+    assert _delta(before, after, "host_syncs") == 6 * batches + in_loop
 
 
 def _batches_and_inner(spans):
